@@ -1,0 +1,56 @@
+"""Exact cycle fast-forward for astronomically long runs.
+
+The counterpart of `gol_tpu.engine.cycles`. Finite Life boards are
+eventually periodic, and periodicity makes fast-forward bit-exact: if
+`world(t) == world(a)` then `world(t + k) == world(a + k)` for all k, so
+the remaining turns collapse modulo `m = t - a`. Equality is a full
+device-side compare (`torch.equal`, one scalar comes back) — a hit can
+never be spurious.
+
+Detection is a Brent-style anchor walk at dispatch granularity: hold an
+anchor state, compare the committed world against it at a wall-clock
+cadence, and double the anchor's lease each refresh so some anchor
+eventually lands inside the cycle with a lease long enough to see a
+full period.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+
+class CycleDetector:
+    """Feed `observe(turn, world)` after each committed dispatch; it
+    returns a period multiple `m` once `world` provably equals an
+    earlier committed state `m` turns back, else None. The steppers never
+    update a world in place, so the anchor cannot alias the moving
+    state."""
+
+    def __init__(self, interval_seconds: float = 2.0):
+        self.interval = interval_seconds
+        self._anchor = None
+        self._anchor_turn = -1
+        self._lease = 1  # compares until the anchor is replaced
+        self._used = 0
+        self._next_check = time.monotonic() + interval_seconds
+
+    def observe(self, turn: int, world: torch.Tensor) -> int | None:
+        now = time.monotonic()
+        if now < self._next_check:
+            return None
+        self._next_check = now + self.interval
+        if self._anchor is None:
+            self._anchor, self._anchor_turn = world, turn
+            return None
+        # One scalar realization; the compare itself runs on the device.
+        if torch.equal(self._anchor, world):
+            return turn - self._anchor_turn
+        self._used += 1
+        if self._used >= self._lease:
+            # Brent doubling: a longer-lived anchor further along the orbit.
+            self._anchor, self._anchor_turn = world, turn
+            self._lease *= 2
+            self._used = 0
+        return None

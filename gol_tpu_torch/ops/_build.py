@@ -1,0 +1,126 @@
+"""Build and load the hand-written CUDA kernels of this package.
+
+`nvcc` compiles `gol_tpu_torch/csrc/*.cu` into one shared library with a
+plain C interface, loaded with `ctypes` — no PyTorch headers, so the
+build takes seconds. The library goes to `build/gol_tpu_torch/` at the
+repository root (git-ignored), named by a hash of the sources and the
+flags, so an edited source rebuilds and an unchanged one loads from the
+cache. Nothing here runs at import: the first kernel launch builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+
+from gol_tpu_torch.obs import device, flight
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "gol_tpu_torch"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib = None
+#: What the last build printed (ptxas register / shared-memory report)
+#: and how long it took; empty when the library came from the cache.
+build_log = ""
+build_seconds = 0.0
+
+_VP, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+_SIGNATURES = {
+    "bitlife_resident_launch": [_VP, _VP, _I, _I, _I, _U, _U, _I, _I, _VP],
+    "bitlife_tiled_launch": [_VP, _VP, _I, _I, _I, _I, _I, _I, _I, _U, _U,
+                             _I, _I, _VP],
+}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH): the CUDA kernels of gol_tpu_torch are built from "
+            "source at first use"
+        )
+    return found
+
+
+def _sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> pathlib.Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libgol_tpu_torch-{h.hexdigest()[:16]}.so"
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' library: built on the first call of the process if
+    the cache has no library for these sources, then loaded once."""
+    global _lib, build_log, build_seconds
+    with _lock:
+        if _lib is not None:
+            return _lib
+        path = library_path()
+        if not path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+            os.close(fd)
+            t0 = time.perf_counter()
+            try:
+                proc = subprocess.run(
+                    [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                     *map(str, _sources())],
+                    capture_output=True, text=True,
+                )
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        "nvcc failed building gol_tpu_torch kernels:\n"
+                        + proc.stdout + proc.stderr
+                    )
+                os.replace(tmp, path)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+            build_seconds = time.perf_counter() - t0
+            build_log = proc.stdout + proc.stderr
+            flight.note("kernels.build", library=path.name,
+                        seconds=round(build_seconds, 3),
+                        cause=device.current_cause())
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.bitlife_error_string.argtypes = [ctypes.c_int]
+        lib.bitlife_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a launcher reported a CUDA error."""
+    if code != 0:
+        msg = lib.bitlife_error_string(code).decode(errors="replace")
+        raise RuntimeError(f"{what}: CUDA error {code}: {msg}")

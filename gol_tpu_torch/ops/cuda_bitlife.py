@@ -1,0 +1,291 @@
+"""Packed Game of Life kernels in hand-written CUDA for Hopper.
+
+The counterpart of `gol_tpu.ops.pallas_bitlife`. Every entry point
+computes one function — (packed int32 board, n, rule) -> packed board
+after n toroidal turns — and is held bit-exact against the plain
+version `ops.bitlife.step_n_packed_raw`:
+
+- `step_n_packed_cuda_raw`: kernel A (`bitlife_resident` in
+  csrc/bitlife.cu), the whole board resident in one block's shared
+  memory for all n turns. Replaces `step_n_packed_pallas_raw`.
+- `step_n_packed_tiled_raw` / `step_n_packed_tiled2d_raw`: kernel B
+  (`bitlife_tiled`), temporally blocked tiles with ghost word-rows and
+  ghost columns, k <= min(32*halo, ghost) turns per launch. Replaces
+  `step_n_packed_pallas_tiled_raw` and
+  `step_n_packed_pallas_tiled2d_raw`; both keep their names and
+  override knobs.
+
+The TPU kernels' Mosaic blocking (8-sublane slices, VMEM budgets) is not
+carried over; what is kept is the light cone: an h-word vertical halo
+keeps a tile interior exact for 32*h turns, g ghost columns for g turns.
+
+Wrappers: a CPU tensor runs the plain version; a CUDA tensor launches
+the kernel (after device, dtype, shape and contiguity checks) or raises
+— there is no fallback. Outputs are allocated with `torch.empty`, the
+launch goes on the current stream, and the launcher's
+`cudaGetLastError()` is checked after every launch. `LAUNCHES` counts
+the launches of each kernel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from gol_tpu_torch.models.rules import LIFE, Rule
+from gol_tpu_torch.ops import bitlife, rulecomp
+from gol_tpu_torch.ops.bitlife import WORD, pack, unpack
+from gol_tpu_torch.ops.life import from_bits, to_bits
+
+#: Dynamic shared memory one block may use on the H100 (227 KB).
+SMEM_BYTES = 232_448
+#: Threads per block of kernel A (one block per board) and kernel B.
+RESIDENT_THREADS = 1024
+TILED_THREADS = 512
+#: Default tile of kernel B: 32 word-rows (1024 cells) x 256 columns.
+TILE_ROWS = 32
+TILE_COLS = 256
+#: Turns bought per halo word-row (one bit-row of light cone per turn).
+TILE_TURNS = WORD
+#: Deepest halo the tiled entry point accepts (gol_tpu's bound).
+MAX_HALO_WORDS = 8
+#: Ghost columns per side of the 2-D entry point (one turn each).
+GHOST_COLS = 32
+#: Largest grid height CUDA accepts.
+_MAX_GRID_Y = 65_535
+
+#: The combine forms of `rulecomp.compile_rule`, as kernel arguments.
+COMBINE = {"b_subset": 0, "s_subset": 1, "general": 2}
+
+#: Launches per kernel. Each wrapper adds one where it launches, and
+#: nowhere else; callers reset the counts by assigning 0.
+LAUNCHES = {"bitlife_resident": 0, "bitlife_tiled": 0}
+
+
+def rule_args(rule: Rule) -> tuple:
+    """(birth mask, survive mask, combine form) kernel arguments: bit c
+    of a mask is set when count c is in the rule's set."""
+    birth = sum(1 << c for c in rule.birth if 0 <= c <= 8)
+    survive = sum(1 << c for c in rule.survive if 0 <= c <= 8)
+    return birth, survive, COMBINE[rulecomp.compile_rule(rule).combine]
+
+
+def _resident_bytes(rows: int, cols: int) -> int:
+    return 2 * 4 * rows * cols  # two ping-pong copies of the board
+
+
+def fits_cuda_packed(height: int, width: int) -> bool:
+    """Kernel A eligibility: whole words, and two copies of the packed
+    board within one block's shared memory (512² is 16 x 512 words,
+    64 KiB for both copies)."""
+    if not bitlife.packable(height, width):
+        return False
+    return _resident_bytes(height // WORD, width) <= SMEM_BYTES
+
+
+def fits_cuda_packed_tiled(height: int, width: int) -> bool:
+    """Kernel B, through either entry point, takes any packed board
+    (tiles may be ragged at the board's edge)."""
+    return bitlife.packable(height, width)
+
+
+def _check_cuda(p: torch.Tensor) -> None:
+    if p.device.type != "cuda":
+        raise ValueError(f"kernel input must be on a CUDA device, not {p.device}")
+    if p.dtype != torch.int32:
+        raise TypeError(f"packed board must be int32, got {p.dtype}")
+    if p.dim() != 2 or p.shape[0] < 1 or p.shape[1] < 1:
+        raise ValueError(f"packed board must be 2-D, got shape {tuple(p.shape)}")
+    if not p.is_contiguous():
+        raise ValueError("packed board must be contiguous")
+
+
+def _stream(p: torch.Tensor) -> int:
+    return torch.cuda.current_stream(p.device).cuda_stream
+
+
+def step_n_packed_cuda_raw(p: torch.Tensor, n: int,
+                           rule: Rule = LIFE) -> torch.Tensor:
+    """`n` turns, packed int32 in / packed int32 out, one launch of
+    kernel A (the whole board resident in shared memory)."""
+    if n < 0:
+        raise ValueError("n must be >= 0")
+    if p.device.type == "cpu":
+        return bitlife.step_n_packed_raw(p, n, rule)
+    from gol_tpu_torch.ops import _build
+
+    _check_cuda(p)
+    rows, cols = p.shape
+    if _resident_bytes(rows, cols) > SMEM_BYTES:
+        raise ValueError(
+            f"packed board {rows}x{cols} needs {_resident_bytes(rows, cols)} "
+            f"bytes of shared memory, over the {SMEM_BYTES} one block has"
+        )
+    lib = _build.load()
+    birth, survive, combine = rule_args(rule)
+    threads = min(RESIDENT_THREADS, -(-rows * cols // 32) * 32)
+    out = torch.empty_like(p)
+    with torch.cuda.device(p.device):
+        code = lib.bitlife_resident_launch(
+            p.data_ptr(), out.data_ptr(), rows, cols, n, birth, survive,
+            combine, threads, _stream(p),
+        )
+        LAUNCHES["bitlife_resident"] += 1
+    _build.check(lib, code, "bitlife_resident")
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class TileGeometry:
+    """One launch shape of kernel B: the tile interior (word-rows x
+    columns) and its ghost frame (word-rows and columns per side)."""
+
+    tile_rows: int
+    tile_cols: int
+    halo: int
+    ghost: int
+
+    @property
+    def turns(self) -> int:
+        """Turns one full pass may run: the smaller light cone."""
+        return min(TILE_TURNS * self.halo, self.ghost)
+
+    @property
+    def smem_bytes(self) -> int:
+        return (2 * 4 * (self.tile_rows + 2 * self.halo)
+                * (self.tile_cols + 2 * self.ghost))
+
+
+def _geometry(rows: int, width: int, tile_rows: int, halo: int,
+              ghost: int) -> TileGeometry:
+    """Widest tile (TILE_COLS, halved down to 32 columns) whose two
+    shared-memory copies of the ghost-extended tile fit one block."""
+    tc = min(TILE_COLS, width)
+    geom = TileGeometry(tile_rows, tc, halo, ghost)
+    while geom.smem_bytes > SMEM_BYTES and tc > 32:
+        tc //= 2
+        geom = TileGeometry(tile_rows, tc, halo, ghost)
+    if geom.smem_bytes > SMEM_BYTES:
+        raise ValueError(
+            f"a {tile_rows}-row tile with halo {halo} and {ghost} ghost "
+            f"columns needs {geom.smem_bytes} bytes of shared memory, over "
+            f"the {SMEM_BYTES} one block has"
+        )
+    if -(-rows // tile_rows) > _MAX_GRID_Y:
+        raise ValueError(f"{rows} word rows need more than {_MAX_GRID_Y} "
+                         f"tiles of {tile_rows} rows")
+    return geom
+
+
+def _auto_rows(rows: int) -> int:
+    """Default tile height: the largest multiple of 8 up to TILE_ROWS
+    that divides the packed row count, else TILE_ROWS (or the whole
+    board when it is shorter) with a ragged last tile."""
+    for r in range(TILE_ROWS, 7, -8):
+        if rows % r == 0:
+            return r
+    return min(rows, TILE_ROWS)
+
+
+def _tile_plan(rows: int, width: int, strip_rows: int | None,
+               halo_words: int | None) -> TileGeometry:
+    """The tiled entry point's geometry: `strip_rows` sets the tile
+    height, `halo_words` the halo depth h, with 32*h ghost columns so a
+    pass runs 32*h turns (the turns per pass of gol_tpu's strip kernel)."""
+    if strip_rows is not None and (rows % strip_rows != 0 or strip_rows % 8 != 0):
+        raise ValueError(
+            f"strip_rows={strip_rows} must divide the packed row count "
+            f"{rows} and be a multiple of 8"
+        )
+    if halo_words is not None and not 1 <= halo_words <= MAX_HALO_WORDS:
+        raise ValueError(
+            f"halo_words={halo_words} must be in 1..{MAX_HALO_WORDS}"
+        )
+    h = halo_words or 1
+    return _geometry(rows, width, strip_rows or _auto_rows(rows), h,
+                     TILE_TURNS * h)
+
+
+def _tiled_pass(src: torch.Tensor, dst: torch.Tensor, k: int, rule: Rule,
+                geom: TileGeometry) -> torch.Tensor:
+    """One pass of k <= geom.turns turns from `src` into `dst` (never the
+    same buffer: other tiles read this tile's ghosts from `src`)."""
+    if not 0 <= k <= geom.turns:
+        raise ValueError(f"k={k} outside the light cone 0..{geom.turns}")
+    if src.device.type == "cpu":
+        return dst.copy_(bitlife.step_n_packed_raw(src, k, rule))
+    from gol_tpu_torch.ops import _build
+
+    _check_cuda(src)
+    _check_cuda(dst)
+    if dst.shape != src.shape or dst.data_ptr() == src.data_ptr():
+        raise ValueError("a tiled pass needs a separate output of the same shape")
+    lib = _build.load()
+    rows, cols = src.shape
+    birth, survive, combine = rule_args(rule)
+    with torch.cuda.device(src.device):
+        code = lib.bitlife_tiled_launch(
+            src.data_ptr(), dst.data_ptr(), rows, cols, geom.tile_rows,
+            geom.tile_cols, geom.halo, geom.ghost, k, birth, survive,
+            combine, TILED_THREADS, _stream(src),
+        )
+        LAUNCHES["bitlife_tiled"] += 1
+    _build.check(lib, code, "bitlife_tiled")
+    return dst
+
+
+def _run_passes(p: torch.Tensor, n: int, rule: Rule,
+                geom: TileGeometry) -> torch.Tensor:
+    """⌈n / k⌉ passes of kernel B, ping-ponging two buffers (the input is
+    never written); the remainder pass keeps only the halo its own light
+    cone needs."""
+    if n < 0:
+        raise ValueError("n must be >= 0")
+    k = geom.turns
+    whole, rem = divmod(n, k)
+    passes = [(k, geom)] * whole
+    if rem:
+        h_rem = min(geom.halo, -(-rem // TILE_TURNS))
+        passes.append((rem, dataclasses.replace(geom, halo=h_rem)))
+    bufs = [torch.empty_like(p) for _ in range(min(len(passes), 2))]
+    for i, (turns, g) in enumerate(passes):
+        p = _tiled_pass(p, bufs[i % 2], turns, rule, g)
+    return p
+
+
+def step_n_packed_tiled_raw(p: torch.Tensor, n: int, rule: Rule = LIFE,
+                            strip_rows: int | None = None,
+                            halo_words: int | None = None) -> torch.Tensor:
+    """`n` turns, packed in/out, through kernel B with `strip_rows`-row
+    tiles and an h = `halo_words` halo (32*h turns per launch). The
+    overrides keep gol_tpu's checks: strip_rows divides the packed row
+    count in multiples of 8, halo_words is in 1..8."""
+    rows, width = p.shape
+    return _run_passes(p, n, rule,
+                       _tile_plan(rows, width, strip_rows, halo_words))
+
+
+def step_n_packed_tiled2d_raw(p: torch.Tensor, n: int, rule: Rule = LIFE,
+                              tile_rows: int | None = None) -> torch.Tensor:
+    """`n` turns, packed in/out, through kernel B with (tile_rows x
+    TILE_COLS) tiles, a one-word halo and GHOST_COLS ghost columns — 32
+    turns per launch. `tile_rows` keeps gol_tpu's check: it divides the
+    packed row count in 8-row units."""
+    rows, width = p.shape
+    if tile_rows is not None and (rows % tile_rows != 0 or tile_rows % 8 != 0):
+        raise ValueError(
+            f"tile_rows={tile_rows} must divide {rows} in 8-row units"
+        )
+    geom = _geometry(rows, width, tile_rows or _auto_rows(rows), 1,
+                     GHOST_COLS)
+    return _run_passes(p, n, rule, geom)
+
+
+def step_n_cuda_packed(world: torch.Tensor, n: int,
+                       rule: Rule = LIFE) -> torch.Tensor:
+    """`n` turns on a {0,255} uint8 world via kernel A — drop-in for
+    `ops.life.step_n` when `fits_cuda_packed(H, W)`."""
+    world = torch.as_tensor(world)
+    p = step_n_packed_cuda_raw(pack(to_bits(world)), n, rule)
+    return from_bits(unpack(p, world.shape[0]))
