@@ -5,12 +5,15 @@
 Run from the repository root on a machine with one NVIDIA H100. It
 builds the hand-written CUDA kernels from `gol_tpu_torch/csrc`, holds
 each kernel bit-exact against its plain PyTorch version, drives the
-port's main path (`gol_tpu_torch.run` at 512² against the golden
-fixtures and at 16384² against the plain version), runs the CLI, and
-prints the `kernels` JSON line, the card's name and power limit, and a
-last line `{"ok": true, "device": {...}}`. Any failed phase raises, so
-the script exits nonzero and prints no result. Without a CUDA device,
-or without the repository beside it, it exits nonzero at once.
+port's paths through `gol_tpu_torch.run` — Life at 512² against the
+golden fixtures and at 16384² against the plain version; Generations
+(B/S/C) rules at 64² against the rules fixtures, at 512² against the
+plain planes and at 16384² against the plain planes; the dense CUDA
+backend at 512² against the golden fixture — runs the CLI, and prints
+the `kernels` JSON line, the card's name and power limit, and a last
+line `{"ok": true, "device": {...}}`. Any failed phase raises, so the
+script exits nonzero and prints no result. Without a CUDA device, or
+without the repository beside it, it exits nonzero at once.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -39,6 +42,19 @@ KERNELS = {
         "source": "gol_tpu_torch/csrc/bitlife.cu",
         "replaces": "gol_tpu/ops/pallas_bitlife.py:437",
         "also_replaces": "gol_tpu/ops/pallas_bitlife.py:300",
+    },
+    "bitgens_resident": {
+        "source": "gol_tpu_torch/csrc/bitgens.cu",
+        "replaces": "gol_tpu/ops/pallas_bitgens.py:163",
+    },
+    "bitgens_tiled": {
+        "source": "gol_tpu_torch/csrc/bitgens.cu",
+        "replaces": "gol_tpu/ops/pallas_bitgens.py:403",
+        "also_replaces": "gol_tpu/ops/pallas_bitgens.py:253",
+    },
+    "life_dense": {
+        "source": "gol_tpu_torch/csrc/life.cu",
+        "replaces": "gol_tpu/ops/pallas_life.py:89",
     },
 }
 
@@ -112,13 +128,87 @@ def life_fewest_instructions(p):
     return ins(g & (p | z0)), count            # 3, or 4 with the centre alive
 
 
-def bound_ms(words: int, turns: int, ops_per_word: int,
-             int_ops_per_s: float) -> tuple:
-    """(least ms, what bounds it) for `turns` turns of a `words`-word
-    board: input read once and output written once (8 bytes per word),
-    against `ops_per_word` INT32 instructions per word per turn."""
-    byte_s = 2 * 4 * words / HBM_BYTES_PER_S
-    op_s = words * turns * ops_per_word / int_ops_per_s
+def gens_fewest_instructions(planes):
+    """One B2/S/C3 (Brian's Brain) turn of packed int32 planes (alive,
+    dying), counted as `life_fewest_instructions` counts Life. Birth
+    needs a dead centre, so the nine-cell sum equals the neighbour count
+    wherever it matters: new alive = [sum9 == 2] & ~alive & ~dying. The
+    survive set is empty, so the new dying plane IS the old alive plane
+    (a rename, no instruction) and the old dying plane falls off.
+    Returns (next planes, instructions per word)."""
+    import torch
+
+    from gol_tpu_torch.ops.bitlife import lsr
+
+    count = 0
+
+    def ins(v):
+        nonlocal count
+        count += 1
+        return v
+
+    def maj(a, b, c):
+        return (a & b) | (a & c) | (b & c)
+
+    def west(x):
+        return torch.roll(x, 1, 1)
+
+    def east(x):
+        return torch.roll(x, -1, 1)
+
+    p, dying = planes[0], planes[1]
+    up = ins((p << 1) | lsr(torch.roll(p, 1, 0), 31))     # SHF: row y-1
+    down = ins(lsr(p, 1) | (torch.roll(p, -1, 0) << 31))  # SHF: row y+1
+    s = ins(up ^ p ^ down)                     # column sum, bit 0
+    c = ins(maj(up, p, down))                  # column sum, bit 1
+    z0 = ins(west(s) ^ s ^ east(s))            # sum9 bit 0
+    c0 = ins(maj(west(s), s, east(s)))         # its carry (weight 2)
+    a = ins(west(c) ^ c ^ east(c))             # weight-2 parity
+    m = ins(maj(west(c), c, east(c)))          # weight-4 carry
+    b1 = ins(a ^ c0)                           # sum9 bit 1
+    b2 = ins(m ^ (a & c0))                     # sum9 bit 2 (bit 3: 8 or 9)
+    g = ins(~z0 & b1 & ~b2)                    # sum9 == 2
+    born = ins(g & ~p & ~dying)                # ... on a dead cell
+    return torch.stack([born, p]), count
+
+
+def dense_fewest_instructions(bits):
+    """One B3/S23 turn of a dense {0,1} uint8 (H, W) board, W % 4 == 0,
+    in byte-SIMD form: four cells per 32-bit word (byte k = column
+    4j+k), each `ins(...)` one 32-bit integer instruction (IADD/IADD3,
+    a funnel shift SHF, a LOP3). No byte overflows: the vertical sum is
+    at most 3, the neighbour count 8. next = [(count | alive) == 3].
+    Returns (next board as {0,1} uint8, instructions per word)."""
+    import torch
+
+    from gol_tpu_torch.ops.bitlife import lsr
+
+    count = 0
+
+    def ins(v):
+        nonlocal count
+        count += 1
+        return v
+
+    w = bits.contiguous().view(torch.int32)
+    ns = ins(torch.roll(w, 1, 0) + torch.roll(w, -1, 0))  # IADD: rows y±1
+    v = ins(ns + w)                                       # IADD: triple
+    left = ins((v << 8) | lsr(torch.roll(v, 1, 1), 24))   # SHF: column x-1
+    right = ins(lsr(v, 8) | (torch.roll(v, -1, 1) << 24))  # SHF: column x+1
+    n8 = ins(left + right + ns)                # IADD3: neighbour count
+    x = ins((n8 | w) ^ 0x03030303)             # LOP3: byte 0 iff == 3
+    z = ins(x + 0x0F0F0F0F)                    # IADD: bit 4 set iff x != 0
+    t = ins(lsr(z, 4))                         # SHF
+    nxt = ins(~t & 0x01010101)                 # LOP3
+    return nxt.view(torch.uint8), count
+
+
+def bound_ms(nbytes: int, ops: int, int_ops_per_s: float) -> tuple:
+    """(least ms, what bounds it): `nbytes` (each input read once, each
+    output written once) over the memory rate against `ops` INT32
+    instructions over the INT32 rate."""
+    byte_s = nbytes / HBM_BYTES_PER_S
+    op_s = ops / int_ops_per_s
     return (max(byte_s, op_s) * 1e3,
             "operations" if op_s >= byte_s else "bytes")
 
@@ -155,9 +245,49 @@ def drain_timed(events, timeout: float = 600.0) -> list:
         out.append((time.time(), ev))
 
 
+def wall_split(t0: float, timed: list) -> str:
+    """Where a run's wall time went, from the engine's own flight notes
+    (one per committed dispatch) and the arrival of the tail events."""
+    from gol_tpu_torch import FinalTurnComplete, ImageOutputComplete
+    from gol_tpu_torch.obs import flight
+
+    commits = [ts for ts, kind, _ in flight.FLIGHT.entries
+               if kind == "engine.commit" and ts >= t0]
+    t_image = next(t for t, e in timed if isinstance(e, ImageOutputComplete))
+    t_final = next(t for t, e in timed if isinstance(e, FinalTurnComplete))
+    return (f"start->turn-0 commit (put) {commits[0] - t0:.3f} s, "
+            f"{len(commits) - 1} chunk dispatches {commits[-1] - commits[0]:.3f} s, "
+            f"->snapshot written (device drain, fetch, PGM write) "
+            f"{t_image - commits[-1]:.3f} s, ->FinalTurnComplete (fetch, "
+            f"alive list) {t_final - t_image:.3f} s")
+
+
+def gens_planes(rule, h: int, w: int, gen):
+    """Packed one-hot planes of random states 0..C-1 on the card."""
+    import torch
+
+    from gol_tpu_torch.ops import bitlife
+
+    states = torch.randint(0, rule.states, (h, w), dtype=torch.uint8,
+                           generator=gen).cuda()
+    return torch.stack([bitlife.pack(states == s)
+                        for s in range(1, rule.states)])
+
+
+def plain_turns(step_n, p, ns) -> dict:
+    """{n: the plain version after n turns} for every n in `ns`, each
+    from the previous one."""
+    out, q, at = {}, p, 0
+    for n in sorted(set(ns)):
+        q = step_n(q, n - at)
+        at = n
+        out[n] = q
+    return out
+
+
 def check_kernels(errs: dict) -> None:
-    """Phase 3: every kernel against its plain version on the card,
-    bit-exact, at the main path's shapes and the listed seams."""
+    """Phase 3: kernels A and B against the plain packed step on the
+    card, bit-exact, at the main path's shapes and the listed seams."""
     import torch
 
     from gol_tpu_torch.models.rules import Rule, get_rule
@@ -175,20 +305,13 @@ def check_kernels(errs: dict) -> None:
         return torch.randint(-2**31, 2**31 - 1, (h // 32, w),
                              dtype=torch.int32, generator=gen).cuda()
 
-    def plains(p, ns, rule):
-        out, q, at = {}, p, 0
-        for n in sorted(set(ns)):
-            q = bitlife.step_n_packed_raw(q, n - at, rule)
-            at = n
-            out[n] = q
-        return out
-
     checked = 0
     for rule in rules:
         for side in (64, 512):
             p = board(side, side)
             ns = (1, 7, 8, 9, 31, 32, 33, 100)
-            want = plains(p, ns, rule)
+            want = plain_turns(
+                lambda x, k: bitlife.step_n_packed_raw(x, k, rule), p, ns)
             for n in ns:
                 got = cb.step_n_packed_cuda_raw(p, n, rule)
                 torch.cuda.synchronize()
@@ -206,8 +329,10 @@ def check_kernels(errs: dict) -> None:
                 ("tiled", {}, 32),
                 ("tiled", {"strip_rows": 8, "halo_words": 2}, 64),
             ]
-            want = plains(p, [n for _, _, k in variants
-                              for n in (k - 1, k, k + 1, 2 * k + 3)], rule)
+            want = plain_turns(
+                lambda x, k: bitlife.step_n_packed_raw(x, k, rule), p,
+                [n for _, _, k in variants
+                 for n in (k - 1, k, k + 1, 2 * k + 3)])
             for entry, kw, k in variants:
                 fn = (cb.step_n_packed_tiled2d_raw if entry == "tiled2d"
                       else cb.step_n_packed_tiled_raw)
@@ -226,6 +351,108 @@ def check_kernels(errs: dict) -> None:
     phase("kernels", f"{checked} kernel runs bit-exact against the plain "
                      f"version (rules {[str(r) for r in rules]}, "
                      f"max_abs_err {max(errs.values())})")
+
+
+def check_gens_kernels(errs: dict) -> None:
+    """Phase 3b: kernels C and D against the plain planes on the card,
+    bit-exact, at the main paths' shapes and the listed seams."""
+    import torch
+
+    from gol_tpu_torch.models.rules import GenRule, get_rule
+    from gol_tpu_torch.ops import bitgens
+    from gol_tpu_torch.ops import cuda_bitgens as cg
+
+    rng = random.Random(21)
+
+    def random_rule(states):
+        return GenRule(name=f"random-b0free-C{states}",
+                       birth=frozenset(rng.sample(range(1, 9), 3)),
+                       survive=frozenset(rng.sample(range(9), 3)),
+                       states=states)
+
+    gen = torch.Generator().manual_seed(1)
+    checked = 0
+    resident_rules = [get_rule("B2/S/C3"), get_rule("B2/S345/C4"),
+                      get_rule("B36/S23/C2"), random_rule(5)]
+    for rule in resident_rules:
+        for side in (64, 512):
+            q = gens_planes(rule, side, side, gen)
+            ns = (1, 7, 31, 32, 33, 100)
+            want = plain_turns(
+                lambda x, k: bitgens.step_n_packed_gens_raw(x, k, rule), q, ns)
+            for n in ns:
+                got = cg.step_n_packed_gens_cuda_raw(q, n, rule)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want[n])
+                errs["bitgens_resident"] = max(errs["bitgens_resident"], err)
+                if err:
+                    raise AssertionError(
+                        f"bitgens_resident {side}² n={n} {rule}: mismatch")
+                checked += 1
+    tiled_cases = [(4096, get_rule("B2/S/C3")), (16384, get_rule("B2/S/C3")),
+                   (512, random_rule(8))]
+    for side, rule in tiled_cases:
+        if side == 512 and cg.fits_cuda_gens(side, side, rule):
+            raise AssertionError("the C=8 case must lie past kernel C's gate")
+        q = gens_planes(rule, side, side, gen)
+        variants = [
+            ("tiled2d", {}, 32),
+            ("tiled2d", {"tile_rows": 8}, 32),
+            ("tiled", {}, 32),
+            ("tiled", {"strip_rows": 8, "halo_words": 2}, 64),
+        ]
+        want = plain_turns(
+            lambda x, k: bitgens.step_n_packed_gens_raw(x, k, rule), q,
+            [n for _, _, k in variants for n in (k - 1, k, k + 1, 2 * k + 3)])
+        for entry, kw, k in variants:
+            fn = (cg.step_n_packed_gens_tiled2d_raw if entry == "tiled2d"
+                  else cg.step_n_packed_gens_tiled_raw)
+            for n in (k - 1, k, k + 1, 2 * k + 3):
+                got = fn(q, n, rule, **kw)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want[n])
+                errs["bitgens_tiled"] = max(errs["bitgens_tiled"], err)
+                if err:
+                    raise AssertionError(
+                        f"bitgens_tiled via {entry}{kw} {side}² n={n} "
+                        f"{rule}: mismatch")
+                checked += 1
+        del q, want
+        torch.cuda.empty_cache()
+    rules = sorted({str(r) for r in resident_rules}
+                   | {str(r) for _, r in tiled_cases})
+    phase("kernels", f"{checked} Generations kernel runs bit-exact against "
+                     f"the plain planes (rules {rules}, max_abs_err "
+                     f"{max(errs['bitgens_resident'], errs['bitgens_tiled'])})")
+
+
+def check_dense_kernel(errs: dict) -> None:
+    """Phase 3c: kernel E against the plain dense step on the card,
+    bit-exact."""
+    import torch
+
+    from gol_tpu_torch.models.rules import get_rule
+    from gol_tpu_torch.ops import cuda_life as cl
+    from gol_tpu_torch.ops import life
+
+    checked = 0
+    for rule in (get_rule("B3/S23"), get_rule("B36/S23")):
+        for h, w in ((512, 512), (512, 1024)):
+            world = torch.from_numpy(life.random_world(h, w, seed=h + w)).cuda()
+            ns = (1, 31, 32, 33, 100)
+            want = plain_turns(lambda x, k: life.step_n(x, k, rule), world, ns)
+            for n in ns:
+                got = cl.step_n_cuda_dense(world, n, rule)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want[n])
+                errs["life_dense"] = max(errs["life_dense"], err)
+                if err:
+                    raise AssertionError(f"life_dense {h}x{w} n={n} {rule}: "
+                                         "mismatch")
+                checked += 1
+    phase("kernels", f"{checked} dense kernel runs bit-exact against the "
+                     f"plain step (B3/S23, B36/S23; max_abs_err "
+                     f"{errs['life_dense']})")
 
 
 def main_path_512(tmp: pathlib.Path) -> int:
@@ -277,9 +504,8 @@ def main_path_16384(tmp: pathlib.Path, card: str) -> tuple:
     import torch
 
     import gol_tpu_torch
-    from gol_tpu_torch import FinalTurnComplete, ImageOutputComplete, Params
+    from gol_tpu_torch import FinalTurnComplete, Params
     from gol_tpu_torch.io.pgm import read_pgm
-    from gol_tpu_torch.obs import flight
     from gol_tpu_torch.ops import bitlife, life
     from gol_tpu_torch.ops import cuda_bitlife as cb
 
@@ -296,17 +522,7 @@ def main_path_16384(tmp: pathlib.Path, card: str) -> tuple:
     wall = time.time() - t0
     launches = cb.LAUNCHES["bitlife_tiled"]
     evs = [ev for _, ev in timed]
-    # Where the wall time went, from the engine's own flight notes (one
-    # per committed dispatch) and the arrival of the tail events.
-    commits = [ts for ts, kind, _ in flight.FLIGHT.entries
-               if kind == "engine.commit" and ts >= t0]
-    t_image = next(t for t, e in timed if isinstance(e, ImageOutputComplete))
-    t_final = next(t for t, e in timed if isinstance(e, FinalTurnComplete))
-    split = (f"start->turn-0 commit (put) {commits[0] - t0:.3f} s, "
-             f"{len(commits) - 1} chunk dispatches {commits[-1] - commits[0]:.3f} s, "
-             f"->snapshot written (device drain, fetch, PGM write) "
-             f"{t_image - commits[-1]:.3f} s, ->FinalTurnComplete (fetch, "
-             f"alive list) {t_final - t_image:.3f} s")
+    split = wall_split(t0, timed)
     if launches <= 0:
         raise AssertionError("the 16384² main path never launched bitlife_tiled")
     final = [e for e in evs if isinstance(e, FinalTurnComplete)]
@@ -326,6 +542,184 @@ def main_path_16384(tmp: pathlib.Path, card: str) -> tuple:
                         f"turns/s, {side * side * turns / wall / 1e9:.3f} "
                         f"Gcells/s end to end ({wall:.2f} s wall: {split}) "
                         f"on {card}")
+    return launches
+
+
+def main_gens_64(tmp: pathlib.Path) -> None:
+    """Phase 5b: run(Params 64², B2/S/C3 and B2/S345/C4, 100 turns) with
+    backend auto on the card; PGMs byte-equal to the rules fixtures."""
+    import gol_tpu_torch
+    from gol_tpu_torch import Params
+    from gol_tpu_torch.parallel import make_stepper
+
+    for notation in ("B2/S/C3", "B2/S345/C4"):
+        name = make_stepper(height=64, width=64, rule=notation).name
+        if name != "generations-cuda-packed-1":
+            raise AssertionError(f"auto stepper for {notation} at 64² is {name}")
+        out = tmp / f"gens64-{notation.replace('/', '_')}"
+        drain(gol_tpu_torch.run(Params(
+            image_width=64, image_height=64, turns=100, rule=notation,
+            chunk=0, image_dir=str(FIXTURES / "images"), out_dir=str(out)),
+            emit_flips=False))
+        golden = (FIXTURES / "check/rules"
+                  / f"64x64x100_{notation.replace('/', '_')}.pgm")
+        if (out / "64x64x100.pgm").read_bytes() != golden.read_bytes():
+            raise AssertionError(f"64² {notation}: PGM differs from {golden.name}")
+        phase("main-gens-64", f"run(Params 64x64, {notation}, 100 turns) "
+                              f"byte-equal to {golden.name}")
+
+
+def main_gens_512(tmp: pathlib.Path) -> int:
+    """Phase 5c: run(Params) on fixtures/images/512x512.pgm, B2/S/C3,
+    100 turns, headless through kernel C, against the same run on the
+    plain planes (backend "packed") on the card: PGM, FinalTurnComplete
+    (state-1 cells) and the last (turn, alive count) pair equal, and
+    every AliveCellsCount equal to the plain planes' count at its turn.
+    The run ends in well under a tick, so the ticker may emit no event;
+    the last pair is the one it would report, read from the engine."""
+    from gol_tpu_torch import AliveCellsCount, FinalTurnComplete, Params
+    from gol_tpu_torch.engine.distributor import Engine
+    from gol_tpu_torch.io.pgm import read_pgm
+    from gol_tpu_torch.models.rules import get_rule
+    from gol_tpu_torch.ops import bitgens, bitlife
+    from gol_tpu_torch.ops import cuda_bitgens as cg
+    from gol_tpu_torch.parallel import make_stepper
+
+    rule, turns = "B2/S/C3", 100
+    ref = make_stepper(height=512, width=512, rule=rule, backend="packed")
+    q = ref.put(read_pgm(FIXTURES / "images/512x512.pgm"))
+    counts = [int(bitlife.count_packed(q[0]).item())]
+    for _ in range(turns):
+        q = bitgens.step_packed_gens(q, get_rule(rule))
+        counts.append(int(bitlife.count_packed(q[0]).item()))
+    runs = {}
+    for backend in ("auto", "packed"):
+        out = tmp / f"gens512-{backend}"
+        params = Params(image_width=512, image_height=512, turns=turns,
+                        rule=rule, chunk=0, backend=backend,
+                        tick_seconds=0.001,
+                        image_dir=str(FIXTURES / "images"), out_dir=str(out))
+        name = make_stepper(height=512, width=512, rule=rule,
+                            backend=backend).name
+        if backend == "auto":
+            if name != "generations-cuda-packed-1":
+                raise AssertionError(f"auto Generations stepper at 512² is {name}")
+            for k in cg.LAUNCHES:
+                cg.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        engine = Engine(params, emit_flips=False).start()
+        evs = drain(engine.events)
+        wall = time.perf_counter() - t0
+        engine.join(timeout=60)
+        last = engine.alive_count_now()
+        if backend == "auto":
+            launches = cg.LAUNCHES["bitgens_resident"]
+        final = [e for e in evs if isinstance(e, FinalTurnComplete)]
+        ticks = [(e.completed_turns, e.cells_count) for e in evs
+                 if isinstance(e, AliveCellsCount)]
+        if not final or final[0].completed_turns != turns:
+            raise AssertionError(f"512² gens {backend}: no FinalTurnComplete")
+        if len(final[0].alive) != counts[turns]:
+            raise AssertionError(
+                f"512² gens {backend}: {len(final[0].alive)} alive in "
+                f"FinalTurnComplete, the plain planes have {counts[turns]}")
+        if any(c != counts[t] for t, c in ticks + [last]):
+            raise AssertionError(f"512² gens {backend}: AliveCellsCount "
+                                 f"{ticks}, last pair {last} against the "
+                                 "plain planes")
+        runs[backend] = ((out / f"512x512x{turns}.pgm").read_bytes(),
+                         sorted(map(tuple, final[0].alive)), last)
+        phase("main-gens-512", f"run(Params 512x512, {rule}, {turns} turns, "
+                               f"{name}): {counts[turns]} alive, "
+                               f"{len(ticks)} AliveCellsCount events, last "
+                               f"pair {last}, {wall:.3f} s wall")
+    if runs["auto"] != runs["packed"]:
+        raise AssertionError("512² gens: kernel run and plain-planes run differ")
+    if launches <= 0:
+        raise AssertionError("the 512² Generations path never launched "
+                             "bitgens_resident")
+    phase("main-gens-512", f"PGM and FinalTurnComplete equal to the plain "
+                           f"planes run; {launches} bitgens_resident launches")
+    return launches
+
+
+def main_gens_16384(tmp: pathlib.Path, card: str) -> int:
+    """Phase 5d: run(Params) at 16384², B2/S/C3, through kernel D,
+    against the plain planes stepped on the card from the same board."""
+    import numpy as np
+
+    import gol_tpu_torch
+    from gol_tpu_torch import FinalTurnComplete, Params
+    from gol_tpu_torch.io.pgm import read_pgm
+    from gol_tpu_torch.ops import cuda_bitgens as cg
+    from gol_tpu_torch.ops import life
+    from gol_tpu_torch.parallel import make_stepper
+
+    side, turns, rule = 16384, 256, "B2/S/C3"
+    world = life.random_world(side, side, seed=0)
+    out = tmp / "gens16384"
+    params = Params(image_width=side, image_height=side, turns=turns,
+                    rule=rule, chunk=0, out_dir=str(out))
+    for k in cg.LAUNCHES:
+        cg.LAUNCHES[k] = 0
+    t0 = time.time()
+    timed = drain_timed(gol_tpu_torch.run(params, emit_flips=False,
+                                          initial_world=world))
+    wall = time.time() - t0
+    launches = cg.LAUNCHES["bitgens_tiled"]
+    split = wall_split(t0, timed)
+    if launches <= 0:
+        raise AssertionError("the 16384² Generations path never launched "
+                             "bitgens_tiled")
+    final = [e for _, e in timed if isinstance(e, FinalTurnComplete)]
+    if not final or final[0].completed_turns != turns:
+        raise AssertionError("16384² gens: no FinalTurnComplete at the last turn")
+    ref = make_stepper(height=side, width=side, rule=rule, backend="packed")
+    q, count = ref.step_n(ref.put(world), turns)
+    want = ref.fetch(q)
+    got = read_pgm(out / f"{side}x{side}x{turns}.pgm")
+    if not np.array_equal(got, want):
+        raise AssertionError("16384² gens: final board differs from the plain planes")
+    alive = int(count.item())
+    if len(final[0].alive) != alive:
+        raise AssertionError("16384² gens: FinalTurnComplete alive set differs")
+    phase("main-gens-16384", f"run(Params {side}x{side}, {rule}, {turns} turns) "
+                             f"equal to the plain planes, {alive} alive; "
+                             f"{turns / wall:.2f} turns/s, "
+                             f"{side * side * turns / wall / 1e9:.3f} Gcells/s "
+                             f"end to end ({wall:.2f} s wall: {split}); "
+                             f"{launches} bitgens_tiled launches on {card}")
+    return launches
+
+
+def main_dense_512(tmp: pathlib.Path) -> int:
+    """Phase 5e: run(Params 512², backend "cuda-dense", 100 turns): the
+    PGM byte-equal to the golden board, every turn through kernel E."""
+    import gol_tpu_torch
+    from gol_tpu_torch import Params
+    from gol_tpu_torch.ops import cuda_life as cl
+    from gol_tpu_torch.parallel import make_stepper
+
+    name = make_stepper(height=512, width=512, backend="cuda-dense").name
+    if name != "single-cuda-dense":
+        raise AssertionError(f"cuda-dense stepper is {name}")
+    out = tmp / "dense512"
+    params = Params(image_width=512, image_height=512, turns=100, chunk=0,
+                    backend="cuda-dense", image_dir=str(FIXTURES / "images"),
+                    out_dir=str(out))
+    cl.LAUNCHES["life_dense"] = 0
+    t0 = time.perf_counter()
+    drain(gol_tpu_torch.run(params, emit_flips=False))
+    wall = time.perf_counter() - t0
+    launches = cl.LAUNCHES["life_dense"]
+    golden = (FIXTURES / "check/images/512x512x100.pgm").read_bytes()
+    if (out / "512x512x100.pgm").read_bytes() != golden:
+        raise AssertionError("512² cuda-dense: PGM differs from the fixture")
+    if launches <= 0:
+        raise AssertionError("the cuda-dense path never launched life_dense")
+    phase("main-dense-512", f"run(Params 512x512, backend cuda-dense, 100 "
+                            f"turns) byte-equal to the fixture; {launches} "
+                            f"life_dense launches, {wall:.3f} s wall")
     return launches
 
 
@@ -350,53 +744,117 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float) -> list:
     plain version's ms for the same work, and the bound."""
     import torch
 
-    from gol_tpu_torch.ops import bitlife, life
+    from gol_tpu_torch.models.rules import get_rule
+    from gol_tpu_torch.ops import bitgens, bitlife, life
+    from gol_tpu_torch.ops import cuda_bitgens as cg
     from gol_tpu_torch.ops import cuda_bitlife as cb
+    from gol_tpu_torch.ops import cuda_life as cl
 
-    p = bitlife.pack(life.to_bits(
-        torch.from_numpy(life.random_world(512, 512, seed=2)).cuda()))
-    nxt, ops_per_word = life_fewest_instructions(p)
+    brain = get_rule("B2/S/C3")
+
+    def packed(side, seed):
+        return bitlife.pack(life.to_bits(
+            torch.from_numpy(life.random_world(side, side, seed=seed)).cuda()))
+
+    def gens(side):
+        return gens_planes(brain, side, side, torch.Generator().manual_seed(3))
+
+    # Each bound form is held equal to the plain step before its count
+    # is used.
+    p = packed(512, 2)
+    nxt, life_ops = life_fewest_instructions(p)
     if not torch.equal(nxt, bitlife.step_packed(p)):
         raise AssertionError("the bound's LOP3/SHF form does not compute Life")
-    phase("measure", f"bound: {ops_per_word} INT32 instructions per word per "
-                     f"turn (LOP3/SHF form, equal to the plain step)")
+    q = gens(512)
+    nxt, gens_ops = gens_fewest_instructions(q)
+    if not torch.equal(nxt, bitgens.step_packed_gens(q, brain)):
+        raise AssertionError("the bound's LOP3/SHF form does not compute B2/S/C3")
+    bits = life.to_bits(torch.from_numpy(life.random_world(512, 512, seed=2)).cuda())
+    nxt, dense_ops = dense_fewest_instructions(bits)
+    if not torch.equal(nxt, life.step_bits(bits)):
+        raise AssertionError("the bound's byte-SIMD form does not compute Life")
+    phase("measure", f"bound: {life_ops} (Life) and {gens_ops} (B2/S/C3) INT32 "
+                     f"instructions per packed word per turn (LOP3/SHF form), "
+                     f"{dense_ops} per 32-bit word of 4 dense cells (byte-SIMD "
+                     f"form); each equal to the plain step")
+
+    # (name, shape, input, timed call of the kernel, plain version of
+    #  the same call, the call's bytes and INT32 instructions, launches
+    #  per call). A, C: one 64-turn chunk of the 512² board (the engine's
+    #  first chunk). B, D: one 32-turn pass of the 16384² board. E: a
+    #  100-turn call on the 512² dense board, one launch per turn; its
+    #  bound is the call's (the board read once and written once, 100
+    #  turns of instructions), and ms, plain ms and the bound are per
+    #  launch, i.e. divided by 100.
+    w512 = torch.from_numpy(life.random_world(512, 512, seed=1)).cuda()
+    specs = [
+        ("bitlife_resident", "512x512 board, 64 turns per launch",
+         lambda: packed(512, 1),
+         lambda x: cb.step_n_packed_cuda_raw(x, 64),
+         lambda x: bitlife.step_n_packed_raw(x, 64),
+         lambda x: 2 * 4 * x.numel(), lambda x: x.numel() * 64 * life_ops, 1),
+        ("bitlife_tiled", "16384x16384 board, 32 turns per launch",
+         lambda: packed(16384, 1),
+         lambda x: cb.step_n_packed_tiled2d_raw(x, 32),
+         lambda x: bitlife.step_n_packed_raw(x, 32),
+         lambda x: 2 * 4 * x.numel(), lambda x: x.numel() * 32 * life_ops, 1),
+        ("bitgens_resident", "512x512 B2/S/C3 planes, 64 turns per launch",
+         lambda: gens(512),
+         lambda x: cg.step_n_packed_gens_cuda_raw(x, 64, brain),
+         lambda x: bitgens.step_n_packed_gens_raw(x, 64, brain),
+         lambda x: 2 * 4 * x.numel(), lambda x: x[0].numel() * 64 * gens_ops,
+         1),
+        ("bitgens_tiled", "16384x16384 B2/S/C3 planes, 32 turns per launch",
+         lambda: gens(16384),
+         lambda x: cg.step_n_packed_gens_tiled2d_raw(x, 32, brain),
+         lambda x: bitgens.step_n_packed_gens_raw(x, 32, brain),
+         lambda x: 2 * 4 * x.numel(), lambda x: x[0].numel() * 32 * gens_ops,
+         1),
+        ("life_dense", "512x512 dense board, 1 turn per launch (timed and "
+         "bounded as 100-turn calls)",
+         lambda: w512,
+         lambda x: cl.step_n_cuda_dense(x, 100),
+         lambda x: life.step_n(x, 100),
+         lambda x: 2 * x.numel(), lambda x: x.numel() // 4 * 100 * dense_ops,
+         100),
+    ]
     rows = []
-    # Kernel A: one 64-turn chunk of the 512² board (the engine's
-    # first chunk size). Kernel B: one 32-turn pass of the 16384² board.
-    for name, side, turns, kernel in (
-        ("bitlife_resident", 512, 64,
-         lambda p: cb.step_n_packed_cuda_raw(p, 64)),
-        ("bitlife_tiled", 16384, 32,
-         lambda p: cb.step_n_packed_tiled2d_raw(p, 32)),
-    ):
-        p = bitlife.pack(life.to_bits(
-            torch.from_numpy(life.random_world(side, side, seed=1)).cuda()))
-        ms = time_ms(lambda: kernel(p), 20)
-        plain_ms = time_ms(lambda: bitlife.step_n_packed_raw(p, turns), 3)
-        words = p.numel()
-        b_ms, b_by = bound_ms(words, turns, ops_per_word, int_ops_per_s)
+    for name, shape, make, kernel, plain, nbytes, ops, per_call in specs:
+        x = make()
+        ms = time_ms(lambda: kernel(x), 20) / per_call
+        plain_ms = time_ms(lambda: plain(x), 3) / per_call
+        b_ms, b_by = bound_ms(nbytes(x), ops(x), int_ops_per_s)
+        b_ms /= per_call
         rows.append({
             "name": name, "route": "cuda", **KERNELS[name],
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
-            "shape": f"{side}x{side} board, {turns} turns per launch",
+            "bound_by": b_by, "library_ms": None, "shape": shape,
         })
-        phase("measure", f"{name} {side}² x{turns} turns: {ms:.4f} ms/launch, "
-                         f"plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
-                         f"({b_by})")
-    # Kernel B through the strip entry point (gol_tpu's 1-D tiled
-    # kernel's replacement) on the same board and pass.
-    ms = time_ms(lambda: cb.step_n_packed_tiled_raw(p, 32), 20)
-    phase("measure", f"bitlife_tiled via step_n_packed_tiled_raw 16384² x32 "
-                     f"turns: {ms:.4f} ms/launch")
-    # Kernel A at the chunk a long 512² run calibrates to (~0.1 s of
-    # turns): per-turn time once the launch cost is amortized.
-    p = bitlife.pack(life.to_bits(
-        torch.from_numpy(life.random_world(512, 512, seed=1)).cuda()))
+        phase("measure", f"{name} {shape}: {ms:.4f} ms/launch, plain "
+                         f"{plain_ms:.3f} ms, bound {b_ms:.4g} ms ({b_by})")
+        if name == "bitlife_tiled":
+            # Kernel B through the strip entry point (gol_tpu's 1-D tiled
+            # kernel's replacement) on the same board and pass.
+            ms = time_ms(lambda: cb.step_n_packed_tiled_raw(x, 32), 20)
+            phase("measure", f"bitlife_tiled via step_n_packed_tiled_raw "
+                             f"16384² x32 turns: {ms:.4f} ms/launch")
+        if name == "bitgens_tiled":
+            ms = time_ms(lambda: cg.step_n_packed_gens_tiled_raw(x, 32, brain), 20)
+            phase("measure", f"bitgens_tiled via step_n_packed_gens_tiled_raw "
+                             f"16384² x32 turns: {ms:.4f} ms/launch")
+        del x
+        torch.cuda.empty_cache()
+    # Kernels A and C at the chunk a long 512² run calibrates to (~0.1 s
+    # of turns): per-turn time once the launch cost is amortized.
+    p = packed(512, 1)
     ms = time_ms(lambda: cb.step_n_packed_cuda_raw(p, 16384), 3)
     phase("measure", f"bitlife_resident 512² x16384 turns: {ms:.3f} ms/launch, "
                      f"{ms / 16384 * 1e3:.3f} us/turn")
+    q = gens(512)
+    ms = time_ms(lambda: cg.step_n_packed_gens_cuda_raw(q, 16384, brain), 3)
+    phase("measure", f"bitgens_resident 512² B2/S/C3 x16384 turns: {ms:.3f} "
+                     f"ms/launch, {ms / 16384 * 1e3:.3f} us/turn")
     return rows
 
 
@@ -438,11 +896,17 @@ def main() -> int:
 
     errs = {name: 0 for name in KERNELS}
     check_kernels(errs)
+    check_gens_kernels(errs)
+    check_dense_kernel(errs)
     (REPO / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as d:
         tmp = pathlib.Path(d)
         launches = {"bitlife_resident": main_path_512(tmp),
                     "bitlife_tiled": main_path_16384(tmp, card)}
+        main_gens_64(tmp)
+        launches["bitgens_resident"] = main_gens_512(tmp)
+        launches["bitgens_tiled"] = main_gens_16384(tmp, card)
+        launches["life_dense"] = main_dense_512(tmp)
         cli(tmp)
     kernels = measure(errs, launches, int_ops_per_s)
     phase("done", f"{time.perf_counter() - t_start:.1f} s")

@@ -10,9 +10,9 @@ exported entry point `gol.Run(p, events, keyPresses)`
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (`run(..., device="cpu")`, `--platform cpu`); without a card they raise.
-The packed multi-turn kernels are hand-written CUDA
-(`gol_tpu_torch/csrc/bitlife.cu`), built with nvcc at first use — so
-importing this package needs neither a compiler nor a card.
+The kernels are hand-written CUDA (`gol_tpu_torch/csrc/`: packed Life,
+packed Generations planes, dense Life), built with nvcc at first use —
+so importing this package needs neither a compiler nor a card.
 """
 
 from gol_tpu_torch.params import Params

@@ -48,10 +48,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--help", action="help",
                     help="show this help message and exit")
     ap.add_argument("--rule", default="B3/S23",
-                    help="cellular-automaton rule in B/S notation")
+                    help="cellular-automaton rule: life-like B/S notation "
+                         "(B3/S23) or Generations B/S/C notation (B2/S/C3)")
     ap.add_argument("--backend", default="auto", choices=BACKENDS,
                     help="kernel family (default auto: the CUDA packed "
-                         "kernels on the GPU when the grid packs)")
+                         "kernels on the GPU when the grid packs; "
+                         "cuda-dense is the dense CUDA kernel)")
     ap.add_argument("--chunk", type=int, default=0, metavar="K",
                     help="turns fused per device dispatch; 0 (default) "
                          "auto-calibrates to ~0.1s per dispatch")
@@ -89,6 +91,10 @@ def main(argv: Optional[list[str]] = None) -> int:
     from gol_tpu_torch.models.rules import get_rule
     from gol_tpu_torch.obs import flight
 
+    try:
+        rule = get_rule(args.rule)
+    except ValueError as e:
+        raise SystemExit(f"error: {e}") from None
     flight.configure(args.out)
 
     # Banner (ref: main.go:48-50).
@@ -103,7 +109,7 @@ def main(argv: Optional[list[str]] = None) -> int:
             threads=args.t,
             image_width=args.w,
             image_height=args.h,
-            rule=get_rule(args.rule),
+            rule=rule,
             backend=args.backend,
             chunk=args.chunk,
             image_dir=args.images,

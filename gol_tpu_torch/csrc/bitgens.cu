@@ -1,0 +1,194 @@
+// Packed Generations kernels for Hopper (sm_90a), plain C interface.
+//
+// Both kernels compute one function: (C-1 one-hot packed planes, n,
+// rule) -> the planes after n toroidal Generations turns. Planes as in
+// ops/bitgens.py: plane 0 is the alive (state 1) mask, plane j >= 1 the
+// mask of dying state j+1; each plane is a packed board in the layout
+// of swar.cuh. One turn:
+//   survive, birth = the rule masks over the alive plane's counts
+//   dead           = ~alive & ~dying_1 & ... & ~dying_{C-2}
+//   new alive      = (alive & survive) | (dead & birth)
+//   new dying_1    = alive & ~survive
+//   new dying_j+1  = dying_j (aging is a rename; the oldest falls off)
+// Only the alive plane is read across words. So the kernels ping-pong
+// the alive plane and keep the C-2 dying planes in a ring of slots whose
+// oldest slot moves back one place per turn: each thread reads all
+// dying slots of its own word for `dead`, then writes the new dying_1
+// word into the oldest slot — the word it alone reads and writes, so
+// the one barrier per turn (for the alive plane) is all the
+// synchronisation. Shared memory: C plane copies, against 2(C-1) for
+// ping-ponging every plane. C = 2 has no dying planes and is the Life
+// step in the general combine form.
+//
+// C. bitgens_resident — replaces gol_tpu/ops/pallas_bitgens.py
+//    step_n_packed_gens_pallas_raw (every plane resident in VMEM). One
+//    thread block holds every plane of the board in dynamic shared
+//    memory for all n turns; device memory is read once and written once
+//    per launch. Bound on the H100: integer operations (B2/S/C3 needs
+//    at least 12 LOP3/SHF instructions per word per turn,
+//    chip_smoke.py). What the design does about it: nothing beyond
+//    keeping the planes on chip — like bitlife_resident it runs on ONE
+//    of the 132 SMs (ROADMAP.md, speed items).
+//
+// D. bitgens_tiled — replaces step_n_packed_gens_pallas_tiled_raw and
+//    step_n_packed_gens_pallas_tiled2d_raw. bitlife_tiled per plane: a
+//    grid of (tile word-rows x tile columns) blocks, each loading its
+//    tile plus `halo` ghost word-rows and `ghost` ghost columns of EVERY
+//    plane (toroidal indices modulo the board), running
+//    n <= min(32*halo, ghost) turns, and writing the interior of every
+//    plane to a second buffer. Light cone: only the alive plane carries
+//    information across cells, so the garbage that the extended tile's
+//    self-wrap feeds in advances one bit-row and one column per turn, as
+//    for Life; the dying planes are exact wherever the alive plane is.
+//    Bound: integer operations, as for C; the design buys one
+//    device-memory round trip per n turns for the redundant ghost
+//    compute.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "swar.cuh"
+
+namespace {
+
+using gol::u32;
+
+// n Generations turns of a rows x cols region: `cur` / `nxt` ping-pong
+// the alive plane, `ring` holds the nd = C-2 dying planes (slot stride
+// rows * cols) with the oldest in slot *oldest. Returns the buffer that
+// holds the final alive plane and leaves the final oldest slot in
+// *oldest; dying_j then sits in slot (*oldest + j) % nd.
+__device__ __forceinline__ u32* gens_turns(u32* cur, u32* nxt, u32* ring,
+                                           int nd, int rows, int cols, int n,
+                                           u32 birth, u32 survive,
+                                           int* oldest) {
+  const int words = rows * cols;
+  int old = *oldest;
+  for (int t = 0; t < n; ++t) {
+    gol::for_each_word(rows, cols, [&](int i, int r, int c) {
+      const gol::Masks m =
+          gol::count_masks(cur, rows, cols, r, c, birth, survive);
+      u32 dead = ~m.p;
+      for (int j = 0; j < nd; ++j) dead &= ~ring[j * words + i];
+      nxt[i] = (m.p & m.survive) | (dead & m.birth);
+      if (nd) ring[old * words + i] = m.p & ~m.survive;
+    });
+    __syncthreads();
+    u32* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
+    if (nd) old = (old == 0 ? nd : old) - 1;
+  }
+  *oldest = old;
+  return cur;
+}
+
+// Shared-memory slot of plane q at load time: the alive plane in slot 0
+// (its ping-pong partner in slot 1), dying_j in ring slot j-1.
+__device__ __forceinline__ int load_slot(int q) { return q == 0 ? 0 : q + 1; }
+
+__global__ void __launch_bounds__(1024, 1)
+    bitgens_resident(const u32* __restrict__ in, u32* __restrict__ out,
+                     int planes, int rows, int cols, int n, u32 birth,
+                     u32 survive) {
+  extern __shared__ u32 smem[];
+  const int words = rows * cols;
+  const int nd = planes - 1;
+  for (int i = threadIdx.x; i < planes * words; i += blockDim.x) {
+    const int q = i / words;
+    smem[load_slot(q) * words + (i - q * words)] = in[i];
+  }
+  __syncthreads();
+  int oldest = nd - 1;
+  u32* alive = gens_turns(smem, smem + words, smem + 2 * words, nd, rows,
+                          cols, n, birth, survive, &oldest);
+  for (int i = threadIdx.x; i < planes * words; i += blockDim.x) {
+    const int q = i / words;
+    const int k = i - q * words;
+    out[i] = q == 0 ? alive[k]
+                    : smem[(2 + (oldest + q) % nd) * words + k];
+  }
+}
+
+__global__ void __launch_bounds__(512, 1)
+    bitgens_tiled(const u32* __restrict__ in, u32* __restrict__ out,
+                  int planes, int rows, int cols, int tile_rows,
+                  int tile_cols, int halo, int ghost, int n, u32 birth,
+                  u32 survive) {
+  extern __shared__ u32 smem[];
+  const int er = tile_rows + 2 * halo;
+  const int ec = tile_cols + 2 * ghost;
+  const int words = er * ec;
+  const int nd = planes - 1;
+  const int r0 = blockIdx.y * tile_rows;
+  const int c0 = blockIdx.x * tile_cols;
+  const size_t plane = (size_t)rows * cols;
+  for (int i = threadIdx.x; i < planes * words; i += blockDim.x) {
+    const int q = i / words;
+    const int k = i - q * words;
+    const int tr = k / ec;
+    const int tc = k - tr * ec;
+    const int gr = gol::wrap(r0 - halo + tr, rows);
+    const int gc = gol::wrap(c0 - ghost + tc, cols);
+    smem[load_slot(q) * words + k] = in[q * plane + (size_t)gr * cols + gc];
+  }
+  __syncthreads();
+  int oldest = nd - 1;
+  u32* alive = gens_turns(smem, smem + words, smem + 2 * words, nd, er, ec,
+                          n, birth, survive, &oldest);
+  const int interior = tile_rows * tile_cols;
+  for (int i = threadIdx.x; i < planes * interior; i += blockDim.x) {
+    const int q = i / interior;
+    const int k = i - q * interior;
+    const int tr = k / tile_cols;
+    const int tc = k - tr * tile_cols;
+    const int gr = r0 + tr;
+    const int gc = c0 + tc;
+    if (gr < rows && gc < cols) {
+      const u32* src =
+          q == 0 ? alive : smem + (2 + (oldest + q) % nd) * words;
+      out[q * plane + (size_t)gr * cols + gc] =
+          src[(tr + halo) * ec + tc + ghost];
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each launcher returns cudaGetLastError() after the launch (0 = the
+// launch was accepted); the Python wrapper raises on anything else.
+// Shared memory: `planes` + 1 copies of the (extended) board.
+
+int bitgens_resident_launch(const void* in, void* out, int planes, int rows,
+                            int cols, int n, unsigned birth,
+                            unsigned survive, int threads, void* stream) {
+  const size_t smem = sizeof(u32) * (size_t)(planes + 1) * rows * cols;
+  cudaError_t e = cudaFuncSetAttribute(
+      bitgens_resident, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  bitgens_resident<<<1, threads, smem, (cudaStream_t)stream>>>(
+      (const u32*)in, (u32*)out, planes, rows, cols, n, birth, survive);
+  return (int)cudaGetLastError();
+}
+
+int bitgens_tiled_launch(const void* in, void* out, int planes, int rows,
+                         int cols, int tile_rows, int tile_cols, int halo,
+                         int ghost, int n, unsigned birth, unsigned survive,
+                         int threads, void* stream) {
+  const size_t smem = sizeof(u32) * (size_t)(planes + 1) *
+                      (tile_rows + 2 * halo) * (tile_cols + 2 * ghost);
+  cudaError_t e = cudaFuncSetAttribute(
+      bitgens_tiled, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((cols + tile_cols - 1) / tile_cols,
+                  (rows + tile_rows - 1) / tile_rows);
+  bitgens_tiled<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      (const u32*)in, (u32*)out, planes, rows, cols, tile_rows, tile_cols,
+      halo, ghost, n, birth, survive);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

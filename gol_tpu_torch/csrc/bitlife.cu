@@ -36,20 +36,18 @@
 //    redundant ghost compute (34x320 words stepped per 32x256
 //    interior, a third more, at h=1, g=32).
 //
-// Shared arithmetic (ops/bitlife.py rule_masks / _combine_masks): the
-// column-sum CSA count — vertical triple -> two bit slices, left/right
-// column sums -> 4 count bits — then the rule, passed at run time as two
-// 9-bit masks: each needed count's equality term is ANDed from the 4
-// count bits and ORed into the survive / birth masks, combined in the
-// form the rule compiler classified. One build serves every Life-like
-// rule.
+// Shared arithmetic: the column-sum CSA count and the run-time rule
+// masks of swar.cuh, combined in the form the rule compiler classified
+// (ops/bitlife.py _combine_masks).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "swar.cuh"
+
 namespace {
 
-typedef uint32_t u32;
+using gol::u32;
 
 // Combine forms, the same numbering as cuda_bitlife.COMBINE.
 enum { B_SUBSET = 0, S_SUBSET = 1, GENERAL = 2 };
@@ -59,70 +57,10 @@ enum { B_SUBSET = 0, S_SUBSET = 1, GENERAL = 2 };
 __device__ __forceinline__ u32 next_word(const u32* __restrict__ s, int rows,
                                          int cols, int r, int c, u32 birth,
                                          u32 survive, int combine) {
-  const int rn = (r == 0 ? rows : r) - 1;
-  const int rs = (r + 1 == rows) ? 0 : r + 1;
-  const int cw = (c == 0 ? cols : c) - 1;
-  const int ce = (c + 1 == cols) ? 0 : c + 1;
-  const u32* north = s + rn * cols;
-  const u32* mid = s + r * cols;
-  const u32* south = s + rs * cols;
-
-  // Centre column: up = row y-1, down = row y+1 (carries across words).
-  const u32 p = mid[c];
-  const u32 up = (p << 1) | (north[c] >> 31);
-  const u32 down = (p >> 1) | (south[c] << 31);
-  const u32 upd = up ^ down;
-  const u32 pc = up & down;
-
-  // Left and right columns: their vertical triples as (sum, carry).
-  u32 ls, lc, rsum, rc;
-  {
-    const u32 q = mid[cw];
-    const u32 qu = (q << 1) | (north[cw] >> 31);
-    const u32 qd = (q >> 1) | (south[cw] << 31);
-    const u32 qud = qu ^ qd;
-    ls = qud ^ q;
-    lc = (qu & qd) | (q & qud);
-  }
-  {
-    const u32 q = mid[ce];
-    const u32 qu = (q << 1) | (north[ce] >> 31);
-    const u32 qd = (q >> 1) | (south[ce] << 31);
-    const u32 qud = qu ^ qd;
-    rsum = qud ^ q;
-    rc = (qu & qd) | (q & qud);
-  }
-
-  // count = (ls,lc) + (rs,rc) + (upd, pc), as 4 bit slices.
-  const u32 x = ls ^ rsum;
-  const u32 k0 = (ls & rsum) | (upd & x);
-  const u32 y = lc ^ rc;
-  const u32 t1 = y ^ pc;
-  const u32 k1 = (lc & rc) | (pc & y);
-  const u32 b0 = x ^ upd;
-  const u32 b1 = t1 ^ k0;
-  const u32 k2 = t1 & k0;
-  const u32 b2 = k1 ^ k2;
-  const u32 b3 = k1 & k2;
-  const u32 nb0 = ~b0, nb1 = ~b1, nb2 = ~b2, nb3 = ~b3;
-
-  u32 S = 0, B = 0;
-#pragma unroll
-  for (int cnt = 0; cnt < 9; ++cnt) {
-    const u32 bit = 1u << cnt;
-    if ((birth | survive) & bit) {
-      // Count 8 is the only pattern with bit 3 set (9..15 cannot occur).
-      const u32 eq = (cnt == 8) ? b3
-                                : (((cnt & 1) ? b0 : nb0) &
-                                   ((cnt & 2) ? b1 : nb1) &
-                                   ((cnt & 4) ? b2 : nb2) & nb3);
-      if (survive & bit) S |= eq;
-      if (birth & bit) B |= eq;
-    }
-  }
-  if (combine == B_SUBSET) return B | (p & S);
-  if (combine == S_SUBSET) return S | (~p & B);
-  return (p & S) | (~p & B);
+  const gol::Masks m = gol::count_masks(s, rows, cols, r, c, birth, survive);
+  if (combine == B_SUBSET) return m.birth | (m.p & m.survive);
+  if (combine == S_SUBSET) return m.survive | (~m.p & m.birth);
+  return (m.p & m.survive) | (~m.p & m.birth);
 }
 
 // n turns of a rows x cols board resident in `cur` (ping-pong with
@@ -130,22 +68,10 @@ __device__ __forceinline__ u32 next_word(const u32* __restrict__ s, int rows,
 __device__ __forceinline__ u32* run_turns(u32* cur, u32* nxt, int rows,
                                           int cols, int n, u32 birth,
                                           u32 survive, int combine) {
-  const int words = rows * cols;
-  const int stride = blockDim.x;
-  const int dr = stride / cols, dc = stride - dr * cols;
-  const int r_start = threadIdx.x / cols;
-  const int c_start = threadIdx.x - r_start * cols;
   for (int t = 0; t < n; ++t) {
-    int r = r_start, c = c_start;
-    for (int i = threadIdx.x; i < words; i += stride) {
+    gol::for_each_word(rows, cols, [&](int i, int r, int c) {
       nxt[i] = next_word(cur, rows, cols, r, c, birth, survive, combine);
-      r += dr;
-      c += dc;
-      if (c >= cols) {
-        c -= cols;
-        r += 1;
-      }
-    }
+    });
     __syncthreads();
     u32* tmp = cur;
     cur = nxt;
@@ -168,11 +94,6 @@ __global__ void __launch_bounds__(1024, 1)
   for (int i = threadIdx.x; i < words; i += blockDim.x) out[i] = cur[i];
 }
 
-__device__ __forceinline__ int wrap(int v, int m) {
-  v %= m;
-  return v < 0 ? v + m : v;
-}
-
 __global__ void __launch_bounds__(512, 2)
     bitlife_tiled(const u32* __restrict__ in, u32* __restrict__ out,
                   int rows, int cols, int tile_rows, int tile_cols, int halo,
@@ -188,8 +109,8 @@ __global__ void __launch_bounds__(512, 2)
   for (int i = threadIdx.x; i < words; i += blockDim.x) {
     const int tr = i / ec;
     const int tc = i - tr * ec;
-    const int gr = wrap(r0 - halo + tr, rows);
-    const int gc = wrap(c0 - ghost + tc, cols);
+    const int gr = gol::wrap(r0 - halo + tr, rows);
+    const int gc = gol::wrap(c0 - ghost + tc, cols);
     cur[i] = in[(size_t)gr * cols + gc];
   }
   __syncthreads();

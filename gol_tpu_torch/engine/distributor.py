@@ -26,7 +26,7 @@ Verb semantics (ref README.md:177-183 and gol/distributor.go:223-280):
 
 Not ported yet: gol_tpu's device-accumulated diff-chunk pipeline
 (dense / sparse / compact chunks, FlipChunk emission, cycle riding),
-flip batches and Generations level batches, BoardSync for attached
+flip batches and Generations level-mode flip batches, BoardSync for attached
 controllers, and injected steppers, IO services and timelines. The
 steppers here offer no diff scans, so a watched run takes the per-turn
 path — the path gol_tpu takes for any backend without
@@ -380,9 +380,10 @@ class Engine:
         world = self.stepper.put(host_world)
 
         # Initial CellFlipped burst for every live cell
-        # (ref: gol/distributor.go:72-80).
+        # (ref: gol/distributor.go:72-80); for a Generations rule, the
+        # state-1 cells only.
         if self.emit_flips:
-            for cell in cells_from_mask(host_world):
+            for cell in cells_from_mask(self._alive_mask(host_world)):
                 self.events.put(CellFlipped(self.start_turn, cell))
 
         self._commit(self.start_turn, world,
@@ -527,13 +528,24 @@ class Engine:
         # Normal completion (ref: gol/distributor.go:180-206).
         self._write_snapshot(turn, world, wait=True)
         self.events.put(
-            FinalTurnComplete(turn, cells_from_mask(self.stepper.fetch(world)))
+            FinalTurnComplete(
+                turn,
+                cells_from_mask(self._alive_mask(self.stepper.fetch(world))),
+            )
         )
         self.io.check_idle()
         self.events.put(StateChange(turn, State.QUITTING))
         self.events.close()
 
     # --- services ---
+
+    def _alive_mask(self, host_world):
+        """Alive-cell mask of a fetched (gray-level) world for event
+        payloads: nonzero for two-state rules, the stepper's own notion
+        for Generations backends, where dying cells are nonzero grays."""
+        if self.stepper.offers("alive_mask"):
+            return self.stepper.alive_mask(host_world)
+        return host_world
 
     def _commit(self, turn: int, world, count) -> None:
         self._committed = (turn, world, count)

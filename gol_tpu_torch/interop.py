@@ -21,20 +21,40 @@ def world_from_numpy(world, device="cpu") -> torch.Tensor:
     return torch.from_numpy(arr.copy()).to(device)
 
 
+def _words_from_numpy(words, ndim: int, what: str, device) -> torch.Tensor:
+    arr = np.ascontiguousarray(words)
+    if arr.dtype != np.uint32 or arr.ndim != ndim:
+        raise ValueError(f"{what} must be {ndim}-D uint32, got {arr.dtype} {arr.shape}")
+    return torch.from_numpy(arr.view(np.int32).copy()).to(device)
+
+
+def _words_to_numpy(t: torch.Tensor, ndim: int, what: str) -> np.ndarray:
+    if t.dtype != torch.int32 or t.dim() != ndim:
+        raise TypeError(f"{what} must be a {ndim}-D int32 tensor, got "
+                        f"{t.dtype} {tuple(t.shape)}")
+    return t.detach().cpu().numpy().view(np.uint32)
+
+
 def packed_from_numpy(packed, device="cpu") -> torch.Tensor:
     """uint32 (H/32, W) packed board -> int32 tensor on `device`, the
     same 32 bits per word (a view of the buffer, not a value cast)."""
-    arr = np.ascontiguousarray(packed)
-    if arr.dtype != np.uint32 or arr.ndim != 2:
-        raise ValueError(f"packed board must be 2-D uint32, got {arr.dtype} {arr.shape}")
-    return torch.from_numpy(arr.view(np.int32).copy()).to(device)
+    return _words_from_numpy(packed, 2, "packed board", device)
 
 
 def packed_to_numpy(t: torch.Tensor) -> np.ndarray:
     """int32 packed tensor (any device) -> uint32 host array, bit-identical."""
-    if t.dtype != torch.int32:
-        raise TypeError(f"packed board must be int32, got {t.dtype}")
-    return t.detach().cpu().numpy().view(np.uint32)
+    return _words_to_numpy(t, 2, "packed board")
+
+
+def planes_from_numpy(planes, device="cpu") -> torch.Tensor:
+    """uint32 (C-1, H/32, W) one-hot Generations planes -> int32 tensor
+    on `device`, the same 32 bits per word (a view, not a value cast)."""
+    return _words_from_numpy(planes, 3, "planes", device)
+
+
+def planes_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """int32 plane stack (any device) -> uint32 host array, bit-identical."""
+    return _words_to_numpy(t, 3, "planes")
 
 
 def rule_from_spec(spec: str):

@@ -1,11 +1,14 @@
 """Build and load the hand-written CUDA kernels of this package.
 
-`nvcc` compiles `gol_tpu_torch/csrc/*.cu` into one shared library with a
-plain C interface, loaded with `ctypes` — no PyTorch headers, so the
-build takes seconds. The library goes to `build/gol_tpu_torch/` at the
-repository root (git-ignored), named by a hash of the sources and the
-flags, so an edited source rebuilds and an unchanged one loads from the
-cache. Nothing here runs at import: the first kernel launch builds.
+`nvcc` compiles each `gol_tpu_torch/csrc/*.cu` into an object file, all
+sources at once in parallel (so a cold build takes about as long as its
+slowest source, however many sources are added), and links the objects
+into one shared library with a plain C interface, loaded with `ctypes`
+— no PyTorch headers, so the build takes seconds. The library goes to
+`build/gol_tpu_torch/` at the repository root (git-ignored), named by a
+hash of the sources, their headers (`csrc/*.cuh`) and the flags, so an
+edited source rebuilds and an unchanged one loads from the cache.
+Nothing here runs at import: the first kernel launch builds.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ BUILD_DIR = _PKG.parent / "build" / "gol_tpu_torch"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -44,6 +47,10 @@ _SIGNATURES = {
     "bitlife_resident_launch": [_VP, _VP, _I, _I, _I, _U, _U, _I, _I, _VP],
     "bitlife_tiled_launch": [_VP, _VP, _I, _I, _I, _I, _I, _I, _I, _U, _U,
                              _I, _I, _VP],
+    "bitgens_resident_launch": [_VP, _VP, _I, _I, _I, _I, _U, _U, _I, _VP],
+    "bitgens_tiled_launch": [_VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _U,
+                             _U, _I, _VP],
+    "life_dense_launch": [_VP, _VP, _I, _I, _U, _U, _I, _VP],
 }
 
 
@@ -67,12 +74,45 @@ def _sources() -> list:
 
 
 def library_path() -> pathlib.Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags
+    lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libgol_tpu_torch-{h.hexdigest()[:16]}.so"
+
+
+def _compile(nvcc: str, objdir: str) -> tuple:
+    """One `nvcc -c` per source, all started together; then one link.
+    Returns (library file, what nvcc printed)."""
+    procs = []
+    for src in _sources():
+        obj = os.path.join(objdir, src.stem + ".o")
+        procs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )))
+    log, failed = [], []
+    for src, _, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if failed:
+        raise RuntimeError(
+            f"nvcc failed building gol_tpu_torch kernels ({failed}):\n"
+            + "".join(log)
+        )
+    lib = os.path.join(objdir, "lib.so")
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", lib, *(obj for _, obj, _ in procs)],
+        capture_output=True, text=True,
+    )
+    if link.returncode != 0:
+        raise RuntimeError("nvcc failed linking gol_tpu_torch kernels:\n"
+                           + link.stdout + link.stderr)
+    return lib, "".join(log)
 
 
 def load() -> ctypes.CDLL:
@@ -85,26 +125,12 @@ def load() -> ctypes.CDLL:
         path = library_path()
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-            os.close(fd)
+            nvcc = _nvcc()
             t0 = time.perf_counter()
-            try:
-                proc = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                     *map(str, _sources())],
-                    capture_output=True, text=True,
-                )
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        "nvcc failed building gol_tpu_torch kernels:\n"
-                        + proc.stdout + proc.stderr
-                    )
-                os.replace(tmp, path)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+                lib, build_log = _compile(nvcc, objdir)
+                os.replace(lib, path)
             build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
             flight.note("kernels.build", library=path.name,
                         seconds=round(build_seconds, 3),
                         cause=device.current_cause())

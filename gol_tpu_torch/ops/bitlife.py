@@ -154,6 +154,16 @@ def rule_masks(p: torch.Tensor, up: torch.Tensor, down: torch.Tensor,
     return mask(plan.survive), mask(plan.birth)
 
 
+def resolve_mask(m, like: torch.Tensor) -> torch.Tensor:
+    """Materialize a rule_masks result as a tensor (for callers that
+    cannot exploit the zero/ones sentinels structurally)."""
+    if m is None:
+        return like ^ like
+    if m is ONE:
+        return ~(like ^ like)
+    return m
+
+
 def _combine_masks(p: torch.Tensor, plan: rulecomp.RulePlan,
                    survive, birth) -> torch.Tensor:
     """Final combine of the minimized survive/birth masks with the

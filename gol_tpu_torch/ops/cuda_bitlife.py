@@ -63,12 +63,17 @@ COMBINE = {"b_subset": 0, "s_subset": 1, "general": 2}
 LAUNCHES = {"bitlife_resident": 0, "bitlife_tiled": 0}
 
 
-def rule_args(rule: Rule) -> tuple:
-    """(birth mask, survive mask, combine form) kernel arguments: bit c
-    of a mask is set when count c is in the rule's set."""
+def rule_bits(rule) -> tuple:
+    """(birth mask, survive mask) kernel arguments of any B/S or B/S/C
+    rule: bit c of a mask is set when count c is in the rule's set."""
     birth = sum(1 << c for c in rule.birth if 0 <= c <= 8)
     survive = sum(1 << c for c in rule.survive if 0 <= c <= 8)
-    return birth, survive, COMBINE[rulecomp.compile_rule(rule).combine]
+    return birth, survive
+
+
+def rule_args(rule: Rule) -> tuple:
+    """(birth mask, survive mask, combine form) kernel arguments."""
+    return (*rule_bits(rule), COMBINE[rulecomp.compile_rule(rule).combine])
 
 
 def _resident_bytes(rows: int, cols: int) -> int:
@@ -90,19 +95,45 @@ def fits_cuda_packed_tiled(height: int, width: int) -> bool:
     return bitlife.packable(height, width)
 
 
-def _check_cuda(p: torch.Tensor) -> None:
+def _check_cuda(p: torch.Tensor, dims: int = 2) -> None:
+    """Device, dtype, shape and contiguity checks of a packed kernel
+    input: a `dims`-D int32 tensor on a CUDA device (2-D boards, 3-D
+    plane stacks)."""
     if p.device.type != "cuda":
         raise ValueError(f"kernel input must be on a CUDA device, not {p.device}")
     if p.dtype != torch.int32:
         raise TypeError(f"packed board must be int32, got {p.dtype}")
-    if p.dim() != 2 or p.shape[0] < 1 or p.shape[1] < 1:
-        raise ValueError(f"packed board must be 2-D, got shape {tuple(p.shape)}")
+    if p.dim() != dims or min(p.shape) < 1:
+        raise ValueError(f"packed board must be {dims}-D, got shape {tuple(p.shape)}")
     if not p.is_contiguous():
         raise ValueError("packed board must be contiguous")
 
 
 def _stream(p: torch.Tensor) -> int:
     return torch.cuda.current_stream(p.device).cuda_stream
+
+
+def _launch(launches: dict, name: str, like: torch.Tensor, *args) -> None:
+    """Launch kernel `name` through its C launcher, `<name>_launch(*args,
+    stream)`, on `like`'s device and current stream; count it in
+    `launches[name]` and raise if the launcher reports a CUDA error."""
+    from gol_tpu_torch.ops import _build
+
+    lib = _build.load()
+    with torch.cuda.device(like.device):
+        code = getattr(lib, f"{name}_launch")(*args, _stream(like))
+        launches[name] += 1
+    _build.check(lib, code, name)
+
+
+def _check_pass(src: torch.Tensor, dst: torch.Tensor, check) -> None:
+    """A tiled pass's buffer checks on the card: `check` on each, and a
+    separate output of the same shape (other tiles read this tile's
+    ghosts from `src`)."""
+    check(src)
+    check(dst)
+    if dst.shape != src.shape or dst.data_ptr() == src.data_ptr():
+        raise ValueError("a tiled pass needs a separate output of the same shape")
 
 
 def step_n_packed_cuda_raw(p: torch.Tensor, n: int,
@@ -113,8 +144,6 @@ def step_n_packed_cuda_raw(p: torch.Tensor, n: int,
         raise ValueError("n must be >= 0")
     if p.device.type == "cpu":
         return bitlife.step_n_packed_raw(p, n, rule)
-    from gol_tpu_torch.ops import _build
-
     _check_cuda(p)
     rows, cols = p.shape
     if _resident_bytes(rows, cols) > SMEM_BYTES:
@@ -122,29 +151,25 @@ def step_n_packed_cuda_raw(p: torch.Tensor, n: int,
             f"packed board {rows}x{cols} needs {_resident_bytes(rows, cols)} "
             f"bytes of shared memory, over the {SMEM_BYTES} one block has"
         )
-    lib = _build.load()
-    birth, survive, combine = rule_args(rule)
     threads = min(RESIDENT_THREADS, -(-rows * cols // 32) * 32)
     out = torch.empty_like(p)
-    with torch.cuda.device(p.device):
-        code = lib.bitlife_resident_launch(
-            p.data_ptr(), out.data_ptr(), rows, cols, n, birth, survive,
-            combine, threads, _stream(p),
-        )
-        LAUNCHES["bitlife_resident"] += 1
-    _build.check(lib, code, "bitlife_resident")
+    _launch(LAUNCHES, "bitlife_resident", p, p.data_ptr(), out.data_ptr(),
+            rows, cols, n, *rule_args(rule), threads)
     return out
 
 
 @dataclasses.dataclass(frozen=True)
 class TileGeometry:
-    """One launch shape of kernel B: the tile interior (word-rows x
-    columns) and its ghost frame (word-rows and columns per side)."""
+    """One launch shape of a tiled kernel: the tile interior (word-rows
+    x columns), its ghost frame (word-rows and columns per side), and
+    the copies of the extended tile held in shared memory (2 for
+    kernel B's ping-pong; C for the Generations kernel D)."""
 
     tile_rows: int
     tile_cols: int
     halo: int
     ghost: int
+    copies: int = 2
 
     @property
     def turns(self) -> int:
@@ -153,24 +178,24 @@ class TileGeometry:
 
     @property
     def smem_bytes(self) -> int:
-        return (2 * 4 * (self.tile_rows + 2 * self.halo)
+        return (self.copies * 4 * (self.tile_rows + 2 * self.halo)
                 * (self.tile_cols + 2 * self.ghost))
 
 
 def _geometry(rows: int, width: int, tile_rows: int, halo: int,
-              ghost: int) -> TileGeometry:
-    """Widest tile (TILE_COLS, halved down to 32 columns) whose two
+              ghost: int, copies: int = 2) -> TileGeometry:
+    """Widest tile (TILE_COLS, halved down to 32 columns) whose `copies`
     shared-memory copies of the ghost-extended tile fit one block."""
     tc = min(TILE_COLS, width)
-    geom = TileGeometry(tile_rows, tc, halo, ghost)
+    geom = TileGeometry(tile_rows, tc, halo, ghost, copies)
     while geom.smem_bytes > SMEM_BYTES and tc > 32:
         tc //= 2
-        geom = TileGeometry(tile_rows, tc, halo, ghost)
+        geom = TileGeometry(tile_rows, tc, halo, ghost, copies)
     if geom.smem_bytes > SMEM_BYTES:
         raise ValueError(
             f"a {tile_rows}-row tile with halo {halo} and {ghost} ghost "
-            f"columns needs {geom.smem_bytes} bytes of shared memory, over "
-            f"the {SMEM_BYTES} one block has"
+            f"columns needs {geom.smem_bytes} bytes of shared memory for "
+            f"{copies} copies, over the {SMEM_BYTES} one block has"
         )
     if -(-rows // tile_rows) > _MAX_GRID_Y:
         raise ValueError(f"{rows} word rows need more than {_MAX_GRID_Y} "
@@ -189,7 +214,7 @@ def _auto_rows(rows: int) -> int:
 
 
 def _tile_plan(rows: int, width: int, strip_rows: int | None,
-               halo_words: int | None) -> TileGeometry:
+               halo_words: int | None, copies: int = 2) -> TileGeometry:
     """The tiled entry point's geometry: `strip_rows` sets the tile
     height, `halo_words` the halo depth h, with 32*h ghost columns so a
     pass runs 32*h turns (the turns per pass of gol_tpu's strip kernel)."""
@@ -204,7 +229,7 @@ def _tile_plan(rows: int, width: int, strip_rows: int | None,
         )
     h = halo_words or 1
     return _geometry(rows, width, strip_rows or _auto_rows(rows), h,
-                     TILE_TURNS * h)
+                     TILE_TURNS * h, copies)
 
 
 def _tiled_pass(src: torch.Tensor, dst: torch.Tensor, k: int, rule: Rule,
@@ -215,31 +240,19 @@ def _tiled_pass(src: torch.Tensor, dst: torch.Tensor, k: int, rule: Rule,
         raise ValueError(f"k={k} outside the light cone 0..{geom.turns}")
     if src.device.type == "cpu":
         return dst.copy_(bitlife.step_n_packed_raw(src, k, rule))
-    from gol_tpu_torch.ops import _build
-
-    _check_cuda(src)
-    _check_cuda(dst)
-    if dst.shape != src.shape or dst.data_ptr() == src.data_ptr():
-        raise ValueError("a tiled pass needs a separate output of the same shape")
-    lib = _build.load()
+    _check_pass(src, dst, _check_cuda)
     rows, cols = src.shape
-    birth, survive, combine = rule_args(rule)
-    with torch.cuda.device(src.device):
-        code = lib.bitlife_tiled_launch(
-            src.data_ptr(), dst.data_ptr(), rows, cols, geom.tile_rows,
-            geom.tile_cols, geom.halo, geom.ghost, k, birth, survive,
-            combine, TILED_THREADS, _stream(src),
-        )
-        LAUNCHES["bitlife_tiled"] += 1
-    _build.check(lib, code, "bitlife_tiled")
+    _launch(LAUNCHES, "bitlife_tiled", src, src.data_ptr(), dst.data_ptr(),
+            rows, cols, geom.tile_rows, geom.tile_cols, geom.halo,
+            geom.ghost, k, *rule_args(rule), TILED_THREADS)
     return dst
 
 
-def _run_passes(p: torch.Tensor, n: int, rule: Rule,
-                geom: TileGeometry) -> torch.Tensor:
-    """⌈n / k⌉ passes of kernel B, ping-ponging two buffers (the input is
-    never written); the remainder pass keeps only the halo its own light
-    cone needs."""
+def _run_passes(p: torch.Tensor, n: int, geom: TileGeometry,
+                one_pass) -> torch.Tensor:
+    """⌈n / k⌉ passes of `one_pass(src, dst, k, geom)` (a tiled kernel),
+    ping-ponging two buffers (the input is never written); the
+    remainder pass keeps only the halo its own light cone needs."""
     if n < 0:
         raise ValueError("n must be >= 0")
     k = geom.turns
@@ -250,7 +263,7 @@ def _run_passes(p: torch.Tensor, n: int, rule: Rule,
         passes.append((rem, dataclasses.replace(geom, halo=h_rem)))
     bufs = [torch.empty_like(p) for _ in range(min(len(passes), 2))]
     for i, (turns, g) in enumerate(passes):
-        p = _tiled_pass(p, bufs[i % 2], turns, rule, g)
+        p = one_pass(p, bufs[i % 2], turns, g)
     return p
 
 
@@ -262,24 +275,31 @@ def step_n_packed_tiled_raw(p: torch.Tensor, n: int, rule: Rule = LIFE,
     overrides keep gol_tpu's checks: strip_rows divides the packed row
     count in multiples of 8, halo_words is in 1..8."""
     rows, width = p.shape
-    return _run_passes(p, n, rule,
-                       _tile_plan(rows, width, strip_rows, halo_words))
+    return _run_passes(p, n, _tile_plan(rows, width, strip_rows, halo_words),
+                       lambda s, d, k, g: _tiled_pass(s, d, k, rule, g))
 
 
-def step_n_packed_tiled2d_raw(p: torch.Tensor, n: int, rule: Rule = LIFE,
-                              tile_rows: int | None = None) -> torch.Tensor:
-    """`n` turns, packed in/out, through kernel B with (tile_rows x
-    TILE_COLS) tiles, a one-word halo and GHOST_COLS ghost columns — 32
-    turns per launch. `tile_rows` keeps gol_tpu's check: it divides the
-    packed row count in 8-row units."""
-    rows, width = p.shape
+def _tiled2d_geometry(rows: int, width: int, tile_rows: int | None,
+                      copies: int = 2) -> TileGeometry:
+    """The 2-D entry points' geometry: (tile_rows x up to TILE_COLS)
+    tiles, a one-word halo and GHOST_COLS ghost columns — 32 turns per
+    launch. `tile_rows` keeps gol_tpu's check: it divides the packed row
+    count in 8-row units."""
     if tile_rows is not None and (rows % tile_rows != 0 or tile_rows % 8 != 0):
         raise ValueError(
             f"tile_rows={tile_rows} must divide {rows} in 8-row units"
         )
-    geom = _geometry(rows, width, tile_rows or _auto_rows(rows), 1,
-                     GHOST_COLS)
-    return _run_passes(p, n, rule, geom)
+    return _geometry(rows, width, tile_rows or _auto_rows(rows), 1,
+                     GHOST_COLS, copies)
+
+
+def step_n_packed_tiled2d_raw(p: torch.Tensor, n: int, rule: Rule = LIFE,
+                              tile_rows: int | None = None) -> torch.Tensor:
+    """`n` turns, packed in/out, through kernel B with the 2-D entry's
+    tiles (`_tiled2d_geometry`)."""
+    rows, width = p.shape
+    return _run_passes(p, n, _tiled2d_geometry(rows, width, tile_rows),
+                       lambda s, d, k, g: _tiled_pass(s, d, k, rule, g))
 
 
 def step_n_cuda_packed(world: torch.Tensor, n: int,

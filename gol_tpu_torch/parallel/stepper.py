@@ -11,13 +11,21 @@ Backends:
 - "cuda-packed": packed state, multi-turn chunks through the
   hand-written CUDA kernels (`ops/cuda_bitlife.py`); single turns and
   the per-turn diff stay on the plain SWAR step, as in gol_tpu.
+- "cuda-dense": the dense board, every step through the hand-written
+  CUDA kernel of `ops/cuda_life.py` (gol_tpu's "pallas"); never picked
+  by "auto".
 
 "auto" picks "cuda-packed" on a CUDA device whenever the board packs,
 "packed" on the CPU (the kernels never run off the card), else "dense".
 
-So far the port offers the core entries of the capability table only;
-the diff scans and the sharded, tiled and Generations backends are not
-ported yet and their entries stay None.
+Generations (B/S/C) rules take backend auto/dense/packed/cuda-packed:
+one-hot packed planes (`ops/bitgens.py`, chunks through
+`ops/cuda_bitgens.py` for "cuda-packed", and for "auto" on a CUDA
+device) or the dense state grid (`ops/generations.py`).
+
+So far the port offers the core entries of the capability table (and
+`alive_mask` for Generations) only; the diff scans and the sharded and
+tiled backends are not ported yet and their entries stay None.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ import numpy as np
 import torch
 
 from gol_tpu_torch.models.rules import LIFE, GenRule, Rule, get_rule
-from gol_tpu_torch.ops import bitlife, life
+from gol_tpu_torch.ops import bitgens, bitlife, generations as gens, life
 from gol_tpu_torch.params import BACKENDS, not_yet_ported
 
 
@@ -223,6 +231,161 @@ def _single_device_cuda_packed(rule: Rule, height: int, width: int,
     )
 
 
+def _single_device_cuda_dense(rule: Rule, device) -> Stepper:
+    """Dense backend whose every step runs kernel E (ops/cuda_life.py),
+    the counterpart of gol_tpu's `_single_device_pallas`: `step` and
+    `step_with_diff` launch it with n = 1, as gol_tpu does. Selectable
+    for comparison, not picked by "auto"."""
+    from gol_tpu_torch.ops import cuda_life
+
+    def _step_with_diff(w):
+        new, count = cuda_life.step_n_counted_cuda_dense(w, 1, rule)
+        return new, w != new, count
+
+    return Stepper(
+        name="single-cuda-dense",
+        shards=1,
+        put=lambda w: _host_tensor(w, device),
+        fetch=lambda w: w.cpu().numpy(),
+        step=lambda w: cuda_life.step_n_cuda_dense(w, 1, rule),
+        step_n=lambda w, n: cuda_life.step_n_counted_cuda_dense(
+            w, int(n), rule),
+        step_with_diff=_step_with_diff,
+        alive_count_async=life.alive_count,
+    )
+
+
+def _gens_alive_mask(levels) -> np.ndarray:
+    """Alive (state-1) cells of a fetched gray-level world."""
+    return np.asarray(levels) == life.ALIVE
+
+
+def _gens_fetch(to_levels):
+    """The Generations steppers' `fetch` (gol_tpu's `_gens_scaffold`):
+    device state back to host gray levels through `to_levels`, with bool
+    diff masks passed through untranslated."""
+
+    def fetch(arr):
+        if arr.dtype == torch.bool:
+            return arr.cpu().numpy()
+        return to_levels(arr)
+
+    return fetch
+
+
+def _gens_stepper(rule: GenRule, device) -> Stepper:
+    """Generations backend on the dense uint8 state grid
+    (ops/generations.py): `put` and `fetch` translate to/from the
+    injective gray-level representation the PGM/event layer speaks, so
+    snapshots remain complete resumable checkpoints."""
+    return Stepper(
+        name="generations-1",
+        shards=1,
+        put=lambda w: _host_tensor(gens.states_from_levels(w, rule), device),
+        fetch=_gens_fetch(
+            lambda s: gens.levels_from_states(s.cpu().numpy(), rule)),
+        step=lambda s: gens.step_states(s, rule),
+        step_n=lambda s, k: gens.step_n_counted_states(s, int(k), rule),
+        step_with_diff=lambda s: gens.step_with_diff_states(s, rule),
+        alive_count_async=gens.alive_count,
+        alive_mask=_gens_alive_mask,
+    )
+
+
+def _gens_stepper_packed(rule: GenRule, device, height: int, width: int,
+                         kernels: bool) -> Stepper:
+    """Packed Generations backend (ops/bitgens.py): one-hot dying-state
+    bit-planes, the shared SWAR count on the alive plane, aging as a
+    plane rename. With `kernels`, multi-turn chunks run the CUDA
+    kernels (ops/cuda_bitgens.py) — kernel C when every plane fits one
+    block's shared memory, else kernel D through the 2-D entry — and
+    the stepper is "generations-cuda-packed-1"; otherwise the plain
+    plane step, "generations-packed-1". Single turns and the per-turn
+    diff stay on the plain plane step, as in gol_tpu."""
+    raw = bitgens.step_n_packed_gens_raw
+    if kernels:
+        from gol_tpu_torch.ops import cuda_bitgens as cg
+
+        if cg.fits_cuda_gens(height, width, rule):
+            raw = cg.step_n_packed_gens_cuda_raw
+        elif cg.fits_cuda_gens_tiled(height, width, rule):
+            raw = cg.step_n_packed_gens_tiled2d_raw
+        else:
+            raise ValueError(
+                f"grid {height}x{width} with {rule.states} states does not "
+                "fit the packed CUDA Generations kernels"
+            )
+
+    def put(w):
+        # Packed on the device: the planes of `bitgens.pack_states`.
+        states = _host_tensor(gens.states_from_levels(w, rule), device)
+        return torch.stack([bitlife.pack(states == s)
+                            for s in range(1, rule.states)])
+
+    def to_levels(planes):
+        # `bitgens.unpack_states` on the device, then the gray levels.
+        states = torch.zeros((height, width), dtype=torch.uint8,
+                             device=planes.device)
+        for s in range(1, rule.states):
+            states = torch.where(bitlife.unpack(planes[s - 1], height) != 0,
+                                 s, states)
+        return gens.levels_from_states(states.cpu().numpy(), rule)
+
+    def count(planes):
+        return bitlife.count_packed(planes[0])
+
+    def _step_n(planes, k):
+        planes = raw(planes, int(k), rule)
+        return planes, count(planes)
+
+    def _step_with_diff(planes):
+        new = bitgens.step_packed_gens(planes, rule)
+        changed = planes[0] ^ new[0]
+        for i in range(1, planes.shape[0]):
+            changed = changed | (planes[i] ^ new[i])
+        mask = bitlife.unpack(changed, height) != 0
+        return new, mask, count(new)
+
+    return Stepper(
+        name="generations-cuda-packed-1" if kernels else "generations-packed-1",
+        shards=1,
+        put=put,
+        fetch=_gens_fetch(to_levels),
+        step=lambda planes: bitgens.step_packed_gens(planes, rule),
+        step_n=_step_n,
+        step_with_diff=_step_with_diff,
+        alive_count_async=count,
+        alive_mask=_gens_alive_mask,
+    )
+
+
+def _make_gens_stepper(rule: GenRule, height: int, width: int, dev,
+                       backend: str) -> Stepper:
+    """The single-device part of gol_tpu's GenRule branch of
+    `make_stepper` (stepper.py:1432-1501), with "cuda-packed" added."""
+    if backend not in ("auto", "dense", "packed", "cuda-packed"):
+        raise ValueError(
+            f"generations rules support backend auto/dense/packed/"
+            f"cuda-packed, not {backend!r}"
+        )
+    packable = bitgens.packable_gens(height, width)
+    if backend in ("packed", "cuda-packed") and not packable:
+        raise ValueError(f"grid height {height} is not packable")
+    # One-hot planes cost (C-1)/8 bytes per cell vs the dense grid's 1 —
+    # memory crosses over at C=9, so "auto" keeps the packed path to
+    # rules where it is strictly smaller; higher C stays packed only on
+    # explicit request.
+    want_packed = backend in ("packed", "cuda-packed") or (
+        backend == "auto" and rule.states <= 8
+    )
+    if want_packed and packable:
+        kernels = backend == "cuda-packed" or (
+            backend == "auto" and dev.type == "cuda"
+        )
+        return _gens_stepper_packed(rule, dev, height, width, kernels)
+    return _gens_stepper(rule, dev)
+
+
 def make_stepper(
     threads: int = 1,
     height: int = 512,
@@ -238,8 +401,6 @@ def make_stepper(
     means the CUDA card; pass "cpu" to run the plain versions on the
     CPU). `threads` is the reference's shard request; one device holds
     one shard, which never changes results."""
-    if backend == "pallas":
-        raise not_yet_ported("backend 'pallas'")
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if tile:
@@ -251,9 +412,9 @@ def make_stepper(
     if threads < 1:
         raise ValueError("threads must be >= 1")
     rule = get_rule(rule) if isinstance(rule, str) else rule
-    if isinstance(rule, GenRule):
-        raise not_yet_ported(f"Generations rule {rule}")
     dev = resolve_device(device)
+    if isinstance(rule, GenRule):
+        return _make_gens_stepper(rule, height, width, dev, backend)
     packable = bitlife.packable(height, width)
     if backend == "cuda-packed" or (
         backend == "auto" and dev.type == "cuda" and packable
@@ -268,4 +429,11 @@ def make_stepper(
         if not packable:
             raise ValueError(f"grid {height}x{width} is not packable")
         return _single_device_packed(rule, height, dev)
+    if backend == "cuda-dense":
+        from gol_tpu_torch.ops.cuda_life import fits_cuda_dense
+
+        if not fits_cuda_dense(height, width):
+            raise ValueError(f"grid {height}x{width} does not fit the "
+                             "dense CUDA kernel")
+        return _single_device_cuda_dense(rule, dev)
     return _single_device(rule, dev)

@@ -14,9 +14,11 @@ import dataclasses
 
 #: Kernel families selectable via Params.backend / make_stepper /
 #: --backend. "cuda-packed" is the hand-written CUDA packed family
-#: (ops/cuda_bitlife.py) in place of gol_tpu's "pallas-packed"; "auto"
-#: picks it on a CUDA device whenever the board packs.
-BACKENDS = ("auto", "packed", "dense", "cuda-packed")
+#: (ops/cuda_bitlife.py, ops/cuda_bitgens.py) in place of gol_tpu's
+#: "pallas-packed"; "auto" picks it on a CUDA device whenever the board
+#: packs. "cuda-dense" is the dense CUDA kernel (ops/cuda_life.py) in
+#: place of gol_tpu's "pallas"; "auto" never picks it.
+BACKENDS = ("auto", "packed", "dense", "cuda-packed", "cuda-dense")
 
 
 def not_yet_ported(what: str) -> NotImplementedError:
@@ -60,9 +62,6 @@ class Params:
             raise ValueError("chunk must be >= 1, or 0 for auto")
         if self.tick_seconds <= 0:
             raise ValueError("tick_seconds must be > 0")
-        if self.backend == "pallas":
-            # gol_tpu's dense whole-board kernel (ops/pallas_life.py).
-            raise not_yet_ported("backend 'pallas'")
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.autosave_turns < 0:

@@ -216,7 +216,7 @@ def test_params_fields_and_names_equal():
         t.input_name, t.output_name(), t.output_name(7))
 
 
-@pytest.mark.parametrize("kw", [{"backend": "pallas"}, {"tile": 32},
+@pytest.mark.parametrize("kw", [{"tile": 64}, {"tile": 32},
                                 {"mesh": "2x2"}, {"partition_rules": "x=rows"}])
 def test_params_unported_features_raise(kw):
     with pytest.raises(NotImplementedError, match="not yet ported"):

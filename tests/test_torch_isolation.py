@@ -43,6 +43,19 @@ def test_ast_scan_finds_no_jax_or_gol_tpu_import():
     assert not bad, bad
 
 
+def test_scan_covers_every_port_module():
+    """The scan reads every module of the package, the Generations and
+    dense-kernel modules and chip_smoke.py among them."""
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for want in ("gol_tpu_torch/ops/generations.py",
+                 "gol_tpu_torch/ops/bitgens.py",
+                 "gol_tpu_torch/ops/cuda_bitgens.py",
+                 "gol_tpu_torch/ops/cuda_life.py",
+                 "gol_tpu_torch/ops/cuda_bitlife.py",
+                 "chip_smoke.py"):
+        assert want in names
+
+
 def test_full_cpu_run_loads_no_jax(golden_root, tmp_path):
     code = f"""
 import sys
@@ -54,6 +67,13 @@ p = Params(turns=100, image_width=64, image_height=64,
            tick_seconds=0.05)
 evs = list(gol_tpu_torch.run(p, device="cpu"))
 assert any(isinstance(e, FinalTurnComplete) for e in evs)
+import dataclasses
+for kw in ({{"rule": "B2/S/C3"}}, {{"rule": "B2/S/C3", "backend": "cuda-packed"}},
+           {{"backend": "cuda-dense"}}):
+    q = dataclasses.replace(p, turns=3, **kw)
+    assert any(isinstance(e, FinalTurnComplete)
+               for e in gol_tpu_torch.run(q, device="cpu"))
+import gol_tpu_torch.interop, gol_tpu_torch.cli
 bad = sorted(m for m in sys.modules
              if m.split(".")[0].startswith("jax") or m == "gol_tpu"
              or m.startswith("gol_tpu."))
@@ -106,9 +126,16 @@ def test_cli_without_gpu_exits_nonzero(no_cuda, golden_root, tmp_path):
 def test_unported_requests_raise():
     from gol_tpu_torch.parallel import make_stepper
 
-    for kw in ({"rule": "B2/S/C3"}, {"backend": "pallas"}, {"tile": 32},
-               {"mesh": "2x2"}):
+    for kw in ({"tile": 32}, {"mesh": "2x2"}):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             make_stepper(height=64, width=64, device="cpu", **kw)
     with pytest.raises(ValueError):
         make_stepper(height=48, width=64, device="cpu", backend="cuda-packed")
+    # Generations rules and the dense kernel are ported: gol_tpu's
+    # "pallas" is an unknown backend, as "pallas-packed" is.
+    assert make_stepper(height=64, width=64, device="cpu",
+                        rule="B2/S/C3").name == "generations-packed-1"
+    for kw in ({"backend": "pallas"}, {"backend": "pallas-packed"},
+               {"rule": "B2/S/C3", "backend": "cuda-dense"}):
+        with pytest.raises(ValueError, match="backend"):
+            make_stepper(height=64, width=64, device="cpu", **kw)
