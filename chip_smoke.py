@@ -15,6 +15,15 @@ line `{"ok": true, "device": {...}}`. Any failed phase raises, so the
 script exits nonzero and prints no result. Without a CUDA device, or
 without the repository beside it, it exits nonzero at once.
 
+    python3 chip_smoke.py --ab OTHER_CHECKOUT
+
+compares the tiled kernels B and D of another checkout of this
+repository (the parent commit unpacked with `git archive`, say) with
+this one's on the same card, in four processes (other, this, this,
+other), each building its own kernels: ms per launch of one 32-turn
+pass of a 16384² board, B on B3/S23 and B36/S23, D on B2/S/C3, and
+the ptxas registers of each build.
+
 Imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -76,6 +85,29 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_resources(log: str, kernel: str) -> dict:
+    """{instantiation: "N registers, S bytes spill stores, L bytes spill
+    loads"} for each entry function of `kernel` in an `nvcc -Xptxas -v`
+    log (templates by their mangled argument, e.g. "ILi0E")."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            mangled = ln.split("'")[1]
+            name = None
+            if kernel in mangled:
+                tail = mangled.split(kernel, 1)[1]
+                name = kernel + (tail.split("EE")[0] + "E"
+                                 if tail.startswith("ILi") else "")
+        elif name and "spill stores" in ln:
+            spills = ln.strip().split(", ", 1)[1]
+            out[name] = spills
+        elif name and "Used" in ln and "registers" in ln:
+            regs = ln.split("Used ", 1)[1].split(",")[0]
+            out[name] = f"{regs}, {out.get(name, '')}"
+            name = None
+    return out
+
+
 def max_abs_err(a, b) -> int:
     import torch
 
@@ -126,6 +158,49 @@ def life_fewest_instructions(p):
     b2 = ins(m ^ (a & c0))                     # sum9 bit 2 (bit 3: 8 or 9)
     g = ins((z0 & b1 & ~b2) | (~z0 & ~b1 & b2))  # sum9 in {3, 4}
     return ins(g & (p | z0)), count            # 3, or 4 with the centre alive
+
+
+def highlife_fewest_instructions(p):
+    """One B36/S23 (HighLife) turn of a packed int32 board, counted as
+    `life_fewest_instructions` counts Life: the same ten instructions
+    for the nine-cell sum's bits, then two. Among the sums that can turn
+    a cell on, {3, 4, 6} (bits 0..2 name each uniquely: 8 and 9 have
+    bit 3), 3 is the one with bit 0 set, so next = z0 ? (b1 & ~b2) :
+    (b2 & (b1 ^ alive)) — 4 with the centre alive, 6 with it dead.
+    f = (b1 & ~b2) | (b2 & (b1 ^ alive)) holds both halves, and next =
+    f & (z0 ^ b2). Returns (next board, instructions per word)."""
+    import torch
+
+    from gol_tpu_torch.ops.bitlife import lsr
+
+    count = 0
+
+    def ins(v):
+        nonlocal count
+        count += 1
+        return v
+
+    def maj(a, b, c):
+        return (a & b) | (a & c) | (b & c)
+
+    def west(x):
+        return torch.roll(x, 1, 1)
+
+    def east(x):
+        return torch.roll(x, -1, 1)
+
+    up = ins((p << 1) | lsr(torch.roll(p, 1, 0), 31))     # SHF: row y-1
+    down = ins(lsr(p, 1) | (torch.roll(p, -1, 0) << 31))  # SHF: row y+1
+    s = ins(up ^ p ^ down)                     # column sum, bit 0
+    c = ins(maj(up, p, down))                  # column sum, bit 1
+    z0 = ins(west(s) ^ s ^ east(s))            # sum9 bit 0
+    c0 = ins(maj(west(s), s, east(s)))         # its carry (weight 2)
+    a = ins(west(c) ^ c ^ east(c))             # weight-2 parity
+    m = ins(maj(west(c), c, east(c)))          # weight-4 carry
+    b1 = ins(a ^ c0)                           # sum9 bit 1
+    b2 = ins(m ^ (a & c0))                     # sum9 bit 2 (bit 3: 8 or 9)
+    f = ins((b1 & ~b2) | (b2 & (b1 ^ p)))      # LOP3 of b1, b2, alive
+    return ins(f & (z0 ^ b2)), count           # 3; 4 alive; 6 dead
 
 
 def gens_fewest_instructions(planes):
@@ -321,14 +396,24 @@ def check_kernels(errs: dict) -> None:
                     raise AssertionError(
                         f"bitlife_resident {side}² n={n} {rule}: mismatch")
                 checked += 1
-        for side in (4096, 16384):
-            p = board(side, side)
+        # Kernel B's seams: tile shapes, the deepest halo (768-column
+        # tiles, more column walkers than threads) and a ragged board
+        # (its last tile 160 of 256 columns), the last two at 4096² only.
+        for h, w in ((4096, 4096), (16384, 16384), (4096, 4000)):
+            side = f"{h}x{w}"
+            p = board(h, w)
             variants = [
                 ("tiled2d", {}, 32),
-                ("tiled2d", {"tile_rows": 8}, 32),
                 ("tiled", {}, 32),
-                ("tiled", {"strip_rows": 8, "halo_words": 2}, 64),
             ]
+            if w == h:
+                variants += [
+                    ("tiled2d", {"tile_rows": 8}, 32),
+                    ("tiled", {"strip_rows": 8, "halo_words": 2}, 64),
+                ]
+            if h == 4096 and w == h:
+                variants.append(("tiled", {"strip_rows": 8, "halo_words": 8},
+                                 256))
             want = plain_turns(
                 lambda x, k: bitlife.step_n_packed_raw(x, k, rule), p,
                 [n for _, _, k in variants
@@ -343,7 +428,7 @@ def check_kernels(errs: dict) -> None:
                     errs["bitlife_tiled"] = max(errs["bitlife_tiled"], err)
                     if err:
                         raise AssertionError(
-                            f"bitlife_tiled via {entry}{kw} {side}² n={n} "
+                            f"bitlife_tiled via {entry}{kw} {side} n={n} "
                             f"{rule}: mismatch")
                     checked += 1
             del p, want
@@ -751,6 +836,7 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float) -> list:
     from gol_tpu_torch.ops import cuda_life as cl
 
     brain = get_rule("B2/S/C3")
+    highlife = get_rule("B36/S23")
 
     def packed(side, seed):
         return bitlife.pack(life.to_bits(
@@ -765,6 +851,10 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float) -> list:
     nxt, life_ops = life_fewest_instructions(p)
     if not torch.equal(nxt, bitlife.step_packed(p)):
         raise AssertionError("the bound's LOP3/SHF form does not compute Life")
+    nxt, highlife_ops = highlife_fewest_instructions(p)
+    if not torch.equal(nxt, bitlife.step_packed(p, highlife)):
+        raise AssertionError("the bound's LOP3/SHF form does not compute "
+                             "B36/S23")
     q = gens(512)
     nxt, gens_ops = gens_fewest_instructions(q)
     if not torch.equal(nxt, bitgens.step_packed_gens(q, brain)):
@@ -773,7 +863,8 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float) -> list:
     nxt, dense_ops = dense_fewest_instructions(bits)
     if not torch.equal(nxt, life.step_bits(bits)):
         raise AssertionError("the bound's byte-SIMD form does not compute Life")
-    phase("measure", f"bound: {life_ops} (Life) and {gens_ops} (B2/S/C3) INT32 "
+    phase("measure", f"bound: {life_ops} (Life), {highlife_ops} (B36/S23) and "
+                     f"{gens_ops} (B2/S/C3) INT32 "
                      f"instructions per packed word per turn (LOP3/SHF form), "
                      f"{dense_ops} per 32-bit word of 4 dense cells (byte-SIMD "
                      f"form); each equal to the plain step")
@@ -835,10 +926,30 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float) -> list:
                          f"{plain_ms:.3f} ms, bound {b_ms:.4g} ms ({b_by})")
         if name == "bitlife_tiled":
             # Kernel B through the strip entry point (gol_tpu's 1-D tiled
-            # kernel's replacement) on the same board and pass.
-            ms = time_ms(lambda: cb.step_n_packed_tiled_raw(x, 32), 20)
-            phase("measure", f"bitlife_tiled via step_n_packed_tiled_raw "
-                             f"16384² x32 turns: {ms:.4f} ms/launch")
+            # kernel's replacement) on the same board and pass, and its
+            # run-time-mask instantiation (B36/S23) through both entries,
+            # against B36/S23's bound.
+            rows[-1]["share"] = b_ms / ms
+            rows[-1]["strip_ms"] = time_ms(
+                lambda: cb.step_n_packed_tiled_raw(x, 32), 20)
+            hl_ops = x.numel() * 32 * highlife_ops
+            hl = {"ms": time_ms(lambda: cb.step_n_packed_tiled2d_raw(
+                      x, 32, highlife), 20),
+                  "strip_ms": time_ms(lambda: cb.step_n_packed_tiled_raw(
+                      x, 32, highlife), 20),
+                  "bound_ms": bound_ms(nbytes(x), hl_ops, int_ops_per_s)[0]}
+            hl["share"] = hl["bound_ms"] / hl["ms"]
+            rows[-1]["B36/S23"] = hl
+            phase("measure", f"bitlife_tiled B3/S23 (nine-cell-sum form): "
+                             f"{ms:.4f} ms/launch via the 2-D entry, "
+                             f"{rows[-1]['strip_ms']:.4f} via "
+                             f"step_n_packed_tiled_raw, 16384² x32 turns; "
+                             f"{rows[-1]['share']:.1%} of its bound")
+            phase("measure", f"bitlife_tiled B36/S23 (run-time masks): "
+                             f"{hl['ms']:.4f} ms/launch via the 2-D entry, "
+                             f"{hl['strip_ms']:.4f} via the strip entry; "
+                             f"bound {hl['bound_ms']:.4g} ms, "
+                             f"{hl['share']:.1%} of it")
         if name == "bitgens_tiled":
             ms = time_ms(lambda: cg.step_n_packed_gens_tiled_raw(x, 32, brain), 20)
             phase("measure", f"bitgens_tiled via step_n_packed_gens_tiled_raw "
@@ -858,6 +969,60 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float) -> list:
     return rows
 
 
+def ab_time(root: str) -> dict:
+    """One side of `--ab`: kernels B and D of the package under `root`,
+    ms per launch of one 32-turn pass of a 16384² board through the 2-D
+    entries, and the registers of a fresh build (none from the cache)."""
+    sys.path.insert(0, str(pathlib.Path(root).resolve()))
+    import torch
+
+    from gol_tpu_torch.models.rules import get_rule
+    from gol_tpu_torch.ops import _build, bitlife, life
+    from gol_tpu_torch.ops import cuda_bitgens as cg
+    from gol_tpu_torch.ops import cuda_bitlife as cb
+
+    _build.load()
+    brain, highlife = get_rule("B2/S/C3"), get_rule("B36/S23")
+    x = bitlife.pack(life.to_bits(torch.from_numpy(
+        life.random_world(16384, 16384, seed=1)).cuda()))
+    q = gens_planes(brain, 16384, 16384, torch.Generator().manual_seed(3))
+    return {
+        "package": str(pathlib.Path(cb.__file__).resolve().parents[2]),
+        "B B3/S23": time_ms(lambda: cb.step_n_packed_tiled2d_raw(x, 32), 20),
+        "B B36/S23": time_ms(
+            lambda: cb.step_n_packed_tiled2d_raw(x, 32, highlife), 20),
+        "D B2/S/C3": time_ms(
+            lambda: cg.step_n_packed_gens_tiled2d_raw(q, 32, brain), 20),
+        "registers": {k: kernel_resources(_build.build_log, k)
+                      for k in ("bitlife_tiled", "bitgens_tiled")},
+    }
+
+
+def ab(other: str, card: str) -> int:
+    """`--ab OTHER`: `ab_time` of the other checkout and of this one in
+    the order other, this, this, other; then each kernel's mean per
+    checkout and this one's ratio to the other's."""
+    times: dict = {}
+    for root in (other, str(REPO), str(REPO), other):
+        proc = subprocess.run(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--ab-time", root],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return 1
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        phase("ab", json.dumps(res))
+        for k, v in res.items():
+            if k not in ("package", "registers"):
+                times.setdefault(k, {}).setdefault(root, []).append(v)
+    for k, by_root in times.items():
+        mine = sum(by_root[str(REPO)]) / 2
+        theirs = sum(by_root[other]) / 2
+        phase("ab", f"{k}: this {mine:.4f} ms, other {theirs:.4f} ms "
+                    f"(means of two), ratio {mine / theirs:.4f}; {card}")
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -873,6 +1038,9 @@ def main() -> int:
               "(gol_tpu_torch/ and fixtures/ beside this script)",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--ab-time"]:
+        print(json.dumps(ab_time(sys.argv[2])))
+        return 0
     sys.path.insert(0, str(REPO))
     t_start = time.perf_counter()
 
@@ -884,6 +1052,8 @@ def main() -> int:
     phase("env", f"{card}; torch {torch.__version__}, CUDA "
                  f"{torch.version.cuda}; {sms} SMs at {clock_mhz:.0f} MHz max "
                  f"-> INT32 peak {int_ops_per_s / 1e12:.2f} Tops/s")
+    if sys.argv[1:2] == ["--ab"]:
+        return ab(str(pathlib.Path(sys.argv[2]).resolve()), card)
 
     # Phase 2: build.
     from gol_tpu_torch.ops import _build
@@ -893,6 +1063,10 @@ def main() -> int:
             if "registers" in ln]
     phase("build", f"nvcc {_build.build_seconds:.2f} s -> "
                    f"{_build.library_path().name}; {regs}")
+    # Kernel B's two instantiations (ILi0E: the B3/S23 form, ILi1E: the
+    # run-time masks), registers and spills.
+    phase("build", f"bitlife_tiled: "
+                   f"{kernel_resources(_build.build_log, 'bitlife_tiled')}")
 
     errs = {name: 0 for name in KERNELS}
     check_kernels(errs)

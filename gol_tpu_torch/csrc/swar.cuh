@@ -9,7 +9,8 @@
 // -> 4 count bits. The rule arrives at run time as two 9-bit masks
 // (bit c set = count c in the set); each needed count's equality term is
 // ANDed from the 4 count bits and ORed into the survive / birth masks.
-// One build serves every rule.
+// One build serves every rule. `life_next` is B3/S23 alone, as a
+// nine-cell sum over a 3x3 window in registers (kernel B's walkers).
 
 #pragma once
 
@@ -93,6 +94,36 @@ __device__ __forceinline__ Masks count_masks(const u32* __restrict__ s,
     }
   }
   return m;
+}
+
+__device__ __forceinline__ u32 maj(u32 a, u32 b, u32 c) {
+  return (a & b) | (a & c) | (b & c);
+}
+
+// Next B3/S23 value of the centre word of a 3x3 window (n, m, s: rows
+// north, mid, south; [0..2]: columns west, centre, east) in the LOP3/SHF
+// form of chip_smoke.life_fewest_instructions, line for line: it sums all
+// nine cells, so next = [sum9 == 3] | (alive & [sum9 == 4]). Each
+// column's sum is formed here, so a walker spends 20 instructions a word
+// where the form, sharing column sums across words, spends 12.
+__device__ __forceinline__ u32 life_next(const u32 (&n)[3], const u32 (&m)[3],
+                                         const u32 (&s)[3]) {
+  u32 cs[3], cc[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const u32 up = __funnelshift_l(n[k], m[k], 1);    // SHF: row y-1
+    const u32 down = __funnelshift_r(m[k], s[k], 1);  // SHF: row y+1
+    cs[k] = up ^ m[k] ^ down;                         // column sum, bit 0
+    cc[k] = maj(up, m[k], down);                      // column sum, bit 1
+  }
+  const u32 z0 = cs[0] ^ cs[1] ^ cs[2];    // sum9 bit 0
+  const u32 c0 = maj(cs[0], cs[1], cs[2]); // its carry (weight 2)
+  const u32 a = cc[0] ^ cc[1] ^ cc[2];     // weight-2 parity
+  const u32 w4 = maj(cc[0], cc[1], cc[2]); // weight-4 carry
+  const u32 b1 = a ^ c0;                   // sum9 bit 1
+  const u32 b2 = w4 ^ (a & c0);            // sum9 bit 2 (bit 3: 8 or 9)
+  const u32 g = (z0 & b1 & ~b2) | (~z0 & ~b1 & b2);  // sum9 in {3, 4}
+  return g & (m[1] | z0);                  // 3, or 4 with the centre alive
 }
 
 // f(i, r, c) for every word i = r * cols + c of a rows x cols region

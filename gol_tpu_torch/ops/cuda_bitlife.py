@@ -10,7 +10,9 @@ version `ops.bitlife.step_n_packed_raw`:
   memory for all n turns. Replaces `step_n_packed_pallas_raw`.
 - `step_n_packed_tiled_raw` / `step_n_packed_tiled2d_raw`: kernel B
   (`bitlife_tiled`), temporally blocked tiles with ghost word-rows and
-  ghost columns, k <= min(32*halo, ghost) turns per launch. Replaces
+  ghost columns, k <= min(32*halo, ghost) turns per launch; B3/S23 is
+  stepped by column walkers (`_walk_plan`), every other rule word by
+  word as in kernel A. Replaces
   `step_n_packed_pallas_tiled_raw` and
   `step_n_packed_pallas_tiled2d_raw`; both keep their names and
   override knobs.
@@ -40,9 +42,14 @@ from gol_tpu_torch.ops.life import from_bits, to_bits
 
 #: Dynamic shared memory one block may use on the H100 (227 KB).
 SMEM_BYTES = 232_448
-#: Threads per block of kernel A (one block per board) and kernel B.
+#: Threads per block of kernel A (one block per board), and the most
+#: of kernel B's walkers (`kWalkThreads` in csrc/bitlife.cu, whose
+#: launcher refuses more; its other rules run a fixed 512).
 RESIDENT_THREADS = 1024
-TILED_THREADS = 512
+WALK_THREADS = 640
+#: Shortest segment of a kernel-B column walker that is not a whole
+#: column, in word-rows (its two-row prologue spread over at least 8).
+MIN_SEG_ROWS = 8
 #: Default tile of kernel B: 32 word-rows (1024 cells) x 256 columns.
 TILE_ROWS = 32
 TILE_COLS = 256
@@ -232,6 +239,22 @@ def _tile_plan(rows: int, width: int, strip_rows: int | None,
                      TILE_TURNS * h, copies)
 
 
+def _walk_plan(geom: TileGeometry) -> tuple:
+    """(threads, seg_rows) of kernel B's column walkers on `geom`'s
+    extended tile: a work item is one column and a segment of seg_rows
+    word-rows (the last segment takes the rest). Whole columns where
+    they fill the block; else the rows split into as many equal segments
+    as fill WALK_THREADS, each at least MIN_SEG_ROWS long. The kernel
+    strides the items over `threads`, so any count of items runs."""
+    er = geom.tile_rows + 2 * geom.halo
+    ec = geom.tile_cols + 2 * geom.ghost
+    segs = max(1, min(WALK_THREADS // ec, er // MIN_SEG_ROWS))
+    while segs > 1 and er - (segs - 1) * -(-er // segs) < MIN_SEG_ROWS:
+        segs -= 1
+    threads = min(WALK_THREADS, -(-ec * segs // 32) * 32)
+    return threads, -(-er // segs)
+
+
 def _tiled_pass(src: torch.Tensor, dst: torch.Tensor, k: int, rule: Rule,
                 geom: TileGeometry) -> torch.Tensor:
     """One pass of k <= geom.turns turns from `src` into `dst` (never the
@@ -244,7 +267,7 @@ def _tiled_pass(src: torch.Tensor, dst: torch.Tensor, k: int, rule: Rule,
     rows, cols = src.shape
     _launch(LAUNCHES, "bitlife_tiled", src, src.data_ptr(), dst.data_ptr(),
             rows, cols, geom.tile_rows, geom.tile_cols, geom.halo,
-            geom.ghost, k, *rule_args(rule), TILED_THREADS)
+            geom.ghost, k, *rule_args(rule), *_walk_plan(geom))
     return dst
 
 
