@@ -21,8 +21,8 @@ compares the tiled kernels B and D of another checkout of this
 repository (the parent commit unpacked with `git archive`, say) with
 this one's on the same card, in four processes (other, this, this,
 other), each building its own kernels: ms per launch of one 32-turn
-pass of a 16384² board, B on B3/S23 and B36/S23, D on B2/S/C3, and
-the ptxas registers of each build.
+pass of a 16384² board, B on B3/S23 and B36/S23, D on B2/S/C3 and
+B2/S345/C4, and the ptxas registers of each build.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -474,18 +474,30 @@ def check_gens_kernels(errs: dict) -> None:
                     raise AssertionError(
                         f"bitgens_resident {side}² n={n} {rule}: mismatch")
                 checked += 1
-    tiled_cases = [(4096, get_rule("B2/S/C3")), (16384, get_rule("B2/S/C3")),
-                   (512, random_rule(8))]
-    for side, rule in tiled_cases:
-        if side == 512 and cg.fits_cuda_gens(side, side, rule):
+    # Kernel D: B2/S/C3 runs the column walkers, the C=8 rule the masks.
+    # B2/S/C3's seams at 4096² only: the deepest halo (768-column tiles,
+    # more column walkers than threads) and a ragged board (its last tile
+    # 160 of 256 columns).
+    brain = get_rule("B2/S/C3")
+    tiled_cases = [(4096, 4096, brain), (16384, 16384, brain),
+                   (4096, 4000, brain), (512, 512, random_rule(8))]
+    for h, w, rule in tiled_cases:
+        side = f"{h}x{w}"
+        if h == 512 and cg.fits_cuda_gens(h, w, rule):
             raise AssertionError("the C=8 case must lie past kernel C's gate")
-        q = gens_planes(rule, side, side, gen)
+        q = gens_planes(rule, h, w, gen)
         variants = [
             ("tiled2d", {}, 32),
-            ("tiled2d", {"tile_rows": 8}, 32),
             ("tiled", {}, 32),
-            ("tiled", {"strip_rows": 8, "halo_words": 2}, 64),
         ]
+        if w == h:
+            variants += [
+                ("tiled2d", {"tile_rows": 8}, 32),
+                ("tiled", {"strip_rows": 8, "halo_words": 2}, 64),
+            ]
+        if h == 4096 and w == h:
+            variants.append(("tiled", {"strip_rows": 8, "halo_words": 8},
+                             256))
         want = plain_turns(
             lambda x, k: bitgens.step_n_packed_gens_raw(x, k, rule), q,
             [n for _, _, k in variants for n in (k - 1, k, k + 1, 2 * k + 3)])
@@ -499,13 +511,13 @@ def check_gens_kernels(errs: dict) -> None:
                 errs["bitgens_tiled"] = max(errs["bitgens_tiled"], err)
                 if err:
                     raise AssertionError(
-                        f"bitgens_tiled via {entry}{kw} {side}² n={n} "
+                        f"bitgens_tiled via {entry}{kw} {side} n={n} "
                         f"{rule}: mismatch")
                 checked += 1
         del q, want
         torch.cuda.empty_cache()
     rules = sorted({str(r) for r in resident_rules}
-                   | {str(r) for _, r in tiled_cases})
+                   | {str(r) for _, _, r in tiled_cases})
     phase("kernels", f"{checked} Generations kernel runs bit-exact against "
                      f"the plain planes (rules {rules}, max_abs_err "
                      f"{max(errs['bitgens_resident'], errs['bitgens_tiled'])})")
@@ -836,14 +848,15 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float) -> list:
     from gol_tpu_torch.ops import cuda_life as cl
 
     brain = get_rule("B2/S/C3")
+    star_wars = get_rule("B2/S345/C4")
     highlife = get_rule("B36/S23")
 
     def packed(side, seed):
         return bitlife.pack(life.to_bits(
             torch.from_numpy(life.random_world(side, side, seed=seed)).cuda()))
 
-    def gens(side):
-        return gens_planes(brain, side, side, torch.Generator().manual_seed(3))
+    def gens(side, rule=brain):
+        return gens_planes(rule, side, side, torch.Generator().manual_seed(3))
 
     # Each bound form is held equal to the plain step before its count
     # is used.
@@ -951,9 +964,26 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float) -> list:
                              f"bound {hl['bound_ms']:.4g} ms, "
                              f"{hl['share']:.1%} of it")
         if name == "bitgens_tiled":
-            ms = time_ms(lambda: cg.step_n_packed_gens_tiled_raw(x, 32, brain), 20)
-            phase("measure", f"bitgens_tiled via step_n_packed_gens_tiled_raw "
-                             f"16384² x32 turns: {ms:.4f} ms/launch")
+            # Kernel D's B2/S/C3 form (column walkers) through the strip
+            # entry on the same planes and pass, and its run-time-mask
+            # form on B2/S345/C4 through the 2-D entry (no bound: no
+            # fewest-instruction form of that rule is counted here).
+            rows[-1]["share"] = b_ms / ms
+            rows[-1]["strip_ms"] = time_ms(
+                lambda: cg.step_n_packed_gens_tiled_raw(x, 32, brain), 20)
+            q4 = gens(16384, star_wars)
+            rows[-1]["B2/S345/C4"] = {"ms": time_ms(
+                lambda: cg.step_n_packed_gens_tiled2d_raw(q4, 32, star_wars),
+                20)}
+            del q4
+            phase("measure", f"bitgens_tiled B2/S/C3 (column walkers): "
+                             f"{ms:.4f} ms/launch via the 2-D entry, "
+                             f"{rows[-1]['strip_ms']:.4f} via "
+                             f"step_n_packed_gens_tiled_raw, 16384² x32 "
+                             f"turns; {rows[-1]['share']:.1%} of its bound")
+            phase("measure", f"bitgens_tiled B2/S345/C4 (run-time masks): "
+                             f"{rows[-1]['B2/S345/C4']['ms']:.4f} ms/launch "
+                             f"via the 2-D entry, 16384² x32 turns")
         del x
         torch.cuda.empty_cache()
     # Kernels A and C at the chunk a long 512² run calibrates to (~0.1 s
@@ -983,9 +1013,12 @@ def ab_time(root: str) -> dict:
 
     _build.load()
     brain, highlife = get_rule("B2/S/C3"), get_rule("B36/S23")
+    star_wars = get_rule("B2/S345/C4")
     x = bitlife.pack(life.to_bits(torch.from_numpy(
         life.random_world(16384, 16384, seed=1)).cuda()))
     q = gens_planes(brain, 16384, 16384, torch.Generator().manual_seed(3))
+    q4 = gens_planes(star_wars, 16384, 16384,
+                     torch.Generator().manual_seed(3))
     return {
         "package": str(pathlib.Path(cb.__file__).resolve().parents[2]),
         "B B3/S23": time_ms(lambda: cb.step_n_packed_tiled2d_raw(x, 32), 20),
@@ -993,6 +1026,8 @@ def ab_time(root: str) -> dict:
             lambda: cb.step_n_packed_tiled2d_raw(x, 32, highlife), 20),
         "D B2/S/C3": time_ms(
             lambda: cg.step_n_packed_gens_tiled2d_raw(q, 32, brain), 20),
+        "D B2/S345/C4": time_ms(
+            lambda: cg.step_n_packed_gens_tiled2d_raw(q4, 32, star_wars), 20),
         "registers": {k: kernel_resources(_build.build_log, k)
                       for k in ("bitlife_tiled", "bitgens_tiled")},
     }
@@ -1063,10 +1098,11 @@ def main() -> int:
             if "registers" in ln]
     phase("build", f"nvcc {_build.build_seconds:.2f} s -> "
                    f"{_build.library_path().name}; {regs}")
-    # Kernel B's two instantiations (ILi0E: the B3/S23 form, ILi1E: the
-    # run-time masks), registers and spills.
-    phase("build", f"bitlife_tiled: "
-                   f"{kernel_resources(_build.build_log, 'bitlife_tiled')}")
+    # The two instantiations of kernels B and D (ILi0E: B's B3/S23 and
+    # D's B2/S/C3 column walkers, ILi1E: the run-time masks), registers
+    # and spills.
+    for name in ("bitlife_tiled", "bitgens_tiled"):
+        phase("build", f"{name}: {kernel_resources(_build.build_log, name)}")
 
     errs = {name: 0 for name in KERNELS}
     check_kernels(errs)

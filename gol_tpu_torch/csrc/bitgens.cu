@@ -40,14 +40,37 @@
 //    information across cells, so the garbage that the extended tile's
 //    self-wrap feeds in advances one bit-row and one column per turn, as
 //    for Life; the dying planes are exact wherever the alive plane is.
-//    Bound: integer operations, as for C; the design buys one
-//    device-memory round trip per n turns for the redundant ghost
-//    compute.
+//    B2/S/C3 (Brian's Brain) is a template instantiation on kernel B's
+//    column walkers (walk.cuh): a work item is one column of the
+//    extended tile and a segment of its word-rows, the walker keeps a
+//    3x3 window of the alive plane in registers and loads only the row
+//    below each step. The rule has no survive set and one dying state,
+//    so one turn is new alive = [sum9 == 2] & ~alive & ~dying and new
+//    dying = old alive: the dying plane is the alive plane's ping-pong
+//    partner. The buffer that turn t writes holds alive(t-1) until the
+//    write — exactly dying(t) — so each walker reads its own word of
+//    that buffer, then overwrites it with the new alive word. Two copies
+//    of the tile (87,040 B at the main path's 34 x 320 words), not three,
+//    so two blocks of 640 threads share an SM; dying(t) = alive(t-1) is
+//    exact wherever alive(t) is, so the light cone is unchanged.
+//    Bound on the H100: integer operations, 12 LOP3/SHF per word-turn
+//    (chip_smoke.gens_fewest_instructions); the bytes are 16 per word
+//    per launch. Spent per word-turn by the walkers: 4 LDS (the next
+//    row of the three columns of the alive plane, and the own dying
+//    word), 1 STS, and 20 LOP3/SHF (the form with each column's sum
+//    formed three times, once by each walker that reads it) plus the
+//    walk's index steps, on the extended tile's words (34x320 per
+//    32x256 interior, a third more). Still left: column sums shared
+//    across lanes, the 1.33x ghost overhead, and generated code for the
+//    other rules, which run the per-word run-time masks (gens_turns, 512
+//    threads, C copies: the alive ping-pong and a ring of the C-2 dying
+//    planes).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "swar.cuh"
+#include "walk.cuh"
 
 namespace {
 
@@ -110,45 +133,80 @@ __global__ void __launch_bounds__(1024, 1)
   }
 }
 
-__global__ void __launch_bounds__(512, 1)
+// Kernel D's rule forms: B2/S/C3 by column walkers, or any rule by the
+// per-word run-time masks of gens_turns.
+enum { FORM_BRAIN = 0, FORM_MASKS = 1 };
+
+// Threads per block of kernel D: the walkers take up to
+// gol::kWalkThreads, two blocks per SM; the masks form kMaskThreads, one
+// block per SM.
+constexpr int kMaskThreads = 512;
+template <int kForm>
+constexpr int kTiledThreads =
+    kForm == FORM_BRAIN ? gol::kWalkThreads : kMaskThreads;
+template <int kForm>
+constexpr int kTiledBlocks = kForm == FORM_BRAIN ? 2 : 1;
+
+template <int kForm>
+__global__ void __launch_bounds__(kTiledThreads<kForm>, kTiledBlocks<kForm>)
     bitgens_tiled(const u32* __restrict__ in, u32* __restrict__ out,
                   int planes, int rows, int cols, int tile_rows,
                   int tile_cols, int halo, int ghost, int n, u32 birth,
-                  u32 survive) {
-  extern __shared__ u32 smem[];
-  const int er = tile_rows + 2 * halo;
-  const int ec = tile_cols + 2 * ghost;
-  const int words = er * ec;
-  const int nd = planes - 1;
-  const int r0 = blockIdx.y * tile_rows;
-  const int c0 = blockIdx.x * tile_cols;
-  const size_t plane = (size_t)rows * cols;
-  for (int i = threadIdx.x; i < planes * words; i += blockDim.x) {
-    const int q = i / words;
-    const int k = i - q * words;
-    const int tr = k / ec;
-    const int tc = k - tr * ec;
-    const int gr = gol::wrap(r0 - halo + tr, rows);
-    const int gc = gol::wrap(c0 - ghost + tc, cols);
-    smem[load_slot(q) * words + k] = in[q * plane + (size_t)gr * cols + gc];
-  }
-  __syncthreads();
-  int oldest = nd - 1;
-  u32* alive = gens_turns(smem, smem + words, smem + 2 * words, nd, er, ec,
-                          n, birth, survive, &oldest);
-  const int interior = tile_rows * tile_cols;
-  for (int i = threadIdx.x; i < planes * interior; i += blockDim.x) {
-    const int q = i / interior;
-    const int k = i - q * interior;
-    const int tr = k / tile_cols;
-    const int tc = k - tr * tile_cols;
-    const int gr = r0 + tr;
-    const int gc = c0 + tc;
-    if (gr < rows && gc < cols) {
-      const u32* src =
-          q == 0 ? alive : smem + (2 + (oldest + q) % nd) * words;
-      out[q * plane + (size_t)gr * cols + gc] =
-          src[(tr + halo) * ec + tc + ghost];
+                  u32 survive, const gol::Walk plan) {
+  if constexpr (kForm == FORM_BRAIN) {
+    using gol::smem;
+    const int words = plan.words, ec = plan.ec;
+    // The alive plane into copy 0, the dying plane into copy 1.
+    const size_t plane = (size_t)rows * cols;
+    gol::load_tile(in, smem, rows, cols, tile_rows, tile_cols, halo, ghost,
+                   ec, words);
+    gol::load_tile(in + plane, smem + words, rows, cols, tile_rows,
+                   tile_cols, halo, ghost, ec, words);
+    const int cur = gol::walk_turns(
+        plan, n,
+        [](const u32(&nn)[3], const u32(&mm)[3], const u32(&ss)[3], int at) {
+          smem[at] = gol::brain_next(nn, mm, ss, smem[at]);
+        });
+    gol::store_interior(smem + cur, out, rows, cols, tile_rows, tile_cols,
+                        halo, ghost, ec);
+    gol::store_interior(smem + (words - cur), out + plane, rows, cols,
+                        tile_rows, tile_cols, halo, ghost, ec);
+  } else {
+    extern __shared__ u32 smem[];
+    const int er = tile_rows + 2 * halo;
+    const int ec = tile_cols + 2 * ghost;
+    const int words = er * ec;
+    const int nd = planes - 1;
+    const int r0 = blockIdx.y * tile_rows;
+    const int c0 = blockIdx.x * tile_cols;
+    const size_t plane = (size_t)rows * cols;
+    for (int i = threadIdx.x; i < planes * words; i += blockDim.x) {
+      const int q = i / words;
+      const int k = i - q * words;
+      const int tr = k / ec;
+      const int tc = k - tr * ec;
+      const int gr = gol::wrap(r0 - halo + tr, rows);
+      const int gc = gol::wrap(c0 - ghost + tc, cols);
+      smem[load_slot(q) * words + k] = in[q * plane + (size_t)gr * cols + gc];
+    }
+    __syncthreads();
+    int oldest = nd - 1;
+    u32* alive = gens_turns(smem, smem + words, smem + 2 * words, nd, er, ec,
+                            n, birth, survive, &oldest);
+    const int interior = tile_rows * tile_cols;
+    for (int i = threadIdx.x; i < planes * interior; i += blockDim.x) {
+      const int q = i / interior;
+      const int k = i - q * interior;
+      const int tr = k / tile_cols;
+      const int tc = k - tr * tile_cols;
+      const int gr = r0 + tr;
+      const int gc = c0 + tc;
+      if (gr < rows && gc < cols) {
+        const u32* src =
+            q == 0 ? alive : smem + (2 + (oldest + q) % nd) * words;
+        out[q * plane + (size_t)gr * cols + gc] =
+            src[(tr + halo) * ec + tc + ghost];
+      }
     }
   }
 }
@@ -159,7 +217,8 @@ extern "C" {
 
 // Each launcher returns cudaGetLastError() after the launch (0 = the
 // launch was accepted); the Python wrapper raises on anything else.
-// Shared memory: `planes` + 1 copies of the (extended) board.
+// Shared memory: `planes` + 1 copies of the (extended) board, two for
+// kernel D's B2/S/C3 form.
 
 int bitgens_resident_launch(const void* in, void* out, int planes, int rows,
                             int cols, int n, unsigned birth,
@@ -174,20 +233,31 @@ int bitgens_resident_launch(const void* in, void* out, int planes, int rows,
   return (int)cudaGetLastError();
 }
 
+// Kernel D picks its instantiation from the rule: B2/S/C3 (two planes,
+// birth {2}, survive {}) runs the walkers on `threads` (at most
+// gol::kWalkThreads) and `seg_rows` over two copies of the tile, every
+// other rule the masks on kMaskThreads over `planes` + 1 copies.
 int bitgens_tiled_launch(const void* in, void* out, int planes, int rows,
                          int cols, int tile_rows, int tile_cols, int halo,
                          int ghost, int n, unsigned birth, unsigned survive,
-                         int threads, void* stream) {
-  const size_t smem = sizeof(u32) * (size_t)(planes + 1) *
-                      (tile_rows + 2 * halo) * (tile_cols + 2 * ghost);
+                         int threads, int seg_rows, void* stream) {
+  const bool brain = planes == 2 && birth == (1u << 2) && survive == 0;
+  void (*kernel)(const u32*, u32*, int, int, int, int, int, int, int, int,
+                 u32, u32, const gol::Walk) =
+      brain ? bitgens_tiled<FORM_BRAIN> : bitgens_tiled<FORM_MASKS>;
+  if (!brain) threads = kMaskThreads;
+  if (threads > gol::kWalkThreads) return (int)cudaErrorInvalidValue;
+  const gol::Walk k = gol::make_walk(tile_rows, tile_cols, halo, ghost,
+                                     threads, seg_rows);
+  const size_t smem = sizeof(u32) * (size_t)(brain ? 2 : planes + 1) * k.words;
   cudaError_t e = cudaFuncSetAttribute(
-      bitgens_tiled, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((cols + tile_cols - 1) / tile_cols,
                   (rows + tile_rows - 1) / tile_rows);
-  bitgens_tiled<<<grid, threads, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
       (const u32*)in, (u32*)out, planes, rows, cols, tile_rows, tile_cols,
-      halo, ghost, n, birth, survive);
+      halo, ghost, n, birth, survive, k);
   return (int)cudaGetLastError();
 }
 

@@ -32,19 +32,12 @@
 //    the garbage advances one bit-row and one column per turn, so the
 //    interior stays exact for 32*halo turns vertically and `ghost`
 //    turns horizontally.
-//    Within a turn, column walkers: a work item is one column c of the
-//    extended tile and a segment of consecutive word-rows of it
-//    (ops/cuda_bitlife._walk_plan sets the segment length and the
-//    block size). The walker keeps a 3x3 window of words in registers
-//    — rows r-1, r, r+1 of columns c-1, c, c+1 — and walks down the
-//    segment; each step loads only row r+1 of the three columns, so a
-//    word costs 3 shared-memory loads and 1 store, not 9 and 1. Lanes of
-//    a warp take consecutive columns, so each load of a warp reads 32
-//    consecutive words of one row (no bank conflicts). The column wrap is
-//    resolved once per work item, the row wrap in the segment's prologue
-//    and by one compare-and-select per step; the turn loop divides
-//    nothing. The window rotates through three register triples, three
-//    steps a round, without moves. This is the B3/S23 instantiation,
+//    Within a turn, column walkers (walk.cuh, shared with kernel D): a
+//    work item is one column of the extended tile and a segment of its
+//    word-rows; the walker keeps a 3x3 window of words in registers and
+//    walks down the segment, loading only the row below each step, so a
+//    word costs 3 shared-memory loads and 1 store, not 9 and 1; the
+//    turn loop divides nothing. This is the B3/S23 instantiation,
 //    summing all nine cells in the LOP3/SHF form (swar.cuh life_next).
 //    Every other rule runs kernel A's per-word run-time masks on the
 //    same tile (512 threads): the masks fed from the walkers' window
@@ -66,9 +59,12 @@
 #include <stdint.h>
 
 #include "swar.cuh"
+#include "walk.cuh"
 
 namespace {
 
+using gol::load_tile;
+using gol::store_interior;
 using gol::u32;
 
 // Combine forms, the same numbering as cuda_bitlife.COMBINE.
@@ -120,139 +116,30 @@ __global__ void __launch_bounds__(1024, 1)
 // or any rule by kernel A's per-word run-time masks.
 enum { FORM_LIFE = 0, FORM_MASKS = 1 };
 
-// Threads per block of kernel B, two blocks per SM. The walkers take up
-// to kWalkThreads (ops/cuda_bitlife._walk_plan plans within it, and the
-// launcher refuses more): at the main path's 34 x 320-word tile, 640
-// threads of at most 48 registers. The masks form runs kMaskThreads.
-constexpr int kWalkThreads = 640;
+// Threads per block of kernel B, two blocks per SM: the walkers take up
+// to gol::kWalkThreads (walk.cuh), the masks form kMaskThreads.
 constexpr int kMaskThreads = 512;
 template <int kForm>
-constexpr int kTiledThreads = kForm == FORM_LIFE ? kWalkThreads : kMaskThreads;
-
-// Kernel B's walk plan, as kernel arguments (constant memory, so that
-// none of it holds a register): the extended tile (er x ec words), the
-// segment length, and the step from one of a thread's work items to its
-// next (dcol columns and drow word-rows, before the column wraps).
-struct Walk {
-  int er, ec, words, seg_rows, dcol, drow;
-};
-
-// One B3/S23 turn of one work item: column c, word-rows r0..r1-1 of the
-// extended tile at word `cur` of the block's shared memory, written to
-// the copy at word `nxt`. Shared-memory words are addressed by 32-bit
-// offsets from the one array.
-__device__ __forceinline__ void walk(const Walk k, int cur, int nxt, int c,
-                                     int r0, int r1) {
-  extern __shared__ u32 smem[];
-  const int er = k.er, ec = k.ec, words = k.words;
-  const int w = cur + (c == 0 ? ec : c) - 1;
-  const int x = cur + c;
-  const int e = cur + ((c + 1 == ec) ? 0 : c + 1);
-  // Prologue: rows r0-1 (wrapped) and r0.
-  const int rn = ((r0 == 0 ? er : r0) - 1) * ec;
-  int south = r0 * ec;  // offset of the row the next step loads, less ec
-  u32 a[3] = {smem[w + rn], smem[x + rn], smem[e + rn]};
-  u32 b[3] = {smem[w + south], smem[x + south], smem[e + south]};
-  u32 d[3];
-  int out = nxt + south + c;
-  int left = r1 - r0;
-  // One step: load row r+1 into ss, write word r, move down a row.
-  auto step = [&](const u32(&nn)[3], const u32(&mm)[3], u32(&ss)[3]) {
-    south += ec;
-    if (south == words) south = 0;
-    ss[0] = smem[w + south];
-    ss[1] = smem[x + south];
-    ss[2] = smem[e + south];
-    smem[out] = gol::life_next(nn, mm, ss);
-    out += ec;
-  };
-  for (;;) {
-    step(a, b, d);
-    if (--left == 0) break;
-    step(b, d, a);
-    if (--left == 0) break;
-    step(d, a, b);
-    if (--left == 0) break;
-  }
-}
-
-// Loads this block's extended tile (ec columns, `words` words) into
-// `tile`, with toroidal indices modulo the board.
-__device__ __forceinline__ void load_tile(const u32* __restrict__ in,
-                                          u32* tile, int rows, int cols,
-                                          int tile_rows, int tile_cols,
-                                          int halo, int ghost, int ec,
-                                          int words) {
-  const int r0 = blockIdx.y * tile_rows;
-  const int c0 = blockIdx.x * tile_cols;
-  for (int i = threadIdx.x; i < words; i += blockDim.x) {
-    const int tr = i / ec;
-    const int tc = i - tr * ec;
-    const int gr = gol::wrap(r0 - halo + tr, rows);
-    const int gc = gol::wrap(c0 - ghost + tc, cols);
-    tile[i] = in[(size_t)gr * cols + gc];
-  }
-}
-
-// Writes the interior of this block's extended tile `tile` (ec columns)
-// to its place on the board.
-__device__ __forceinline__ void store_interior(const u32* tile,
-                                               u32* __restrict__ out,
-                                               int rows, int cols,
-                                               int tile_rows, int tile_cols,
-                                               int halo, int ghost, int ec) {
-  const int r0 = blockIdx.y * tile_rows;
-  const int c0 = blockIdx.x * tile_cols;
-  const int interior = tile_rows * tile_cols;
-  for (int i = threadIdx.x; i < interior; i += blockDim.x) {
-    const int tr = i / tile_cols;
-    const int tc = i - tr * tile_cols;
-    const int gr = r0 + tr;
-    const int gc = c0 + tc;
-    if (gr < rows && gc < cols)
-      out[(size_t)gr * cols + gc] = tile[(tr + halo) * ec + tc + ghost];
-  }
-}
+constexpr int kTiledThreads =
+    kForm == FORM_LIFE ? gol::kWalkThreads : kMaskThreads;
 
 template <int kForm>
 __global__ void __launch_bounds__(kTiledThreads<kForm>, 2)
     bitlife_tiled(const u32* __restrict__ in, u32* __restrict__ out,
                   int rows, int cols, int tile_rows, int tile_cols, int halo,
                   int ghost, int n, u32 birth, u32 survive, int combine,
-                  const Walk k) {
-  extern __shared__ u32 smem[];
+                  const gol::Walk k) {
   if constexpr (kForm == FORM_LIFE) {
-    const int ec = k.ec;
-    int cur = 0, nxt = k.words;  // the two copies, as word offsets
-    load_tile(in, smem, rows, cols, tile_rows, tile_cols, halo, ghost, ec,
+    using gol::smem;
+    load_tile(in, smem, rows, cols, tile_rows, tile_cols, halo, ghost, k.ec,
               k.words);
-    // Work items (column c, segment from word-row r), item i = (r /
-    // seg_rows) * ec + c, strided by the block size: this thread's first
-    // one here, the step to the next in `k`, so that the turn loop
-    // divides nothing. The items run out where a segment would start
-    // past the last row.
-    const int seg0 = threadIdx.x / ec;
-    const int col0 = threadIdx.x - seg0 * ec;
-    const int row0 = seg0 * k.seg_rows;
-    __syncthreads();
-    for (int t = 0; t < n; ++t) {
-      for (int c = col0, r = row0; r < k.er;) {
-        walk(k, cur, nxt, c, r, min(r + k.seg_rows, k.er));
-        c += k.dcol;
-        r += k.drow;
-        if (c >= ec) {
-          c -= ec;
-          r += k.seg_rows;
-        }
-      }
-      __syncthreads();
-      const int tmp = cur;
-      cur = nxt;
-      nxt = tmp;
-    }
+    const int cur = gol::walk_turns(
+        k, n, [](const u32(&nn)[3], const u32(&mm)[3], const u32(&ss)[3],
+                 int at) { smem[at] = gol::life_next(nn, mm, ss); });
     store_interior(smem + cur, out, rows, cols, tile_rows, tile_cols, halo,
-                   ghost, ec);
+                   ghost, k.ec);
   } else {
+    extern __shared__ u32 smem[];
     const int er = tile_rows + 2 * halo;
     const int ec = tile_cols + 2 * ghost;
     u32* cur = smem;
@@ -286,25 +173,21 @@ int bitlife_resident_launch(const void* in, void* out, int rows, int cols,
 }
 
 // Kernel B picks its instantiation from the rule: B3/S23 (birth {3},
-// survive {2, 3}) runs the walkers on `threads` (at most kWalkThreads)
-// and `seg_rows`, every other rule the masks on kMaskThreads.
+// survive {2, 3}) runs the walkers on `threads` (at most
+// gol::kWalkThreads) and `seg_rows`, every other rule the masks on
+// kMaskThreads.
 int bitlife_tiled_launch(const void* in, void* out, int rows, int cols,
                          int tile_rows, int tile_cols, int halo, int ghost,
                          int n, unsigned birth, unsigned survive, int combine,
                          int threads, int seg_rows, void* stream) {
   const bool life = birth == (1u << 3) && survive == ((1u << 2) | (1u << 3));
   void (*kernel)(const u32*, u32*, int, int, int, int, int, int, int, u32,
-                 u32, int, const Walk) =
+                 u32, int, const gol::Walk) =
       life ? bitlife_tiled<FORM_LIFE> : bitlife_tiled<FORM_MASKS>;
   if (!life) threads = kMaskThreads;
-  if (threads > kWalkThreads) return (int)cudaErrorInvalidValue;
-  Walk k;
-  k.er = tile_rows + 2 * halo;
-  k.ec = tile_cols + 2 * ghost;
-  k.words = k.er * k.ec;
-  k.seg_rows = seg_rows;
-  k.dcol = threads % k.ec;
-  k.drow = threads / k.ec * seg_rows;
+  if (threads > gol::kWalkThreads) return (int)cudaErrorInvalidValue;
+  const gol::Walk k = gol::make_walk(tile_rows, tile_cols, halo, ghost,
+                                     threads, seg_rows);
   const size_t smem = 2 * sizeof(u32) * (size_t)k.words;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -9,8 +9,9 @@
 // -> 4 count bits. The rule arrives at run time as two 9-bit masks
 // (bit c set = count c in the set); each needed count's equality term is
 // ANDed from the 4 count bits and ORed into the survive / birth masks.
-// One build serves every rule. `life_next` is B3/S23 alone, as a
-// nine-cell sum over a 3x3 window in registers (kernel B's walkers).
+// One build serves every rule. `life_next` is B3/S23 alone and
+// `brain_next` B2/S/C3 alone, each as a nine-cell sum over a 3x3 window
+// in registers (the column walkers of walk.cuh).
 
 #pragma once
 
@@ -100,14 +101,16 @@ __device__ __forceinline__ u32 maj(u32 a, u32 b, u32 c) {
   return (a & b) | (a & c) | (b & c);
 }
 
-// Next B3/S23 value of the centre word of a 3x3 window (n, m, s: rows
-// north, mid, south; [0..2]: columns west, centre, east) in the LOP3/SHF
-// form of chip_smoke.life_fewest_instructions, line for line: it sums all
-// nine cells, so next = [sum9 == 3] | (alive & [sum9 == 4]). Each
-// column's sum is formed here, so a walker spends 20 instructions a word
-// where the form, sharing column sums across words, spends 12.
-__device__ __forceinline__ u32 life_next(const u32 (&n)[3], const u32 (&m)[3],
-                                         const u32 (&s)[3]) {
+// Bits 0..2 of the sum of all nine cells of a 3x3 window (n, m, s: rows
+// north, mid, south; [0..2]: columns west, centre, east), in the LOP3/SHF
+// form of chip_smoke.life_fewest_instructions, line for line. Bit 3 (a
+// sum of 8 or 9) is not formed: b1 and b2 are then clear.
+struct Sum9 {
+  u32 z0, b1, b2;
+};
+
+__device__ __forceinline__ Sum9 sum9(const u32 (&n)[3], const u32 (&m)[3],
+                                     const u32 (&s)[3]) {
   u32 cs[3], cc[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
@@ -122,8 +125,32 @@ __device__ __forceinline__ u32 life_next(const u32 (&n)[3], const u32 (&m)[3],
   const u32 w4 = maj(cc[0], cc[1], cc[2]); // weight-4 carry
   const u32 b1 = a ^ c0;                   // sum9 bit 1
   const u32 b2 = w4 ^ (a & c0);            // sum9 bit 2 (bit 3: 8 or 9)
-  const u32 g = (z0 & b1 & ~b2) | (~z0 & ~b1 & b2);  // sum9 in {3, 4}
-  return g & (m[1] | z0);                  // 3, or 4 with the centre alive
+  return {z0, b1, b2};
+}
+
+// Next B3/S23 value of the centre word of a 3x3 window: it sums all
+// nine cells, so next = [sum9 == 3] | (alive & [sum9 == 4]). Each
+// column's sum is formed here, so a walker spends 20 instructions a word
+// where the form, sharing column sums across words, spends 12.
+__device__ __forceinline__ u32 life_next(const u32 (&n)[3], const u32 (&m)[3],
+                                         const u32 (&s)[3]) {
+  const Sum9 q = sum9(n, m, s);
+  const u32 g = (q.z0 & q.b1 & ~q.b2) | (~q.z0 & ~q.b1 & q.b2);  // {3, 4}
+  return g & (m[1] | q.z0);  // 3, or 4 with the centre alive
+}
+
+// Next B2/S/C3 (Brian's Brain) alive value of the centre word of a 3x3
+// window of the alive plane, given the centre's dying word, in the form
+// of chip_smoke.gens_fewest_instructions: birth needs a dead centre, so
+// the nine-cell sum is the neighbour count wherever it matters, and
+// next = [sum9 == 2] & ~alive & ~dying. (The next dying word is the
+// alive word itself: the survive set is empty.)
+__device__ __forceinline__ u32 brain_next(const u32 (&n)[3],
+                                          const u32 (&m)[3],
+                                          const u32 (&s)[3], u32 dying) {
+  const Sum9 q = sum9(n, m, s);
+  const u32 g = ~q.z0 & q.b1 & ~q.b2;  // sum9 == 2
+  return g & ~m[1] & ~dying;           // ... on a dead cell
 }
 
 // f(i, r, c) for every word i = r * cols + c of a rows x cols region

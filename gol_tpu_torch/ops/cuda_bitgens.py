@@ -13,12 +13,16 @@ bit-exact against the plain version `ops.bitgens.step_n_packed_gens_raw`:
   plane — every plane carries the ghost frame, k <= min(32*halo, ghost)
   turns per launch. Replaces `step_n_packed_gens_pallas_tiled_raw` and
   `step_n_packed_gens_pallas_tiled2d_raw`; both keep their names and
-  override knobs, and share kernel B's tile plans and pass loop.
+  override knobs, and share kernel B's tile plans, walk plan and pass
+  loop.
 
 Shared memory holds C copies of the (extended) board: the alive plane
 ping-pongs, the C-2 dying planes sit in a ring whose oldest slot takes
 each turn's new youngest dying plane (csrc/bitgens.cu). At 512² a plane
-is 32 KiB, so kernel C takes C <= 7 there (224 KiB).
+is 32 KiB, so kernel C takes C <= 7 there (224 KiB). Kernel D's tiles
+are planned for C copies (`TileGeometry.copies`), and B2/S/C3 allocates
+two of them: its column walkers (`cb._walk_plan`) keep the one dying
+plane in the alive plane's ping-pong partner.
 
 Wrappers: a CPU tensor runs the plain version; a CUDA tensor launches
 the kernel (after device, dtype, shape and contiguity checks) or raises
@@ -34,9 +38,8 @@ from gol_tpu_torch.ops import bitgens
 from gol_tpu_torch.ops import cuda_bitlife as cb
 from gol_tpu_torch.ops.bitlife import WORD
 
-#: Threads per block of kernel C (one block per board) and kernel D.
+#: Threads per block of kernel C (one block per board).
 RESIDENT_THREADS = 1024
-TILED_THREADS = 512
 
 #: Launches per kernel. Each wrapper adds one where it launches, and
 #: nowhere else; callers reset the counts by assigning 0.
@@ -114,7 +117,8 @@ def _tiled_pass(src: torch.Tensor, dst: torch.Tensor, k: int,
     nplanes, rows, cols = src.shape
     cb._launch(LAUNCHES, "bitgens_tiled", src, src.data_ptr(), dst.data_ptr(),
                nplanes, rows, cols, geom.tile_rows, geom.tile_cols,
-               geom.halo, geom.ghost, k, *cb.rule_bits(rule), TILED_THREADS)
+               geom.halo, geom.ghost, k, *cb.rule_bits(rule),
+               *cb._walk_plan(geom))
     return dst
 
 

@@ -43,8 +43,8 @@ from gol_tpu_torch.ops.life import from_bits, to_bits
 #: Dynamic shared memory one block may use on the H100 (227 KB).
 SMEM_BYTES = 232_448
 #: Threads per block of kernel A (one block per board), and the most
-#: of kernel B's walkers (`kWalkThreads` in csrc/bitlife.cu, whose
-#: launcher refuses more; its other rules run a fixed 512).
+#: column walkers of kernels B and D (`kWalkThreads` in csrc/walk.cuh,
+#: whose launchers refuse more; their other rules run a fixed 512).
 RESIDENT_THREADS = 1024
 WALK_THREADS = 640
 #: Shortest segment of a kernel-B column walker that is not a whole
@@ -240,12 +240,13 @@ def _tile_plan(rows: int, width: int, strip_rows: int | None,
 
 
 def _walk_plan(geom: TileGeometry) -> tuple:
-    """(threads, seg_rows) of kernel B's column walkers on `geom`'s
-    extended tile: a work item is one column and a segment of seg_rows
-    word-rows (the last segment takes the rest). Whole columns where
-    they fill the block; else the rows split into as many equal segments
-    as fill WALK_THREADS, each at least MIN_SEG_ROWS long. The kernel
-    strides the items over `threads`, so any count of items runs."""
+    """(threads, seg_rows) of the column walkers of kernels B and D on
+    `geom`'s extended tile: a work item is one column and a segment of
+    seg_rows word-rows (the last segment takes the rest). Whole columns
+    where they fill the block; else the rows split into as many equal
+    segments as fill WALK_THREADS, each at least MIN_SEG_ROWS long. The
+    kernel strides the items over `threads`, so any count of items
+    runs."""
     er = geom.tile_rows + 2 * geom.halo
     ec = geom.tile_cols + 2 * geom.ghost
     segs = max(1, min(WALK_THREADS // ec, er // MIN_SEG_ROWS))

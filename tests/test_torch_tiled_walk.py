@@ -1,10 +1,10 @@
-"""Kernel B's walk plan (ops/cuda_bitlife._walk_plan) on the CPU: the
-column walkers' work items, enumerated as the kernel and its launcher
-in csrc/bitlife.cu enumerate them, cover every word of the extended
+"""The walk plan of kernels B and D (ops/cuda_bitlife._walk_plan) on
+the CPU: the column walkers' work items, enumerated as csrc/walk.cuh
+and the launchers enumerate them, cover every word of the extended
 tile exactly once at every geometry the entry points build; the block
 size and segment lengths keep the kernel's limits; the wrapper hands
-the plan to the launcher in the C signature's order. The kernel itself
-runs on the card (chip_smoke.py)."""
+the plan to the launcher in the C signature's order. The kernels
+themselves run on the card (chip_smoke.py)."""
 
 import dataclasses
 import importlib.util
@@ -24,7 +24,8 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 #: the 16384² main path, each strip halo depth (h = 8 is 768 columns,
 #: more work items than threads), a remainder pass's shortened halo, a
 #: ragged board (its last tile 160 of 256 columns) and boards narrower
-#: than one tile.
+#: than one tile; then kernel D's B2/S/C3 tiles, planned for three
+#: copies.
 GEOMETRIES = [
     ("main-2d", cb._tiled2d_geometry(512, 16384, None)),
     *((f"strip-h{h}", cb._tile_plan(512, 16384, 8, h)) for h in range(1, 9)),
@@ -36,6 +37,10 @@ GEOMETRIES = [
     ("narrow-2d", cb._tiled2d_geometry(16, 64, None)),
     ("narrow-strip", cb._tile_plan(24, 100, 8, 2)),
     ("short-board", cb._tiled2d_geometry(3, 300, None)),
+    ("gens-main-2d", cb._tiled2d_geometry(512, 16384, None, 3)),
+    ("gens-strip-h8", cb._tile_plan(128, 4096, 8, 8, 3)),
+    ("gens-ragged-2d", cb._tiled2d_geometry(128, 4000, None, 3)),
+    ("gens-ragged-strip", cb._tile_plan(128, 4000, None, None, 3)),
 ]
 
 
@@ -152,8 +157,8 @@ def test_kernel_resources_reads_ptxas_log():
 
 
 def test_walk_threads_is_the_kernels_launch_bound():
-    """`_walk_plan` plans within WALK_THREADS; the kernel's walkers are
-    built for at most kWalkThreads a block and the launcher refuses more,
+    """`_walk_plan` plans within WALK_THREADS; the kernels' walkers are
+    built for at most kWalkThreads a block and the launchers refuse more,
     so the two constants must be one number."""
-    src = (REPO / "gol_tpu_torch/csrc/bitlife.cu").read_text()
+    src = (REPO / "gol_tpu_torch/csrc/walk.cuh").read_text()
     assert f"constexpr int kWalkThreads = {cb.WALK_THREADS};" in src
