@@ -17,12 +17,13 @@ without the repository beside it, it exits nonzero at once.
 
     python3 chip_smoke.py --ab OTHER_CHECKOUT
 
-compares the tiled kernels B and D of another checkout of this
-repository (the parent commit unpacked with `git archive`, say) with
-this one's on the same card, in four processes (other, this, this,
-other), each building its own kernels: ms per launch of one 32-turn
-pass of a 16384² board, B on B3/S23 and B36/S23, D on B2/S/C3 and
-B2/S345/C4, and the ptxas registers of each build.
+compares kernels A-D of another checkout of this repository (the
+parent commit unpacked with `git archive`, say) with this one's on the
+same card, in four processes (other, this, this, other), each building
+its own kernels: ms per launch of one 32-turn pass of a 16384² board, B
+on B3/S23 and B36/S23, D on B2/S/C3 and B2/S345/C4; ms per 64-turn
+launch on a 512² board, A on B3/S23, C on B2/S/C3 and B2/S345/C4; and
+the ptxas registers of each build.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -66,6 +67,14 @@ KERNELS = {
         "replaces": "gol_tpu/ops/pallas_life.py:89",
     },
 }
+
+#: Boards (height, width) of kernels A and C: cluster plans of 1, 2, 3
+#: and 8 blocks (`cuda_bitlife._cluster_plan`), the last the main
+#: path's 512².
+RESIDENT_BOARDS = ((32, 512), (64, 64), (96, 96), (512, 512))
+#: Turns at the cluster's seams: none, one, either side of the first and
+#: second halo exchange, and the main path's chunks of 64 and 36.
+RESIDENT_TURNS = (0, 1, 31, 32, 33, 36, 64, 100)
 
 #: Published H100 SXM memory rate (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -247,6 +256,56 @@ def gens_fewest_instructions(planes):
     return torch.stack([born, p]), count
 
 
+def starwars_fewest_instructions(planes):
+    """One B2/S345/C4 (Star Wars) turn of packed int32 planes (alive,
+    dying_1, dying_2), counted as `life_fewest_instructions` counts
+    Life: the same ten instructions for the nine-cell sum's bits, then
+    five. An alive centre survives on 3, 4 or 5 neighbours, a nine-cell
+    sum of 4, 5 or 6: bits (b2, b1, z0) 100, 101, 110 — b2 and not both
+    b1 and z0 (7 is 111; 8 and 9 have b2 clear). A dead centre is born
+    on sum9 == 2. The new dying_1 plane is the alive cells that do not
+    survive, the new dying_2 plane IS the old dying_1 (a rename, no
+    instruction), and the old dying_2 plane falls off. Returns (next
+    planes, instructions per word)."""
+    import torch
+
+    from gol_tpu_torch.ops.bitlife import lsr
+
+    count = 0
+
+    def ins(v):
+        nonlocal count
+        count += 1
+        return v
+
+    def maj(a, b, c):
+        return (a & b) | (a & c) | (b & c)
+
+    def west(x):
+        return torch.roll(x, 1, 1)
+
+    def east(x):
+        return torch.roll(x, -1, 1)
+
+    p, d1, d2 = planes[0], planes[1], planes[2]
+    up = ins((p << 1) | lsr(torch.roll(p, 1, 0), 31))     # SHF: row y-1
+    down = ins(lsr(p, 1) | (torch.roll(p, -1, 0) << 31))  # SHF: row y+1
+    s = ins(up ^ p ^ down)                     # column sum, bit 0
+    c = ins(maj(up, p, down))                  # column sum, bit 1
+    z0 = ins(west(s) ^ s ^ east(s))            # sum9 bit 0
+    c0 = ins(maj(west(s), s, east(s)))         # its carry (weight 2)
+    a = ins(west(c) ^ c ^ east(c))             # weight-2 parity
+    m = ins(maj(west(c), c, east(c)))          # weight-4 carry
+    b1 = ins(a ^ c0)                           # sum9 bit 1
+    b2 = ins(m ^ (a & c0))                     # sum9 bit 2 (bit 3: 8 or 9)
+    keep = ins(b2 & ~(b1 & z0))                # sum9 in {4, 5, 6}
+    born = ins(~z0 & b1 & ~b2)                 # sum9 == 2
+    free = ins(born & ~d1 & ~d2)               # ... on a dead cell
+    alive = ins((p & keep) | (~p & free))      # LOP3 of alive, keep, free
+    dying = ins(p & ~keep)                     # alive cells that die
+    return torch.stack([alive, dying, d1]), count
+
+
 def dense_fewest_instructions(bits):
     """One B3/S23 turn of a dense {0,1} uint8 (H, W) board, W % 4 == 0,
     in byte-SIMD form: four cells per 32-bit word (byte k = column
@@ -381,20 +440,22 @@ def check_kernels(errs: dict) -> None:
                              dtype=torch.int32, generator=gen).cuda()
 
     checked = 0
+    plans = {}
     for rule in rules:
-        for side in (64, 512):
-            p = board(side, side)
-            ns = (1, 7, 8, 9, 31, 32, 33, 100)
+        for h, w in RESIDENT_BOARDS:
+            p = board(h, w)
+            plans[f"{h}x{w}"] = cb._cluster_plan(h // 32, w, 2)
             want = plain_turns(
-                lambda x, k: bitlife.step_n_packed_raw(x, k, rule), p, ns)
-            for n in ns:
+                lambda x, k: bitlife.step_n_packed_raw(x, k, rule), p,
+                RESIDENT_TURNS)
+            for n in RESIDENT_TURNS:
                 got = cb.step_n_packed_cuda_raw(p, n, rule)
                 torch.cuda.synchronize()
                 err = max_abs_err(got, want[n])
                 errs["bitlife_resident"] = max(errs["bitlife_resident"], err)
                 if err:
                     raise AssertionError(
-                        f"bitlife_resident {side}² n={n} {rule}: mismatch")
+                        f"bitlife_resident {h}x{w} n={n} {rule}: mismatch")
                 checked += 1
         # Kernel B's seams: tile shapes, the deepest halo (768-column
         # tiles, more column walkers than threads) and a ragged board
@@ -433,9 +494,12 @@ def check_kernels(errs: dict) -> None:
                     checked += 1
             del p, want
             torch.cuda.empty_cache()
+    if not {1, 3, 8} <= {blocks for blocks, _, _ in plans.values()}:
+        raise AssertionError(f"kernel A's boards miss a cluster seam: {plans}")
     phase("kernels", f"{checked} kernel runs bit-exact against the plain "
                      f"version (rules {[str(r) for r in rules]}, "
-                     f"max_abs_err {max(errs.values())})")
+                     f"max_abs_err {max(errs.values())}); kernel A's "
+                     f"(blocks, slab_rows, halo) {plans}")
 
 
 def check_gens_kernels(errs: dict) -> None:
@@ -446,6 +510,7 @@ def check_gens_kernels(errs: dict) -> None:
     from gol_tpu_torch.models.rules import GenRule, get_rule
     from gol_tpu_torch.ops import bitgens
     from gol_tpu_torch.ops import cuda_bitgens as cg
+    from gol_tpu_torch.ops import cuda_bitlife as cb
 
     rng = random.Random(21)
 
@@ -457,23 +522,33 @@ def check_gens_kernels(errs: dict) -> None:
 
     gen = torch.Generator().manual_seed(1)
     checked = 0
+    plans = {}
     resident_rules = [get_rule("B2/S/C3"), get_rule("B2/S345/C4"),
-                      get_rule("B36/S23/C2"), random_rule(5)]
+                      get_rule("B36/S23/C2"), random_rule(5), random_rule(7)]
     for rule in resident_rules:
-        for side in (64, 512):
-            q = gens_planes(rule, side, side, gen)
-            ns = (1, 7, 31, 32, 33, 100)
+        # C = 7 fills one block at 512² (7 copies of 32 KiB), the most
+        # planes kernel C takes there; the other rules on every board.
+        boards = ([(512, 512)] if rule.states == 7 else RESIDENT_BOARDS)
+        for h, w in boards:
+            if not cg.fits_cuda_gens(h, w, rule):
+                raise AssertionError(f"{rule} at {h}x{w} must fit kernel C")
+            q = gens_planes(rule, h, w, gen)
+            plans[f"{h}x{w} C{rule.states}"] = cb._cluster_plan(
+                h // 32, w, rule.states)
             want = plain_turns(
-                lambda x, k: bitgens.step_n_packed_gens_raw(x, k, rule), q, ns)
-            for n in ns:
+                lambda x, k: bitgens.step_n_packed_gens_raw(x, k, rule), q,
+                RESIDENT_TURNS)
+            for n in RESIDENT_TURNS:
                 got = cg.step_n_packed_gens_cuda_raw(q, n, rule)
                 torch.cuda.synchronize()
                 err = max_abs_err(got, want[n])
                 errs["bitgens_resident"] = max(errs["bitgens_resident"], err)
                 if err:
                     raise AssertionError(
-                        f"bitgens_resident {side}² n={n} {rule}: mismatch")
+                        f"bitgens_resident {h}x{w} n={n} {rule}: mismatch")
                 checked += 1
+    if not {1, 3, 8} <= {blocks for blocks, _, _ in plans.values()}:
+        raise AssertionError(f"kernel C's boards miss a cluster seam: {plans}")
     # Kernel D: B2/S/C3 runs the column walkers, the C=8 rule the masks.
     # B2/S/C3's seams at 4096² only: the deepest halo (768-column tiles,
     # more column walkers than threads) and a ragged board (its last tile
@@ -520,7 +595,8 @@ def check_gens_kernels(errs: dict) -> None:
                    | {str(r) for _, _, r in tiled_cases})
     phase("kernels", f"{checked} Generations kernel runs bit-exact against "
                      f"the plain planes (rules {rules}, max_abs_err "
-                     f"{max(errs['bitgens_resident'], errs['bitgens_tiled'])})")
+                     f"{max(errs['bitgens_resident'], errs['bitgens_tiled'])}"
+                     f"); kernel C's (blocks, slab_rows, halo) {plans}")
 
 
 def check_dense_kernel(errs: dict) -> None:
@@ -872,15 +948,26 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float) -> list:
     nxt, gens_ops = gens_fewest_instructions(q)
     if not torch.equal(nxt, bitgens.step_packed_gens(q, brain)):
         raise AssertionError("the bound's LOP3/SHF form does not compute B2/S/C3")
+    q = gens(512, star_wars)
+    nxt, sw_ops = starwars_fewest_instructions(q)
+    if not torch.equal(nxt, bitgens.step_packed_gens(q, star_wars)):
+        raise AssertionError("the bound's LOP3/SHF form does not compute "
+                             "B2/S345/C4")
     bits = life.to_bits(torch.from_numpy(life.random_world(512, 512, seed=2)).cuda())
     nxt, dense_ops = dense_fewest_instructions(bits)
     if not torch.equal(nxt, life.step_bits(bits)):
         raise AssertionError("the bound's byte-SIMD form does not compute Life")
-    phase("measure", f"bound: {life_ops} (Life), {highlife_ops} (B36/S23) and "
-                     f"{gens_ops} (B2/S/C3) INT32 "
+    phase("measure", f"bound: {life_ops} (Life), {highlife_ops} (B36/S23), "
+                     f"{gens_ops} (B2/S/C3) and {sw_ops} (B2/S345/C4) INT32 "
                      f"instructions per packed word per turn (LOP3/SHF form), "
                      f"{dense_ops} per 32-bit word of 4 dense cells (byte-SIMD "
                      f"form); each equal to the plain step")
+
+    def star_wars_bound(x, turns):
+        # Bytes: all three planes in and out; operations on one plane's
+        # words.
+        return bound_ms(2 * 4 * x.numel(), x[0].numel() * turns * sw_ops,
+                        int_ops_per_s)[0]
 
     # (name, shape, input, timed call of the kernel, plain version of
     #  the same call, the call's bytes and INT32 instructions, launches
@@ -966,15 +1053,17 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float) -> list:
         if name == "bitgens_tiled":
             # Kernel D's B2/S/C3 form (column walkers) through the strip
             # entry on the same planes and pass, and its run-time-mask
-            # form on B2/S345/C4 through the 2-D entry (no bound: no
-            # fewest-instruction form of that rule is counted here).
+            # form on B2/S345/C4 through the 2-D entry, against that
+            # rule's bound.
             rows[-1]["share"] = b_ms / ms
             rows[-1]["strip_ms"] = time_ms(
                 lambda: cg.step_n_packed_gens_tiled_raw(x, 32, brain), 20)
             q4 = gens(16384, star_wars)
-            rows[-1]["B2/S345/C4"] = {"ms": time_ms(
+            sw = {"ms": time_ms(
                 lambda: cg.step_n_packed_gens_tiled2d_raw(q4, 32, star_wars),
-                20)}
+                20), "bound_ms": star_wars_bound(q4, 32)}
+            sw["share"] = sw["bound_ms"] / sw["ms"]
+            rows[-1]["B2/S345/C4"] = sw
             del q4
             phase("measure", f"bitgens_tiled B2/S/C3 (column walkers): "
                              f"{ms:.4f} ms/launch via the 2-D entry, "
@@ -982,27 +1071,57 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float) -> list:
                              f"step_n_packed_gens_tiled_raw, 16384² x32 "
                              f"turns; {rows[-1]['share']:.1%} of its bound")
             phase("measure", f"bitgens_tiled B2/S345/C4 (run-time masks): "
-                             f"{rows[-1]['B2/S345/C4']['ms']:.4f} ms/launch "
-                             f"via the 2-D entry, 16384² x32 turns")
+                             f"{sw['ms']:.4f} ms/launch via the 2-D entry, "
+                             f"16384² x32 turns; bound {sw['bound_ms']:.4g} "
+                             f"ms, {sw['share']:.1%} of it")
         del x
         torch.cuda.empty_cache()
-    # Kernels A and C at the chunk a long 512² run calibrates to (~0.1 s
-    # of turns): per-turn time once the launch cost is amortized.
+    # Kernels A and C: the cluster plan at 512², the share of the bound
+    # of a 64-turn launch, the per-turn time at the chunk a long 512² run
+    # calibrates to (~0.1 s of turns) once the launch cost is amortized,
+    # and the registers and spills of each form's build.
+    from gol_tpu_torch.ops import _build
+
+    by_name = {row["name"]: row for row in rows}
     p = packed(512, 1)
-    ms = time_ms(lambda: cb.step_n_packed_cuda_raw(p, 16384), 3)
-    phase("measure", f"bitlife_resident 512² x16384 turns: {ms:.3f} ms/launch, "
-                     f"{ms / 16384 * 1e3:.3f} us/turn")
     q = gens(512)
-    ms = time_ms(lambda: cg.step_n_packed_gens_cuda_raw(q, 16384, brain), 3)
-    phase("measure", f"bitgens_resident 512² B2/S/C3 x16384 turns: {ms:.3f} "
-                     f"ms/launch, {ms / 16384 * 1e3:.3f} us/turn")
+    q4 = gens(512, star_wars)
+    sw = {"ms": time_ms(lambda: cg.step_n_packed_gens_cuda_raw(
+              q4, 64, star_wars), 20),
+          "bound_ms": star_wars_bound(q4, 64),
+          "plan": cb._cluster_plan(16, 512, star_wars.states),
+          "us_per_turn": time_ms(lambda: cg.step_n_packed_gens_cuda_raw(
+              q4, 16384, star_wars), 3) / 16384 * 1e3}
+    sw["share"] = sw["bound_ms"] / sw["ms"]
+    by_name["bitgens_resident"]["B2/S345/C4"] = sw
+    for name, copies, run in (
+            ("bitlife_resident", 2,
+             lambda k: cb.step_n_packed_cuda_raw(p, k)),
+            ("bitgens_resident", brain.states,
+             lambda k: cg.step_n_packed_gens_cuda_raw(q, k, brain))):
+        row = by_name[name]
+        row["plan"] = cb._cluster_plan(16, 512, copies)
+        row["share"] = row["bound_ms"] / row["ms"]
+        row["us_per_turn"] = time_ms(lambda: run(16384), 3) / 16384 * 1e3
+        row["registers"] = kernel_resources(_build.build_log, name)
+        phase("measure", f"{name} 512² (blocks, slab_rows, halo) "
+                         f"{row['plan']}: {row['ms']:.4f} ms per 64-turn "
+                         f"launch, {row['share']:.2%} of its bound; "
+                         f"{row['us_per_turn']:.3f} us/turn at 16384-turn "
+                         f"launches; {row['registers']}")
+    phase("measure", f"bitgens_resident 512² B2/S345/C4 (run-time masks, "
+                     f"plan {sw['plan']}): {sw['ms']:.4f} ms per 64-turn "
+                     f"launch, bound {sw['bound_ms']:.4g} ms, "
+                     f"{sw['share']:.2%} of it; {sw['us_per_turn']:.3f} "
+                     f"us/turn at 16384-turn launches")
     return rows
 
 
 def ab_time(root: str) -> dict:
-    """One side of `--ab`: kernels B and D of the package under `root`,
-    ms per launch of one 32-turn pass of a 16384² board through the 2-D
-    entries, and the registers of a fresh build (none from the cache)."""
+    """One side of `--ab`: kernels A-D of the package under `root` — ms
+    per launch of one 32-turn pass of a 16384² board through B's and D's
+    2-D entries, and of one 64-turn launch of A and C on a 512² board —
+    and the registers of a fresh build (none from the cache)."""
     sys.path.insert(0, str(pathlib.Path(root).resolve()))
     import torch
 
@@ -1014,22 +1133,34 @@ def ab_time(root: str) -> dict:
     _build.load()
     brain, highlife = get_rule("B2/S/C3"), get_rule("B36/S23")
     star_wars = get_rule("B2/S345/C4")
-    x = bitlife.pack(life.to_bits(torch.from_numpy(
-        life.random_world(16384, 16384, seed=1)).cuda()))
-    q = gens_planes(brain, 16384, 16384, torch.Generator().manual_seed(3))
-    q4 = gens_planes(star_wars, 16384, 16384,
-                     torch.Generator().manual_seed(3))
+
+    def board(side):
+        return bitlife.pack(life.to_bits(torch.from_numpy(
+            life.random_world(side, side, seed=1)).cuda()))
+
+    def planes(rule, side):
+        return gens_planes(rule, side, side, torch.Generator().manual_seed(3))
+
+    x, p = board(16384), board(512)
+    q, q4 = planes(brain, 16384), planes(star_wars, 16384)
+    r, r4 = planes(brain, 512), planes(star_wars, 512)
     return {
         "package": str(pathlib.Path(cb.__file__).resolve().parents[2]),
+        "A B3/S23": time_ms(lambda: cb.step_n_packed_cuda_raw(p, 64), 20),
         "B B3/S23": time_ms(lambda: cb.step_n_packed_tiled2d_raw(x, 32), 20),
         "B B36/S23": time_ms(
             lambda: cb.step_n_packed_tiled2d_raw(x, 32, highlife), 20),
+        "C B2/S/C3": time_ms(
+            lambda: cg.step_n_packed_gens_cuda_raw(r, 64, brain), 20),
+        "C B2/S345/C4": time_ms(
+            lambda: cg.step_n_packed_gens_cuda_raw(r4, 64, star_wars), 20),
         "D B2/S/C3": time_ms(
             lambda: cg.step_n_packed_gens_tiled2d_raw(q, 32, brain), 20),
         "D B2/S345/C4": time_ms(
             lambda: cg.step_n_packed_gens_tiled2d_raw(q4, 32, star_wars), 20),
         "registers": {k: kernel_resources(_build.build_log, k)
-                      for k in ("bitlife_tiled", "bitgens_tiled")},
+                      for k in ("bitlife_resident", "bitlife_tiled",
+                                "bitgens_resident", "bitgens_tiled")},
     }
 
 
@@ -1098,10 +1229,11 @@ def main() -> int:
             if "registers" in ln]
     phase("build", f"nvcc {_build.build_seconds:.2f} s -> "
                    f"{_build.library_path().name}; {regs}")
-    # The two instantiations of kernels B and D (ILi0E: B's B3/S23 and
-    # D's B2/S/C3 column walkers, ILi1E: the run-time masks), registers
-    # and spills.
-    for name in ("bitlife_tiled", "bitgens_tiled"):
+    # The two instantiations of kernels A-D (ILi0E: A's and B's B3/S23
+    # and C's and D's B2/S/C3 column walkers, ILi1E: the run-time masks),
+    # registers and spills.
+    for name in ("bitlife_resident", "bitlife_tiled", "bitgens_resident",
+                 "bitgens_tiled"):
         phase("build", f"{name}: {kernel_resources(_build.build_log, name)}")
 
     errs = {name: 0 for name in KERNELS}

@@ -21,14 +21,26 @@
 // step in the general combine form.
 //
 // C. bitgens_resident — replaces gol_tpu/ops/pallas_bitgens.py
-//    step_n_packed_gens_pallas_raw (every plane resident in VMEM). One
-//    thread block holds every plane of the board in dynamic shared
-//    memory for all n turns; device memory is read once and written once
-//    per launch. Bound on the H100: integer operations (B2/S/C3 needs
-//    at least 12 LOP3/SHF instructions per word per turn,
-//    chip_smoke.py). What the design does about it: nothing beyond
-//    keeping the planes on chip — like bitlife_resident it runs on ONE
-//    of the 132 SMs (ROADMAP.md, speed items).
+//    step_n_packed_gens_pallas_raw (every plane resident in VMEM). The
+//    resident cluster of kernel A (walk.cuh): up to 8 blocks hold every
+//    plane of the board as row slabs with one ghost word-row a side,
+//    exchange the ghost rows of every shared-memory copy through
+//    distributed shared memory between rounds of 32 turns, and read and
+//    write device memory once per launch. Only the alive plane carries
+//    information across cells, so the dying planes' ghost rows are exact
+//    wherever the alive plane's are; the exchange still refreshes every
+//    copy, since the dying planes live in them (B2/S/C3: the alive
+//    plane's ping-pong partner; other rules: the ring's C-2 slots, whose
+//    oldest slot every block advances alike). Each round runs kernel
+//    D's block body on the slab: B2/S/C3 by the column walkers (4 LDS, 1
+//    STS and 20 LOP3/SHF a word-turn, two copies), every other rule by
+//    the run-time masks of gens_turns (C copies). Bound on the H100:
+//    integer operations, 12 LOP3/SHF per word-turn for B2/S/C3
+//    (chip_smoke.gens_fewest_instructions) and 15 for B2/S345/C4
+//    (chip_smoke.starwars_fewest_instructions); the bytes are 8 per word
+//    and plane per launch. Still left, as for kernel A: 8 of the 132 SMs
+//    at most, the ghost rows (as many as the interior's at 512^2), and,
+//    for every rule but B2/S/C3, the run-time masks.
 //
 // D. bitgens_tiled — replaces step_n_packed_gens_pallas_tiled_raw and
 //    step_n_packed_gens_pallas_tiled2d_raw. bitlife_tiled per plane: a
@@ -110,36 +122,13 @@ __device__ __forceinline__ u32* gens_turns(u32* cur, u32* nxt, u32* ring,
 // (its ping-pong partner in slot 1), dying_j in ring slot j-1.
 __device__ __forceinline__ int load_slot(int q) { return q == 0 ? 0 : q + 1; }
 
-__global__ void __launch_bounds__(1024, 1)
-    bitgens_resident(const u32* __restrict__ in, u32* __restrict__ out,
-                     int planes, int rows, int cols, int n, u32 birth,
-                     u32 survive) {
-  extern __shared__ u32 smem[];
-  const int words = rows * cols;
-  const int nd = planes - 1;
-  for (int i = threadIdx.x; i < planes * words; i += blockDim.x) {
-    const int q = i / words;
-    smem[load_slot(q) * words + (i - q * words)] = in[i];
-  }
-  __syncthreads();
-  int oldest = nd - 1;
-  u32* alive = gens_turns(smem, smem + words, smem + 2 * words, nd, rows,
-                          cols, n, birth, survive, &oldest);
-  for (int i = threadIdx.x; i < planes * words; i += blockDim.x) {
-    const int q = i / words;
-    const int k = i - q * words;
-    out[i] = q == 0 ? alive[k]
-                    : smem[(2 + (oldest + q) % nd) * words + k];
-  }
-}
-
 // Kernel D's rule forms: B2/S/C3 by column walkers, or any rule by the
 // per-word run-time masks of gens_turns.
 enum { FORM_BRAIN = 0, FORM_MASKS = 1 };
 
-// Threads per block of kernel D: the walkers take up to
-// gol::kWalkThreads, two blocks per SM; the masks form kMaskThreads, one
-// block per SM.
+// Threads per block of kernels D and C: the walkers take up to
+// gol::kWalkThreads (kernel D: two blocks per SM); the masks form
+// kMaskThreads, one block per SM.
 constexpr int kMaskThreads = 512;
 template <int kForm>
 constexpr int kTiledThreads =
@@ -211,26 +200,92 @@ __global__ void __launch_bounds__(kTiledThreads<kForm>, kTiledBlocks<kForm>)
   }
 }
 
+// Kernel C: the forms and block sizes of kernel D, run by the resident
+// cluster (walk.cuh) on row slabs with `halo` ghost word-rows and no
+// ghost columns.
+template <int kForm>
+__global__ void __launch_bounds__(kTiledThreads<kForm>, 1)
+    bitgens_resident(const u32* __restrict__ in, u32* __restrict__ out,
+                     int planes, int rows, int cols, int slab_rows, int halo,
+                     int n, u32 birth, u32 survive, const gol::Walk k) {
+  using gol::smem;
+  const int words = k.words, ec = k.ec;
+  const size_t plane = (size_t)rows * cols;
+  if constexpr (kForm == FORM_BRAIN) {
+    // The alive plane into copy 0, the dying plane into copy 1.
+    gol::load_tile(in, smem, rows, cols, slab_rows, cols, halo, 0, ec,
+                   words);
+    gol::load_tile(in + plane, smem + words, rows, cols, slab_rows, cols,
+                   halo, 0, ec, words);
+    const int cur = gol::cluster_turns(k, n, slab_rows, halo, 2, [&](int t) {
+      return gol::walk_turns(
+          k, t,
+          [](const u32(&nn)[3], const u32(&mm)[3], const u32(&ss)[3],
+             int at) { smem[at] = gol::brain_next(nn, mm, ss, smem[at]); });
+    });
+    gol::store_interior(smem + cur, out, rows, cols, slab_rows, cols, halo,
+                        0, ec);
+    gol::store_interior(smem + (words - cur), out + plane, rows, cols,
+                        slab_rows, cols, halo, 0, ec);
+  } else {
+    const int nd = planes - 1;
+    for (int q = 0; q < planes; ++q)
+      gol::load_tile(in + q * plane, smem + load_slot(q) * words, rows, cols,
+                     slab_rows, cols, halo, 0, ec, words);
+    int oldest = nd - 1;
+    const int cur =
+        gol::cluster_turns(k, n, slab_rows, halo, planes + 1, [&](int t) {
+          __syncthreads();
+          return (int)(gens_turns(smem, smem + words, smem + 2 * words, nd,
+                                  k.er, ec, t, birth, survive, &oldest) -
+                       smem);
+        });
+    gol::store_interior(smem + cur, out, rows, cols, slab_rows, cols, halo,
+                        0, ec);
+    for (int q = 1; q < planes; ++q)
+      gol::store_interior(smem + (2 + (oldest + q) % nd) * words,
+                          out + q * plane, rows, cols, slab_rows, cols, halo,
+                          0, ec);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each launcher returns cudaGetLastError() after the launch (0 = the
 // launch was accepted); the Python wrapper raises on anything else.
-// Shared memory: `planes` + 1 copies of the (extended) board, two for
-// kernel D's B2/S/C3 form.
+// Shared memory: `planes` + 1 copies of the (extended) board or slab,
+// two for the B2/S/C3 forms of kernels C and D.
 
+// Kernel C runs the cluster plan (as kernel A) in kernel D's forms:
+// B2/S/C3 on the walkers with `threads` and `seg_rows` over two copies
+// of the slab, every other rule on the masks with kMaskThreads over
+// `planes` + 1 copies. A plan or block size the kernel does not run is
+// refused (cudaErrorInvalidValue), as is a cluster the card cannot
+// schedule (by the launch).
 int bitgens_resident_launch(const void* in, void* out, int planes, int rows,
                             int cols, int n, unsigned birth,
-                            unsigned survive, int threads, void* stream) {
-  const size_t smem = sizeof(u32) * (size_t)(planes + 1) * rows * cols;
+                            unsigned survive, int blocks, int slab_rows,
+                            int halo, int threads, int seg_rows,
+                            void* stream) {
+  const bool brain = planes == 2 && birth == (1u << 2) && survive == 0;
+  void (*kernel)(const u32*, u32*, int, int, int, int, int, int, u32, u32,
+                 const gol::Walk) =
+      brain ? bitgens_resident<FORM_BRAIN> : bitgens_resident<FORM_MASKS>;
+  if (!brain) threads = kMaskThreads;
+  if (threads > gol::kWalkThreads ||
+      !gol::cluster_plan_ok(rows, blocks, slab_rows, halo))
+    return (int)cudaErrorInvalidValue;
+  const gol::Walk k =
+      gol::make_walk(slab_rows, cols, halo, 0, threads, seg_rows);
+  const size_t smem = sizeof(u32) * (size_t)(brain ? 2 : planes + 1) * k.words;
   cudaError_t e = cudaFuncSetAttribute(
-      bitgens_resident, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  bitgens_resident<<<1, threads, smem, (cudaStream_t)stream>>>(
-      (const u32*)in, (u32*)out, planes, rows, cols, n, birth, survive);
-  return (int)cudaGetLastError();
+  return gol::launch_cluster(kernel, blocks, threads, smem, stream,
+                             (const u32*)in, (u32*)out, planes, rows, cols,
+                             slab_rows, halo, n, (u32)birth, (u32)survive, k);
 }
 
 // Kernel D picks its instantiation from the rule: B2/S/C3 (two planes,

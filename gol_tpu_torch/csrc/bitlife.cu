@@ -8,17 +8,27 @@
 //
 // A. bitlife_resident — replaces gol_tpu/ops/pallas_bitlife.py
 //    step_n_packed_pallas_raw (whole packed board resident in VMEM).
-//    One thread block holds the whole board in dynamic shared memory,
-//    ping-ponging two buffers, one __syncthreads() per turn; device
-//    memory is read once and written once per launch. Bound on the
-//    H100: integer operations (Life needs at least 12 LOP3/SHF
-//    instructions per word per turn, chip_smoke.py; this run-time-rule
-//    form executes more); the bytes are 8 per word per launch. What the
-//    design does about it: nothing beyond keeping the board on chip — it
-//    runs on ONE of
-//    the 132 SMs, so it reaches at most 1/132 of the card's integer
-//    rate. A cluster over distributed shared memory, or several blocks
-//    with a grid barrier, is the first speed item (ROADMAP.md).
+//    One thread-block cluster of up to 8 blocks holds the whole board in
+//    their shared memory, as row slabs of every column with one ghost
+//    word-row a side (walk.cuh, "the resident cluster"); device memory is
+//    read once and written once per launch. Between rounds of 32 turns
+//    the blocks refresh their ghost rows from their neighbours' edge
+//    rows through distributed shared memory (two cluster barriers, and
+//    two ghost word-rows of each of a block's two copies, a round). Each
+//    round runs kernel B's block body on the slab: B3/S23 by the column
+//    walkers (3 LDS, 1 STS and 20 LOP3/SHF a word-turn, plus the walk's
+//    index steps), every other rule by the run-time masks (9 LDS and
+//    about 35 operations for the count, then the rule's mask loop). A
+//    board that no split into 2..8 slabs fits (one word-row, say) runs
+//    as one slab, its wrap the torus, with no ghost rows and no
+//    exchange.
+//    Bound on the H100: integer operations, 12 LOP3/SHF per word-turn
+//    (chip_smoke.life_fewest_instructions); the bytes are 8 per word per
+//    launch. Still left: a small board fills 8 of the 132 SMs at most
+//    (512^2: 8 blocks of 4 x 512 extended words, 512 threads each), a
+//    slab of 2 interior word-rows carries 2 ghost word-rows (2x the
+//    interior's words), and each walker's two-row prologue is spread
+//    over a 4-row column.
 //
 // B. bitlife_tiled — replaces step_n_packed_pallas_tiled_raw and
 //    step_n_packed_pallas_tiled2d_raw (strip / 2-D tiles with deep
@@ -32,12 +42,12 @@
 //    the garbage advances one bit-row and one column per turn, so the
 //    interior stays exact for 32*halo turns vertically and `ghost`
 //    turns horizontally.
-//    Within a turn, column walkers (walk.cuh, shared with kernel D): a
-//    work item is one column of the extended tile and a segment of its
-//    word-rows; the walker keeps a 3x3 window of words in registers and
-//    walks down the segment, loading only the row below each step, so a
-//    word costs 3 shared-memory loads and 1 store, not 9 and 1; the
-//    turn loop divides nothing. This is the B3/S23 instantiation,
+//    Within a turn, column walkers (walk.cuh, shared with kernels A, C
+//    and D): a work item is one column of the extended tile and a
+//    segment of its word-rows; the walker keeps a 3x3 window of words in
+//    registers and walks down the segment, loading only the row below
+//    each step, so a word costs 3 shared-memory loads and 1 store, not 9
+//    and 1; the turn loop divides nothing. This is the B3/S23 instantiation,
 //    summing all nine cells in the LOP3/SHF form (swar.cuh life_next).
 //    Every other rule runs kernel A's per-word run-time masks on the
 //    same tile (512 threads): the masks fed from the walkers' window
@@ -53,7 +63,8 @@
 //
 // Shared arithmetic: the column-sum CSA count and the run-time rule
 // masks of swar.cuh, combined in the form the rule compiler classified
-// (ops/bitlife.py _combine_masks); kernel B's B3/S23 form, also there.
+// (ops/bitlife.py _combine_masks); the B3/S23 form of kernels A and B,
+// also there.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -98,26 +109,12 @@ __device__ __forceinline__ u32* run_turns(u32* cur, u32* nxt, int rows,
   return cur;
 }
 
-__global__ void __launch_bounds__(1024, 1)
-    bitlife_resident(const u32* __restrict__ in, u32* __restrict__ out,
-                     int rows, int cols, int n, u32 birth, u32 survive,
-                     int combine) {
-  extern __shared__ u32 smem[];
-  const int words = rows * cols;
-  u32* cur = smem;
-  u32* nxt = smem + words;
-  for (int i = threadIdx.x; i < words; i += blockDim.x) cur[i] = in[i];
-  __syncthreads();
-  cur = run_turns(cur, nxt, rows, cols, n, birth, survive, combine);
-  for (int i = threadIdx.x; i < words; i += blockDim.x) out[i] = cur[i];
-}
-
 // Kernel B's rule forms: B3/S23 by column walkers summing nine cells,
 // or any rule by kernel A's per-word run-time masks.
 enum { FORM_LIFE = 0, FORM_MASKS = 1 };
 
-// Threads per block of kernel B, two blocks per SM: the walkers take up
-// to gol::kWalkThreads (walk.cuh), the masks form kMaskThreads.
+// Threads per block of kernels B (two blocks per SM) and A: the walkers
+// take up to gol::kWalkThreads (walk.cuh), the masks form kMaskThreads.
 constexpr int kMaskThreads = 512;
 template <int kForm>
 constexpr int kTiledThreads =
@@ -152,6 +149,32 @@ __global__ void __launch_bounds__(kTiledThreads<kForm>, 2)
   }
 }
 
+// Kernel A: the forms and block sizes of kernel B, run by the resident
+// cluster (walk.cuh) on row slabs with `halo` ghost word-rows and no
+// ghost columns.
+template <int kForm>
+__global__ void __launch_bounds__(kTiledThreads<kForm>, 1)
+    bitlife_resident(const u32* __restrict__ in, u32* __restrict__ out,
+                     int rows, int cols, int slab_rows, int halo, int n,
+                     u32 birth, u32 survive, int combine, const gol::Walk k) {
+  using gol::smem;
+  load_tile(in, smem, rows, cols, slab_rows, cols, halo, 0, k.ec, k.words);
+  const int cur = gol::cluster_turns(k, n, slab_rows, halo, 2, [&](int t) {
+    if constexpr (kForm == FORM_LIFE) {
+      return gol::walk_turns(
+          k, t, [](const u32(&nn)[3], const u32(&mm)[3], const u32(&ss)[3],
+                   int at) { smem[at] = gol::life_next(nn, mm, ss); });
+    } else {
+      __syncthreads();
+      return (int)(run_turns(smem, smem + k.words, k.er, k.ec, t, birth,
+                             survive, combine) -
+                   smem);
+    }
+  });
+  store_interior(smem + cur, out, rows, cols, slab_rows, cols, halo, 0,
+                 k.ec);
+}
+
 }  // namespace
 
 extern "C" {
@@ -159,17 +182,34 @@ extern "C" {
 // Each launcher returns cudaGetLastError() after the launch (0 = the
 // launch was accepted); the Python wrapper raises on anything else.
 
+// Kernel A runs the cluster plan (`blocks` slabs of `slab_rows`
+// word-rows, `halo` ghost word-rows a side) in kernel B's forms: B3/S23
+// on the walkers with `threads` and `seg_rows`, every other rule on the
+// masks with kMaskThreads. A plan or block size the kernel does not run
+// is refused (cudaErrorInvalidValue), as is a cluster the card cannot
+// schedule (by the launch).
 int bitlife_resident_launch(const void* in, void* out, int rows, int cols,
                             int n, unsigned birth, unsigned survive,
-                            int combine, int threads, void* stream) {
-  const size_t smem = 2 * sizeof(u32) * (size_t)rows * cols;
+                            int combine, int blocks, int slab_rows, int halo,
+                            int threads, int seg_rows, void* stream) {
+  const bool life = birth == (1u << 3) && survive == ((1u << 2) | (1u << 3));
+  void (*kernel)(const u32*, u32*, int, int, int, int, int, u32, u32, int,
+                 const gol::Walk) =
+      life ? bitlife_resident<FORM_LIFE> : bitlife_resident<FORM_MASKS>;
+  if (!life) threads = kMaskThreads;
+  if (threads > gol::kWalkThreads ||
+      !gol::cluster_plan_ok(rows, blocks, slab_rows, halo))
+    return (int)cudaErrorInvalidValue;
+  const gol::Walk k =
+      gol::make_walk(slab_rows, cols, halo, 0, threads, seg_rows);
+  const size_t smem = 2 * sizeof(u32) * (size_t)k.words;
   cudaError_t e = cudaFuncSetAttribute(
-      bitlife_resident, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  bitlife_resident<<<1, threads, smem, (cudaStream_t)stream>>>(
-      (const u32*)in, (u32*)out, rows, cols, n, birth, survive, combine);
-  return (int)cudaGetLastError();
+  return gol::launch_cluster(kernel, blocks, threads, smem, stream,
+                             (const u32*)in, (u32*)out, rows, cols,
+                             slab_rows, halo, n, (u32)birth, (u32)survive,
+                             combine, k);
 }
 
 // Kernel B picks its instantiation from the rule: B3/S23 (birth {3},

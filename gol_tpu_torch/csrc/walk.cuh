@@ -1,5 +1,7 @@
-// Column walkers over a tile in dynamic shared memory, shared by kernel
-// B's B3/S23 form (bitlife.cu) and kernel D's B2/S/C3 form (bitgens.cu).
+// Column walkers over a tile in dynamic shared memory, shared by the
+// B3/S23 forms of kernels A and B (bitlife.cu) and the B2/S/C3 forms of
+// kernels C and D (bitgens.cu); and the thread-block cluster that runs
+// kernels A and C (the end of this file).
 //
 // A block holds an extended tile (its interior plus ghost word-rows and
 // ghost columns, toroidal indices modulo the board) in two copies, `cur`
@@ -21,6 +23,8 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "swar.cuh"
@@ -168,6 +172,110 @@ __device__ __forceinline__ void store_interior(const u32* tile,
     if (gr < rows && gc < cols)
       out[(size_t)gr * cols + gc] = tile[(tr + halo) * ec + tc + ghost];
   }
+}
+
+// --- The resident cluster of kernels A and C ---
+//
+// A cluster of `blocks` thread blocks (at most 8, the portable cluster
+// size) holds the whole board: block b = blockIdx.y, its cluster rank,
+// holds word-rows [b * slab_rows, (b + 1) * slab_rows) — every column —
+// plus `halo` ghost word-rows a side, loaded by load_tile with
+// tile_cols = cols and no ghost columns, so each slab wraps its columns
+// exactly. Its own wrap of rows feeds garbage into the ghost rows, one
+// bit-row a turn, so the interior stays exact for kRoundTurns * halo
+// turns. The cluster runs the turns in rounds of that many and, between
+// two rounds, refreshes every block's ghost rows from its neighbours'
+// edge interior rows through distributed shared memory. With one block
+// (halo 0) the slab is the board, its wrap the torus, and all n turns
+// are one round with no cluster barrier.
+
+// Turns bought per halo word-row (one bit-row of light cone per turn).
+constexpr int kRoundTurns = 32;
+
+// The most blocks of a cluster every sm_90 card schedules.
+constexpr int kClusterBlocks = 8;
+
+// Whether a cluster plan (ops/cuda_bitlife._cluster_plan) is one the
+// kernels run: at most kClusterBlocks slabs of equal height covering
+// the board, one ghost word-row a side exactly when there are several.
+inline bool cluster_plan_ok(int rows, int blocks, int slab_rows, int halo) {
+  return blocks >= 1 && blocks <= kClusterBlocks && slab_rows >= 1 &&
+         blocks * slab_rows == rows && halo == (blocks > 1 ? 1 : 0);
+}
+
+// Between two rounds: every block's `halo` ghost word-rows of each of
+// the `copies` tile copies (copy q at word q * k.words) from the same
+// copy of its neighbours' edge interior rows — the top ones from the
+// last interior rows of rank b-1, the bottom ones from the first of
+// rank b+1 (ranks modulo the cluster). All blocks hold the same copy
+// layout, so the exchange copies slot to slot. The first cluster
+// barrier makes every block's round visible; the second keeps a block
+// from writing any copy (its next round, or its exit) while a
+// neighbour may still read it.
+__device__ __forceinline__ void exchange_halo(const Walk k, int slab_rows,
+                                              int halo, int copies) {
+  namespace cg = cooperative_groups;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const unsigned b = cluster.block_rank(), nb = cluster.num_blocks();
+  const u32* north = cluster.map_shared_rank(smem, (b + nb - 1) % nb);
+  const u32* south = cluster.map_shared_rank(smem, (b + 1) % nb);
+  const int side = halo * k.ec;           // words of one side's ghost rows
+  const int last = slab_rows * k.ec;      // a slab's last interior rows
+  const int below = last + side;          // this slab's bottom ghost rows
+  cluster.sync();
+  for (int i = threadIdx.x; i < copies * 2 * side; i += blockDim.x) {
+    const int q = i / (2 * side);
+    const int j = i - q * 2 * side;
+    const int at = q * k.words;
+    if (j < side)
+      smem[at + j] = north[at + last + j];
+    else
+      smem[at + below + j - side] = south[at + j];
+  }
+  cluster.sync();
+}
+
+// n turns of the resident cluster: round(t) steps this block's tile t
+// turns from copy 0 and returns the word offset of the copy that holds
+// the result; every round but the last is kRoundTurns * halo turns, an
+// even count, so it ends in copy 0 again. Returns the last round's
+// offset.
+template <typename Round>
+__device__ __forceinline__ int cluster_turns(const Walk k, int n,
+                                             int slab_rows, int halo,
+                                             int copies, Round round) {
+  const int per = halo ? kRoundTurns * halo : n;
+  for (int done = 0;;) {
+    const int t = min(per, n - done);
+    const int cur = round(t);
+    done += t;
+    if (done == n) return cur;
+    exchange_halo(k, slab_rows, halo, copies);
+  }
+}
+
+// Launches `kernel` on a grid of (1, blocks) blocks that form one
+// cluster of (1, blocks, 1), on `stream`; returns the launch's error
+// code, or else cudaGetLastError() (0 = the launch was accepted).
+template <typename... Params, typename... Args>
+inline int launch_cluster(void (*kernel)(Params...), int blocks,
+                          int threads, size_t smem_bytes, void* stream,
+                          Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, blocks, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = blocks;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
 }
 
 }  // namespace gol

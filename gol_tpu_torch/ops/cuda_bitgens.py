@@ -6,8 +6,9 @@ n, rule) -> the planes after n toroidal Generations turns — and is held
 bit-exact against the plain version `ops.bitgens.step_n_packed_gens_raw`:
 
 - `step_n_packed_gens_cuda_raw`: kernel C (`bitgens_resident` in
-  csrc/bitgens.cu), every plane resident in one block's shared memory
-  for all n turns. Replaces `step_n_packed_gens_pallas_raw`.
+  csrc/bitgens.cu), every plane resident for all n turns in one
+  thread-block cluster of row slabs, kernel A's (`cb._cluster_plan`,
+  planned for C copies). Replaces `step_n_packed_gens_pallas_raw`.
 - `step_n_packed_gens_tiled_raw` / `step_n_packed_gens_tiled2d_raw`:
   kernel D (`bitgens_tiled`), kernel B of `ops/cuda_bitlife.py` per
   plane — every plane carries the ghost frame, k <= min(32*halo, ghost)
@@ -19,10 +20,13 @@ bit-exact against the plain version `ops.bitgens.step_n_packed_gens_raw`:
 Shared memory holds C copies of the (extended) board: the alive plane
 ping-pongs, the C-2 dying planes sit in a ring whose oldest slot takes
 each turn's new youngest dying plane (csrc/bitgens.cu). At 512² a plane
-is 32 KiB, so kernel C takes C <= 7 there (224 KiB). Kernel D's tiles
-are planned for C copies (`TileGeometry.copies`), and B2/S/C3 allocates
-two of them: its column walkers (`cb._walk_plan`) keep the one dying
-plane in the alive plane's ping-pong partner.
+is 32 KiB, so kernel C takes C <= 7 there (C = 7: 224 KiB, which its
+cluster spreads over 8 blocks of 56 KiB with their ghost rows; the gate
+is the one-block board, the plan of any board that passes it). Kernel
+C's slabs and kernel D's tiles are
+planned for C copies (`TileGeometry.copies`), and B2/S/C3 allocates two
+of them: its column walkers (`cb._walk_plan`) keep the one dying plane
+in the alive plane's ping-pong partner.
 
 Wrappers: a CPU tensor runs the plain version; a CUDA tensor launches
 the kernel (after device, dtype, shape and contiguity checks) or raises
@@ -37,9 +41,6 @@ from gol_tpu_torch.models.rules import GenRule
 from gol_tpu_torch.ops import bitgens
 from gol_tpu_torch.ops import cuda_bitlife as cb
 from gol_tpu_torch.ops.bitlife import WORD
-
-#: Threads per block of kernel C (one block per board).
-RESIDENT_THREADS = 1024
 
 #: Launches per kernel. Each wrapper adds one where it launches, and
 #: nowhere else; callers reset the counts by assigning 0.
@@ -83,24 +84,18 @@ def _check_planes(planes: torch.Tensor, rule: GenRule) -> None:
 def step_n_packed_gens_cuda_raw(planes: torch.Tensor, n: int,
                                 rule: GenRule) -> torch.Tensor:
     """`n` turns, planes in / planes out, one launch of kernel C (every
-    plane resident in shared memory)."""
+    plane resident in one cluster's shared memory, `cb._cluster_plan`)."""
     if n < 0:
         raise ValueError("n must be >= 0")
     if planes.device.type == "cpu":
         return bitgens.step_n_packed_gens_raw(planes, n, rule)
     _check_planes(planes, rule)
     nplanes, rows, cols = planes.shape
-    if _resident_bytes(rule, rows, cols) > cb.SMEM_BYTES:
-        raise ValueError(
-            f"{nplanes} planes of {rows}x{cols} words need "
-            f"{_resident_bytes(rule, rows, cols)} bytes of shared memory, "
-            f"over the {cb.SMEM_BYTES} one block has"
-        )
-    threads = min(RESIDENT_THREADS, -(-rows * cols // 32) * 32)
+    plan = cb._resident_args(rows, cols, rule.states)
     out = torch.empty_like(planes)
     cb._launch(LAUNCHES, "bitgens_resident", planes, planes.data_ptr(),
                out.data_ptr(), nplanes, rows, cols, n, *cb.rule_bits(rule),
-               threads)
+               *plan)
     return out
 
 

@@ -6,8 +6,10 @@ after n toroidal turns — and is held bit-exact against the plain
 version `ops.bitlife.step_n_packed_raw`:
 
 - `step_n_packed_cuda_raw`: kernel A (`bitlife_resident` in
-  csrc/bitlife.cu), the whole board resident in one block's shared
-  memory for all n turns. Replaces `step_n_packed_pallas_raw`.
+  csrc/bitlife.cu), the whole board resident for all n turns in the
+  shared memory of one thread-block cluster of row slabs
+  (`_cluster_plan`), whose blocks exchange their ghost rows every 32
+  turns. Replaces `step_n_packed_pallas_raw`.
 - `step_n_packed_tiled_raw` / `step_n_packed_tiled2d_raw`: kernel B
   (`bitlife_tiled`), temporally blocked tiles with ghost word-rows and
   ghost columns, k <= min(32*halo, ghost) turns per launch; B3/S23 is
@@ -42,11 +44,14 @@ from gol_tpu_torch.ops.life import from_bits, to_bits
 
 #: Dynamic shared memory one block may use on the H100 (227 KB).
 SMEM_BYTES = 232_448
-#: Threads per block of kernel A (one block per board), and the most
-#: column walkers of kernels B and D (`kWalkThreads` in csrc/walk.cuh,
-#: whose launchers refuse more; their other rules run a fixed 512).
-RESIDENT_THREADS = 1024
+#: The most column walkers of a block of kernels A-D (`kWalkThreads` in
+#: csrc/walk.cuh, whose launchers refuse more; their other rules run a
+#: fixed 512).
 WALK_THREADS = 640
+#: The most blocks of kernel A's and C's cluster: the portable cluster
+#: size, which every sm_90 card schedules (`kClusterBlocks` in
+#: csrc/walk.cuh, whose launchers refuse more).
+CLUSTER_BLOCKS = 8
 #: Shortest segment of a kernel-B column walker that is not a whole
 #: column, in word-rows (its two-row prologue spread over at least 8).
 MIN_SEG_ROWS = 8
@@ -85,6 +90,38 @@ def rule_args(rule: Rule) -> tuple:
 
 def _resident_bytes(rows: int, cols: int) -> int:
     return 2 * 4 * rows * cols  # two ping-pong copies of the board
+
+
+def _cluster_plan(rows: int, cols: int, copies: int) -> tuple:
+    """(blocks, slab_rows, halo) of kernel A's or C's cluster on a
+    packed board of `rows` word-rows and `cols` columns: `blocks` row
+    slabs of `slab_rows` word-rows, each with `halo` ghost word-rows a
+    side and every column, `copies` copies of it in one block's shared
+    memory. `blocks` is the largest divisor of `rows` up to
+    CLUSTER_BLOCKS whose slab fits; `halo` is 1 when there are several
+    blocks (a round of 32 turns between exchanges) and 0 for one, whose
+    slab is the board and whose wrap is the torus. Every board whose
+    `copies` copies fit one block has a plan."""
+    for blocks in range(min(CLUSTER_BLOCKS, rows), 0, -1):
+        halo = 1 if blocks > 1 else 0
+        slab = rows // blocks
+        if (rows % blocks == 0
+                and copies * 4 * (slab + 2 * halo) * cols <= SMEM_BYTES):
+            return blocks, slab, halo
+    raise ValueError(
+        f"packed board {rows}x{cols} needs {copies * 4 * rows * cols} bytes "
+        f"of shared memory for {copies} copies, over the {SMEM_BYTES} one "
+        f"block has"
+    )
+
+
+def _resident_args(rows: int, cols: int, copies: int) -> tuple:
+    """The cluster arguments of kernels A and C: (blocks, slab_rows,
+    halo, threads, seg_rows), the walk plan of one slab last (the masks
+    forms take their own block size)."""
+    blocks, slab_rows, halo = _cluster_plan(rows, cols, copies)
+    walk = _walk_plan(TileGeometry(slab_rows, cols, halo, 0, copies))
+    return blocks, slab_rows, halo, *walk
 
 
 def fits_cuda_packed(height: int, width: int) -> bool:
@@ -146,22 +183,18 @@ def _check_pass(src: torch.Tensor, dst: torch.Tensor, check) -> None:
 def step_n_packed_cuda_raw(p: torch.Tensor, n: int,
                            rule: Rule = LIFE) -> torch.Tensor:
     """`n` turns, packed int32 in / packed int32 out, one launch of
-    kernel A (the whole board resident in shared memory)."""
+    kernel A (the whole board resident in one cluster's shared memory,
+    `_cluster_plan`)."""
     if n < 0:
         raise ValueError("n must be >= 0")
     if p.device.type == "cpu":
         return bitlife.step_n_packed_raw(p, n, rule)
     _check_cuda(p)
     rows, cols = p.shape
-    if _resident_bytes(rows, cols) > SMEM_BYTES:
-        raise ValueError(
-            f"packed board {rows}x{cols} needs {_resident_bytes(rows, cols)} "
-            f"bytes of shared memory, over the {SMEM_BYTES} one block has"
-        )
-    threads = min(RESIDENT_THREADS, -(-rows * cols // 32) * 32)
+    plan = _resident_args(rows, cols, 2)
     out = torch.empty_like(p)
     _launch(LAUNCHES, "bitlife_resident", p, p.data_ptr(), out.data_ptr(),
-            rows, cols, n, *rule_args(rule), threads)
+            rows, cols, n, *rule_args(rule), *plan)
     return out
 
 
