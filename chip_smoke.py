@@ -17,13 +17,16 @@ without the repository beside it, it exits nonzero at once.
 
     python3 chip_smoke.py --ab OTHER_CHECKOUT
 
-compares kernels A-D of another checkout of this repository (the
+compares kernels A-E of another checkout of this repository (the
 parent commit unpacked with `git archive`, say) with this one's on the
 same card, in four processes (other, this, this, other), each building
 its own kernels: ms per launch of one 32-turn pass of a 16384² board, B
 on B3/S23 and B36/S23, D on B2/S/C3 and B2/S345/C4; ms per 64-turn
-launch on a 512² board, A on B3/S23, C on B2/S/C3 and B2/S345/C4; and
-the ptxas registers of each build.
+launch on a 512² board, A on B3/S23, C on B2/S/C3 and B2/S345/C4; ms
+per call of E's `step_n_cuda_dense`, 100 turns on a 512² board (with
+the host's enqueue and the device's time) and 32 on a 16384² one; the
+ptxas registers of each build; and whether each kernel instantiation
+compiled to the same SASS in both builds.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -32,8 +35,10 @@ from __future__ import annotations
 
 import csv
 import json
+import os
 import pathlib
 import random
+import re
 import subprocess
 import sys
 import tempfile
@@ -601,31 +606,102 @@ def check_gens_kernels(errs: dict) -> None:
 
 def check_dense_kernel(errs: dict) -> None:
     """Phase 3c: kernel E against the plain dense step on the card,
-    bit-exact."""
+    bit-exact: both rule forms (B3/S23, B36/S23) at the tiled
+    schedule's seams — a width that is not a multiple of 4 (the byte
+    loader), a board smaller than the ghost frame, ragged last tiles —
+    and at 512² and 512x1024, at n in {0, 1, k-1, k, k+1, 2k+1, 100};
+    a board of arbitrary nonzero bytes and a view off a 4-byte boundary
+    at 512²; both plans `measure` times (depths 8 and 16) at 512²;
+    boards of more rows of tiles than one grid holds (5,000,000 x 4 and
+    x 3, two launches a pass, as the launcher reports); and 16384² at n
+    in {1, k, k+1, 32}."""
     import torch
 
     from gol_tpu_torch.models.rules import get_rule
     from gol_tpu_torch.ops import cuda_life as cl
     from gol_tpu_torch.ops import life
 
+    def check(what, got, want):
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        errs["life_dense"] = max(errs["life_dense"], err)
+        if err:
+            raise AssertionError(f"life_dense {what}: mismatch")
+
     checked = 0
-    for rule in (get_rule("B3/S23"), get_rule("B36/S23")):
-        for h, w in ((512, 512), (512, 1024)):
+    plans = {}
+    rules = (get_rule("B3/S23"), get_rule("B36/S23"))
+    for rule in rules:
+        for h, w in ((64, 128), (37, 45), (5, 7), (100, 260), (512, 512),
+                     (512, 1024)):
             world = torch.from_numpy(life.random_world(h, w, seed=h + w)).cuda()
-            ns = (1, 31, 32, 33, 100)
-            want = plain_turns(lambda x, k: life.step_n(x, k, rule), world, ns)
+            plans[f"{h}x{w}"] = plan = cl._dense_plan(h, w)
+            k = plan[4]
+            ns = (0, 1, k - 1, k, k + 1, 2 * k + 1, 100)
+            want = plain_turns(lambda x, t: life.step_n(x, t, rule), world, ns)
             for n in ns:
-                got = cl.step_n_cuda_dense(world, n, rule)
-                torch.cuda.synchronize()
-                err = max_abs_err(got, want[n])
-                errs["life_dense"] = max(errs["life_dense"], err)
-                if err:
-                    raise AssertionError(f"life_dense {h}x{w} n={n} {rule}: "
-                                         "mismatch")
+                check(f"{h}x{w} n={n} {rule}",
+                      cl.step_n_cuda_dense(world, n, rule), want[n])
                 checked += 1
+    # Nonzero = alive, whatever the byte; a view that starts off a word.
+    gen = torch.Generator().manual_seed(4)
+    raw = torch.randint(0, 256, (512, 512), dtype=torch.uint8,
+                        generator=gen).cuda()
+    raw[raw < 128] = 0
+    flat = torch.zeros(512 * 512 + 1, dtype=torch.uint8, device="cuda")
+    flat[1:] = raw.flatten()
+    for what, x in (("arbitrary bytes", raw),
+                    ("view at byte 1", flat[1:].view(512, 512))):
+        for rule in rules:
+            check(f"512x512 {what} {rule}", cl.step_n_cuda_dense(x, 37, rule),
+                  life.step_n(raw, 37, rule))
+            checked += 1
+    # Both plans `measure` times, at 512².
+    world = torch.from_numpy(life.random_world(512, 512, seed=1)).cuda()
+    want = plain_turns(life.step_n, world, (31, 33, 100))
+    for depth in sorted(cl.TILES):
+        plan = cl._dense_plan(512, 512, depth)
+        for n in (31, 33, 100):
+            check(f"512x512 depth {depth} n={n}",
+                  cl._run(world, n, rules[0], plan), want[n])
+            checked += 1
+    # More rows of tiles than a grid holds: each pass in two launches.
+    for h, w in ((5_000_000, 4), (5_000_000, 3)):
+        world = torch.from_numpy(life.random_world(h, w, seed=w)).cuda()
+        plans[f"{h}x{w}"] = plan = cl._dense_plan(h, w)
+        k = plan[4]
+        slices = -(-(-(-h // plan[0])) // 65_535)
+        for rule in rules:
+            for n in (1, k + 1):
+                before = cl.LAUNCHES["life_dense"]
+                got = cl.step_n_cuda_dense(world, n, rule)
+                issued = cl.LAUNCHES["life_dense"] - before
+                check(f"{h}x{w} n={n} {rule}", got,
+                      life.step_n(world, n, rule))
+                if issued != -(-n // k) * slices or slices < 2:
+                    raise AssertionError(
+                        f"life_dense {h}x{w} n={n}: {issued} launches, "
+                        f"{slices} grids a pass")
+                checked += 1
+    del world, want
+    side = 16384
+    world = torch.from_numpy(life.random_world(side, side, seed=0)).cuda()
+    plans[f"{side}x{side}"] = plan = cl._dense_plan(side, side)
+    k = plan[4]
+    ns = (1, k, k + 1, 32)
+    for rule in rules:
+        want = plain_turns(lambda x, t: life.step_n(x, t, rule), world, ns)
+        for n in ns:
+            check(f"{side}x{side} n={n} {rule}",
+                  cl.step_n_cuda_dense(world, n, rule), want[n])
+            checked += 1
+        del want
+    del world
+    torch.cuda.empty_cache()
     phase("kernels", f"{checked} dense kernel runs bit-exact against the "
                      f"plain step (B3/S23, B36/S23; max_abs_err "
-                     f"{errs['life_dense']})")
+                     f"{errs['life_dense']}); plans (tile_rows, tile_words, "
+                     f"halo, ghost, turns, threads, seg_rows) {plans}")
 
 
 def main_path_512(tmp: pathlib.Path) -> int:
@@ -867,7 +943,8 @@ def main_gens_16384(tmp: pathlib.Path, card: str) -> int:
 
 def main_dense_512(tmp: pathlib.Path) -> int:
     """Phase 5e: run(Params 512², backend "cuda-dense", 100 turns): the
-    PGM byte-equal to the golden board, every turn through kernel E."""
+    PGM byte-equal to the golden board, every turn through kernel E, in
+    the plan's count of launches."""
     import gol_tpu_torch
     from gol_tpu_torch import Params
     from gol_tpu_torch.ops import cuda_life as cl
@@ -888,11 +965,16 @@ def main_dense_512(tmp: pathlib.Path) -> int:
     golden = (FIXTURES / "check/images/512x512x100.pgm").read_bytes()
     if (out / "512x512x100.pgm").read_bytes() != golden:
         raise AssertionError("512² cuda-dense: PGM differs from the fixture")
-    if launches <= 0:
-        raise AssertionError("the cuda-dense path never launched life_dense")
+    # The engine's two chunks, 64 and 36 turns, each ⌈n/k⌉ passes.
+    k = cl._dense_plan(512, 512)[4]
+    plan_launches = -(-64 // k) + -(-36 // k)
+    if launches != plan_launches:
+        raise AssertionError(f"the cuda-dense path launched life_dense "
+                             f"{launches} times, the plan {plan_launches}")
     phase("main-dense-512", f"run(Params 512x512, backend cuda-dense, 100 "
                             f"turns) byte-equal to the fixture; {launches} "
-                            f"life_dense launches, {wall:.3f} s wall")
+                            f"life_dense launches (k = {k}), {wall:.3f} s "
+                            f"wall")
     return launches
 
 
@@ -969,60 +1051,60 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float) -> list:
         return bound_ms(2 * 4 * x.numel(), x[0].numel() * turns * sw_ops,
                         int_ops_per_s)[0]
 
-    # (name, shape, input, timed call of the kernel, plain version of
-    #  the same call, the call's bytes and INT32 instructions, launches
-    #  per call). A, C: one 64-turn chunk of the 512² board (the engine's
-    #  first chunk). B, D: one 32-turn pass of the 16384² board. E: a
-    #  100-turn call on the 512² dense board, one launch per turn; its
-    #  bound is the call's (the board read once and written once, 100
-    #  turns of instructions), and ms, plain ms and the bound are per
-    #  launch, i.e. divided by 100.
+    # (name, shape, what ms and the bound are per, input, timed call of
+    #  the kernel, plain version of the same call, the call's bytes and
+    #  INT32 instructions). A, C: one 64-turn chunk of the 512² board (the
+    #  engine's first chunk). B, D: one 32-turn pass of the 16384² board.
+    #  E: one 100-turn call on the 512² dense board (⌈100/k⌉ launches);
+    #  its bound is the call's (the board read once and written once, 100
+    #  turns of instructions).
     w512 = torch.from_numpy(life.random_world(512, 512, seed=1)).cuda()
     specs = [
         ("bitlife_resident", "512x512 board, 64 turns per launch",
+         "64-turn launch",
          lambda: packed(512, 1),
          lambda x: cb.step_n_packed_cuda_raw(x, 64),
          lambda x: bitlife.step_n_packed_raw(x, 64),
-         lambda x: 2 * 4 * x.numel(), lambda x: x.numel() * 64 * life_ops, 1),
+         lambda x: 2 * 4 * x.numel(), lambda x: x.numel() * 64 * life_ops),
         ("bitlife_tiled", "16384x16384 board, 32 turns per launch",
+         "32-turn launch",
          lambda: packed(16384, 1),
          lambda x: cb.step_n_packed_tiled2d_raw(x, 32),
          lambda x: bitlife.step_n_packed_raw(x, 32),
-         lambda x: 2 * 4 * x.numel(), lambda x: x.numel() * 32 * life_ops, 1),
+         lambda x: 2 * 4 * x.numel(), lambda x: x.numel() * 32 * life_ops),
         ("bitgens_resident", "512x512 B2/S/C3 planes, 64 turns per launch",
+         "64-turn launch",
          lambda: gens(512),
          lambda x: cg.step_n_packed_gens_cuda_raw(x, 64, brain),
          lambda x: bitgens.step_n_packed_gens_raw(x, 64, brain),
-         lambda x: 2 * 4 * x.numel(), lambda x: x[0].numel() * 64 * gens_ops,
-         1),
+         lambda x: 2 * 4 * x.numel(), lambda x: x[0].numel() * 64 * gens_ops),
         ("bitgens_tiled", "16384x16384 B2/S/C3 planes, 32 turns per launch",
+         "32-turn launch",
          lambda: gens(16384),
          lambda x: cg.step_n_packed_gens_tiled2d_raw(x, 32, brain),
          lambda x: bitgens.step_n_packed_gens_raw(x, 32, brain),
-         lambda x: 2 * 4 * x.numel(), lambda x: x[0].numel() * 32 * gens_ops,
-         1),
-        ("life_dense", "512x512 dense board, 1 turn per launch (timed and "
-         "bounded as 100-turn calls)",
+         lambda x: 2 * 4 * x.numel(), lambda x: x[0].numel() * 32 * gens_ops),
+        ("life_dense", "512x512 dense board, one 100-turn call",
+         "100-turn call",
          lambda: w512,
          lambda x: cl.step_n_cuda_dense(x, 100),
          lambda x: life.step_n(x, 100),
-         lambda x: 2 * x.numel(), lambda x: x.numel() // 4 * 100 * dense_ops,
-         100),
+         lambda x: 2 * x.numel(), lambda x: x.numel() // 4 * 100 * dense_ops),
     ]
     rows = []
-    for name, shape, make, kernel, plain, nbytes, ops, per_call in specs:
+    for name, shape, per, make, kernel, plain, nbytes, ops in specs:
         x = make()
-        ms = time_ms(lambda: kernel(x), 20) / per_call
-        plain_ms = time_ms(lambda: plain(x), 3) / per_call
+        ms = time_ms(lambda: kernel(x), 20)
+        plain_ms = time_ms(lambda: plain(x), 3)
         b_ms, b_by = bound_ms(nbytes(x), ops(x), int_ops_per_s)
-        b_ms /= per_call
         rows.append({
             "name": name, "route": "cuda", **KERNELS[name],
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None, "shape": shape,
+            "per": per,
         })
-        phase("measure", f"{name} {shape}: {ms:.4f} ms/launch, plain "
+        phase("measure", f"{name} {shape}: {ms:.4f} ms per call, plain "
                          f"{plain_ms:.3f} ms, bound {b_ms:.4g} ms ({b_by})")
         if name == "bitlife_tiled":
             # Kernel B through the strip entry point (gol_tpu's 1-D tiled
@@ -1074,6 +1156,8 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float) -> list:
                              f"{sw['ms']:.4f} ms/launch via the 2-D entry, "
                              f"16384² x32 turns; bound {sw['bound_ms']:.4g} "
                              f"ms, {sw['share']:.1%} of it")
+        if name == "life_dense":
+            dense_rows(rows[-1], x, nbytes, dense_ops, int_ops_per_s)
         del x
         torch.cuda.empty_cache()
     # Kernels A and C: the cluster plan at 512², the share of the bound
@@ -1117,10 +1201,134 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float) -> list:
     return rows
 
 
+def host_ms(fn, reps: int) -> float:
+    """Mean ms the host spends enqueueing one call of `fn` (perf_counter
+    around the call, before any synchronise), after one warm-up; the
+    card is idle at the start of each call."""
+    import torch
+
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / reps * 1e3
+
+
+def device_ms(fn, kernel: str, reps: int):
+    """(ms of device time per call of `fn` in kernels named `kernel`,
+    their launches per call), by torch.profiler's CUDA activity over
+    `reps` calls after one warm-up; (None, 0) where the profiler saw no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    mine = [e for e in prof.key_averages() if kernel in e.key]
+    us = sum(getattr(e, "device_time_total", 0) for e in mine)
+    count = sum(e.count for e in mine)
+    return (us / reps / 1e3 if us else None), count / reps
+
+
+def dense_launches(fn, reps: int) -> tuple:
+    """(launches of kernel E in one call of `fn`, as the C launcher
+    reports them; the device's ms per call): the count held equal to the
+    launches a call that `torch.profiler` sees over `reps` calls."""
+    from gol_tpu_torch.ops import cuda_life as cl
+
+    before = cl.LAUNCHES["life_dense"]
+    fn()
+    issued = cl.LAUNCHES["life_dense"] - before
+    ms, seen = device_ms(fn, "life_dense", reps)
+    if seen != issued:
+        raise AssertionError(f"life_dense: the launcher reported {issued} "
+                             f"launches a call, torch.profiler saw {seen}")
+    return issued, ms
+
+
+def dense_rows(row: dict, x, nbytes, dense_ops: int,
+               int_ops_per_s: float) -> None:
+    """Kernel E beyond its 512² row: ms per turn, launches per call (the
+    launcher's count, held equal to torch.profiler's), the share of the
+    bound, registers, the host's enqueue time and the device's time per
+    call beside the CUDA-event time; both plans (depths 8 and 16) on the
+    same 100-turn call, and a launch's fixed cost against a turn's; and
+    a 16384² 32-turn call with its own bound, at both plans."""
+    import torch
+
+    from gol_tpu_torch.models.rules import LIFE
+    from gol_tpu_torch.ops import _build, life
+    from gol_tpu_torch.ops import cuda_life as cl
+
+    row["plan"] = cl._dense_plan(*x.shape)
+    k = row["plan"][4]
+    row["ms_per_turn"] = row["ms"] / 100
+    row["share"] = row["bound_ms"] / row["ms"]
+    row["registers"] = kernel_resources(_build.build_log, "life_dense")
+    row["host_ms"] = host_ms(lambda: cl.step_n_cuda_dense(x, 100), 20)
+    row["launches_per_call"], row["device_ms"] = dense_launches(
+        lambda: cl.step_n_cuda_dense(x, 100), 20)
+    row["depths_ms"] = {d: time_ms(lambda: cl._run(
+        x, 100, LIFE, cl._dense_plan(*x.shape, d)), 20)
+        for d in sorted(cl.TILES)}
+    # A launch's fixed cost against a turn's: 100 launches of one turn
+    # each and 100 of k turns each, every one from a single C call.
+    one = row["plan"][:4] + (1,) + row["plan"][5:]
+    t1 = time_ms(lambda: cl._run(x, 100, LIFE, one), 10)
+    tk = time_ms(lambda: cl._run(x, 100 * k, LIFE, row["plan"]), 10)
+    row["turn_us"] = (tk - t1) / (100 * (k - 1)) * 1e3
+    row["launch_us"] = t1 / 100 * 1e3 - row["turn_us"]
+    phase("measure", f"life_dense 512² plan {row['plan']}: {row['ms']:.4f} "
+                     f"ms per 100-turn call ({row['launches_per_call']} "
+                     f"launches), {row['ms_per_turn'] * 1e3:.3f} us a turn, "
+                     f"{row['share']:.2%} of its bound; host enqueue "
+                     f"{row['host_ms']:.4f} ms per call, device "
+                     f"{row['device_ms']} ms (torch.profiler, which saw "
+                     f"the same launches); "
+                     f"a launch {row['launch_us']:.3f} us fixed + "
+                     f"{row['turn_us']:.3f} us a turn; by depth "
+                     f"{row['depths_ms']}; {row['registers']}")
+    side = 16384
+    big = torch.from_numpy(life.random_world(side, side, seed=1)).cuda()
+    r = {"ms": time_ms(lambda: cl.step_n_cuda_dense(big, 32), 10),
+         "plan": cl._dense_plan(side, side),
+         "bound_ms": bound_ms(nbytes(big), big.numel() // 4 * 32 * dense_ops,
+                              int_ops_per_s)[0],
+         "plain_ms": time_ms(lambda: life.step_n(big, 32), 1),
+         "host_ms": host_ms(lambda: cl.step_n_cuda_dense(big, 32), 5),
+         "depths_ms": {d: time_ms(lambda: cl._run(
+             big, 32, LIFE, cl._dense_plan(side, side, d)), 10)
+             for d in sorted(cl.TILES)},
+         "per": "32-turn call"}
+    r["launches_per_call"], r["device_ms"] = dense_launches(
+        lambda: cl.step_n_cuda_dense(big, 32), 5)
+    r["share"] = r["bound_ms"] / r["ms"]
+    row["16384x16384 x32"] = r
+    phase("measure", f"life_dense 16384² plan {r['plan']}: {r['ms']:.4f} ms "
+                     f"per 32-turn call ({r['launches_per_call']} launches), "
+                     f"bound {r['bound_ms']:.4g} ms, {r['share']:.2%} of it; "
+                     f"plain {r['plain_ms']:.3f} ms; host enqueue "
+                     f"{r['host_ms']:.4f} ms, device {r['device_ms']} ms "
+                     f"(torch.profiler); by depth {r['depths_ms']}")
+    del big
+
+
 def ab_time(root: str) -> dict:
-    """One side of `--ab`: kernels A-D of the package under `root` — ms
+    """One side of `--ab`: kernels A-E of the package under `root` — ms
     per launch of one 32-turn pass of a 16384² board through B's and D's
-    2-D entries, and of one 64-turn launch of A and C on a 512² board —
+    2-D entries, of one 64-turn launch of A and C on a 512² board, and
+    ms per call of E's public `step_n_cuda_dense` on a 512² board (100
+    turns) and a 16384² one (32 turns), and of the 512² call the host's
+    enqueue and the device's time (torch.profiler) — the library's path
     and the registers of a fresh build (none from the cache)."""
     sys.path.insert(0, str(pathlib.Path(root).resolve()))
     import torch
@@ -1129,6 +1337,7 @@ def ab_time(root: str) -> dict:
     from gol_tpu_torch.ops import _build, bitlife, life
     from gol_tpu_torch.ops import cuda_bitgens as cg
     from gol_tpu_torch.ops import cuda_bitlife as cb
+    from gol_tpu_torch.ops import cuda_life as cl
 
     _build.load()
     brain, highlife = get_rule("B2/S/C3"), get_rule("B36/S23")
@@ -1144,6 +1353,8 @@ def ab_time(root: str) -> dict:
     x, p = board(16384), board(512)
     q, q4 = planes(brain, 16384), planes(star_wars, 16384)
     r, r4 = planes(brain, 512), planes(star_wars, 512)
+    w, big = (torch.from_numpy(life.random_world(side, side, seed=1)).cuda()
+              for side in (512, 16384))
     return {
         "package": str(pathlib.Path(cb.__file__).resolve().parents[2]),
         "A B3/S23": time_ms(lambda: cb.step_n_packed_cuda_raw(p, 64), 20),
@@ -1158,17 +1369,49 @@ def ab_time(root: str) -> dict:
             lambda: cg.step_n_packed_gens_tiled2d_raw(q, 32, brain), 20),
         "D B2/S345/C4": time_ms(
             lambda: cg.step_n_packed_gens_tiled2d_raw(q4, 32, star_wars), 20),
+        "E 512x512 x100": time_ms(
+            lambda: cl.step_n_cuda_dense(w, 100), 20),
+        "E 16384x16384 x32": time_ms(
+            lambda: cl.step_n_cuda_dense(big, 32), 10),
+        "E 512x512 x100 host": host_ms(
+            lambda: cl.step_n_cuda_dense(w, 100), 20),
+        "E 512x512 x100 device": device_ms(
+            lambda: cl.step_n_cuda_dense(w, 100), "life_dense", 20)[0],
+        "library": str(_build.library_path()),
         "registers": {k: kernel_resources(_build.build_log, k)
                       for k in ("bitlife_resident", "bitlife_tiled",
-                                "bitgens_resident", "bitgens_tiled")},
+                                "bitgens_resident", "bitgens_tiled",
+                                "life_dense")},
     }
+
+
+def sass(library: str) -> dict:
+    """{kernel instantiation: its SASS} of a built library, by the CUDA
+    toolkit's `cuobjdump`, with the per-build hash of anonymous
+    namespaces taken out of the names, so that two builds of one source
+    compare equal."""
+    tool = pathlib.Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda")
+    out = subprocess.run([str(tool / "bin" / "cuobjdump"), "-sass", library],
+                         capture_output=True, text=True, check=True).stdout
+    out = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", out)
+    funcs, name = {}, None
+    for ln in out.splitlines():
+        if "Function : " in ln:
+            name = ln.split("Function : ", 1)[1].strip()
+            funcs[name] = []
+        elif name:
+            funcs[name].append(ln.strip())
+    return funcs
 
 
 def ab(other: str, card: str) -> int:
     """`--ab OTHER`: `ab_time` of the other checkout and of this one in
     the order other, this, this, other; then each kernel's mean per
-    checkout and this one's ratio to the other's."""
+    checkout and this one's ratio to the other's; then, for each kernel
+    instantiation, whether the two builds compiled it to the same
+    SASS."""
     times: dict = {}
+    libraries: dict = {}
     for root in (other, str(REPO), str(REPO), other):
         proc = subprocess.run(
             [sys.executable, str(REPO / "chip_smoke.py"), "--ab-time", root],
@@ -1178,6 +1421,7 @@ def ab(other: str, card: str) -> int:
             return 1
         res = json.loads(proc.stdout.strip().splitlines()[-1])
         phase("ab", json.dumps(res))
+        libraries[root] = res.pop("library")
         for k, v in res.items():
             if k not in ("package", "registers"):
                 times.setdefault(k, {}).setdefault(root, []).append(v)
@@ -1186,6 +1430,12 @@ def ab(other: str, card: str) -> int:
         theirs = sum(by_root[other]) / 2
         phase("ab", f"{k}: this {mine:.4f} ms, other {theirs:.4f} ms "
                     f"(means of two), ratio {mine / theirs:.4f}; {card}")
+    theirs, mine = sass(libraries[other]), sass(libraries[str(REPO)])
+    for name in sorted(set(theirs) | set(mine)):
+        same = ("same SASS" if theirs.get(name) == mine.get(name) else
+                "SASS differs" if name in theirs and name in mine else
+                "in one build only")
+        phase("ab", f"{name}: {same}")
     return 0
 
 
@@ -1229,11 +1479,11 @@ def main() -> int:
             if "registers" in ln]
     phase("build", f"nvcc {_build.build_seconds:.2f} s -> "
                    f"{_build.library_path().name}; {regs}")
-    # The two instantiations of kernels A-D (ILi0E: A's and B's B3/S23
-    # and C's and D's B2/S/C3 column walkers, ILi1E: the run-time masks),
-    # registers and spills.
+    # The two instantiations of kernels A-E (ILi0E: A's, B's and E's
+    # B3/S23 and C's and D's B2/S/C3 column walkers, ILi1E: the run-time
+    # masks, E's table), registers and spills.
     for name in ("bitlife_resident", "bitlife_tiled", "bitgens_resident",
-                 "bitgens_tiled"):
+                 "bitgens_tiled", "life_dense"):
         phase("build", f"{name}: {kernel_resources(_build.build_log, name)}")
 
     errs = {name: 0 for name in KERNELS}

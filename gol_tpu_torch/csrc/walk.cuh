@@ -1,7 +1,8 @@
 // Column walkers over a tile in dynamic shared memory, shared by the
-// B3/S23 forms of kernels A and B (bitlife.cu) and the B2/S/C3 forms of
-// kernels C and D (bitgens.cu); and the thread-block cluster that runs
-// kernels A and C (the end of this file).
+// B3/S23 forms of kernels A and B (bitlife.cu), the B2/S/C3 forms of
+// kernels C and D (bitgens.cu) and kernel E (life.cu, whose words are 4
+// horizontal byte cells, so its window's rows are single rows); and the
+// thread-block cluster that runs kernels A and C (the end of this file).
 //
 // A block holds an extended tile (its interior plus ghost word-rows and
 // ghost columns, toroidal indices modulo the board) in two copies, `cur`
@@ -136,32 +137,44 @@ __device__ __forceinline__ int walk_turns(const Walk k, int n, Next next) {
   return cur;
 }
 
+// The identity, the default word transform of load_tile and
+// store_interior.
+struct Same {
+  __device__ __forceinline__ u32 operator()(u32 x) const { return x; }
+};
+
 // Loads this block's extended tile (ec columns, `words` words) into
-// `tile`, with toroidal indices modulo the board.
+// `tile`, with toroidal indices modulo the board, each word through
+// `f`. The grid's first row of tiles starts at board row `row0`.
+template <typename F = Same>
 __device__ __forceinline__ void load_tile(const u32* __restrict__ in,
                                           u32* tile, int rows, int cols,
                                           int tile_rows, int tile_cols,
                                           int halo, int ghost, int ec,
-                                          int words) {
-  const int r0 = blockIdx.y * tile_rows;
+                                          int words, int row0 = 0,
+                                          F f = F()) {
+  const int r0 = row0 + blockIdx.y * tile_rows;
   const int c0 = blockIdx.x * tile_cols;
   for (int i = threadIdx.x; i < words; i += blockDim.x) {
     const int tr = i / ec;
     const int tc = i - tr * ec;
     const int gr = wrap(r0 - halo + tr, rows);
     const int gc = wrap(c0 - ghost + tc, cols);
-    tile[i] = in[(size_t)gr * cols + gc];
+    tile[i] = f(in[(size_t)gr * cols + gc]);
   }
 }
 
 // Writes the interior of this block's extended tile `tile` (ec columns)
-// to its place on the board.
+// to its place on the board, each word through `f`; `row0` as in
+// load_tile.
+template <typename F = Same>
 __device__ __forceinline__ void store_interior(const u32* tile,
                                                u32* __restrict__ out,
                                                int rows, int cols,
                                                int tile_rows, int tile_cols,
-                                               int halo, int ghost, int ec) {
-  const int r0 = blockIdx.y * tile_rows;
+                                               int halo, int ghost, int ec,
+                                               int row0 = 0, F f = F()) {
+  const int r0 = row0 + blockIdx.y * tile_rows;
   const int c0 = blockIdx.x * tile_cols;
   const int interior = tile_rows * tile_cols;
   for (int i = threadIdx.x; i < interior; i += blockDim.x) {
@@ -170,7 +183,7 @@ __device__ __forceinline__ void store_interior(const u32* tile,
     const int gr = r0 + tr;
     const int gc = c0 + tc;
     if (gr < rows && gc < cols)
-      out[(size_t)gr * cols + gc] = tile[(tr + halo) * ec + tc + ghost];
+      out[(size_t)gr * cols + gc] = f(tile[(tr + halo) * ec + tc + ghost]);
   }
 }
 

@@ -52,7 +52,8 @@ _SIGNATURES = {
                                 _I, _I, _I, _VP],
     "bitgens_tiled_launch": [_VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _U,
                              _U, _I, _I, _VP],
-    "life_dense_launch": [_VP, _VP, _I, _I, _U, _U, _I, _VP],
+    "life_dense_launch": [_VP, _VP, _VP, _I, _I, _I, _U, _U, _I, _I, _I, _I,
+                          _I, _I, _I, _VP, _VP],
 }
 
 
