@@ -4,12 +4,18 @@
 
 Run from the repository root on a machine with one NVIDIA H100. It
 builds the hand-written CUDA kernels from `gol_tpu_torch/csrc`, holds
-each kernel bit-exact against its plain PyTorch version, drives the
-port's paths through `gol_tpu_torch.run` — Life at 512² against the
-golden fixtures and at 16384² against the plain version; Generations
-(B/S/C) rules at 64² against the rules fixtures, at 512² against the
-plain planes and at 16384² against the plain planes; the dense CUDA
-backend at 512² against the golden fixture — runs the CLI, and prints
+each kernel bit-exact against its plain PyTorch version, holds every
+diff scan of the CUDA steppers (dense, sparse and compact rows, one
+kernel launch a scanned turn) byte-identical to the plain steppers'
+(phase `diffs`), drives the port's paths through `gol_tpu_torch.run` —
+Life at 512² against the golden fixtures and at 16384² against the
+plain version; Generations (B/S/C) rules at 64² against the rules
+fixtures, at 512² against the plain planes and at 16384² against the
+plain planes; the dense CUDA backend at 512² against the golden
+fixture; the watched runs (phases `main-watched-512`,
+`main-watched-gens-512`, `main-watched-16384`: the diff-chunk pipeline
+against the per-turn path, compact chunks, a forced overflow, level-mode
+FlipBatches, FlipChunks at 16384²) — runs the CLI, and prints
 the `kernels` JSON line, the card's name and power limit, and a last
 line `{"ok": true, "device": {...}}`. Any failed phase raises, so the
 script exits nonzero and prints no result. Without a CUDA device, or
@@ -413,6 +419,13 @@ def gens_planes(rule, h: int, w: int, gen):
                         for s in range(1, rule.states)])
 
 
+def tiled_turns(k: int) -> tuple:
+    """Turns at which kernels B and D are checked for a pass of k turns:
+    the single turns the watched path launches (n = 1, 2), and either
+    side of one and two passes."""
+    return (1, 2, k - 1, k, k + 1, 2 * k + 3)
+
+
 def plain_turns(step_n, p, ns) -> dict:
     """{n: the plain version after n turns} for every n in `ns`, each
     from the previous one."""
@@ -482,12 +495,11 @@ def check_kernels(errs: dict) -> None:
                                  256))
             want = plain_turns(
                 lambda x, k: bitlife.step_n_packed_raw(x, k, rule), p,
-                [n for _, _, k in variants
-                 for n in (k - 1, k, k + 1, 2 * k + 3)])
+                [n for _, _, k in variants for n in tiled_turns(k)])
             for entry, kw, k in variants:
                 fn = (cb.step_n_packed_tiled2d_raw if entry == "tiled2d"
                       else cb.step_n_packed_tiled_raw)
-                for n in (k - 1, k, k + 1, 2 * k + 3):
+                for n in tiled_turns(k):
                     got = fn(p, n, rule, **kw)
                     torch.cuda.synchronize()
                     err = max_abs_err(got, want[n])
@@ -580,11 +592,11 @@ def check_gens_kernels(errs: dict) -> None:
                              256))
         want = plain_turns(
             lambda x, k: bitgens.step_n_packed_gens_raw(x, k, rule), q,
-            [n for _, _, k in variants for n in (k - 1, k, k + 1, 2 * k + 3)])
+            [n for _, _, k in variants for n in tiled_turns(k)])
         for entry, kw, k in variants:
             fn = (cg.step_n_packed_gens_tiled2d_raw if entry == "tiled2d"
                   else cg.step_n_packed_gens_tiled_raw)
-            for n in (k - 1, k, k + 1, 2 * k + 3):
+            for n in tiled_turns(k):
                 got = fn(q, n, rule, **kw)
                 torch.cuda.synchronize()
                 err = max_abs_err(got, want[n])
@@ -978,6 +990,454 @@ def main_dense_512(tmp: pathlib.Path) -> int:
     return launches
 
 
+def normalize(evs) -> list:
+    """Package-neutral event tuples, as `tests/test_torch_engine.py`'s
+    `normalize` gives them, with FlipBatch and FlipChunk payloads
+    (AliveCellsCount is timing-dependent and left out)."""
+    import numpy as np
+
+    out = []
+    for e in evs:
+        name = type(e).__name__
+        if name == "AliveCellsCount":
+            continue
+        if name == "CellFlipped":
+            payload = tuple(e.cell)
+        elif name == "FinalTurnComplete":
+            payload = tuple(map(tuple, e.alive))
+        elif name == "ImageOutputComplete":
+            payload = e.filename
+        elif name == "StateChange":
+            payload = e.new_state.name
+        elif name == "FlipBatch":
+            payload = (np.asarray(e.cells).tolist(),
+                       None if e.levels is None
+                       else np.asarray(e.levels).tolist())
+        elif name == "FlipChunk":
+            payload = (e.first_turn, np.asarray(e.counts).tolist(),
+                       np.asarray(e.bitmaps).tolist(),
+                       np.asarray(e.words).tolist())
+        else:
+            payload = None
+        out.append((name, e.completed_turns, payload))
+    return out
+
+
+def engine_counters() -> dict:
+    """The engine's watched-path series: dispatches by kind, sparse and
+    compact chunks and redos, and the seconds of each leg of the
+    device-vs-host split."""
+    from gol_tpu_torch import obs
+    from gol_tpu_torch.engine.distributor import _METRICS as m
+
+    out = {f"dispatches[{k}]": c.value for k, c in m.dispatches.items()}
+    for k in ("sparse_chunks", "compact_chunks", "sparse_redos",
+              "compact_redos"):
+        out[k] = getattr(m, k).value
+    for ph in ("enqueue", "sync", "host"):
+        out[f"split {ph} s"] = obs.histogram(
+            "gol_tpu_device_dispatch_split_seconds",
+            labels={"phase": ph}).snapshot_value()["sum"]
+    return out
+
+
+def moved(before: dict) -> dict:
+    """The series of `engine_counters` that moved since `before`."""
+    after = engine_counters()
+    return {k: round(after[k] - v, 6) for k, v in before.items()
+            if after[k] != v}
+
+
+def run_engine(params, per_turn: bool = False, total_cap=None, **kw):
+    """(events, wall seconds, engine series that moved) of one Engine run
+    on the card. `per_turn` removes the stepper's diff entries
+    (`dataclasses.replace`), so the engine takes the per-turn path;
+    `total_cap` forces the compact chunks' value buffer."""
+    import dataclasses
+
+    from gol_tpu_torch.engine.distributor import Engine
+
+    engine = Engine(params, **kw)
+    if per_turn:
+        engine.stepper = dataclasses.replace(engine.stepper,
+                                             step_n_with_diffs=None)
+    if total_cap is not None:
+        engine._compact_total_cap = lambda k: total_cap
+    before = engine_counters()
+    t0 = time.perf_counter()
+    engine.start()
+    evs = drain(engine.events)
+    wall = time.perf_counter() - t0
+    engine.join(timeout=60)
+    if engine.error is not None:
+        raise engine.error
+    return evs, wall, moved(before)
+
+
+def check_diffs() -> dict:
+    """Phase `diffs`: every diff entry of the CUDA steppers on the card —
+    Life 512² (kernel A) and 4096² (kernel B), B2/S/C3 512² (kernel C)
+    and 4096² (kernel D), `cuda-dense` 512² (kernel E), k in {1, 7, 64},
+    sparse and compact caps that fit and that overflow. Rows, headers
+    and values byte-identical to the same entry of the plain stepper on
+    the card; decoded masks equal to a per-turn `step_with_diff` walk;
+    final worlds and counts equal; each scan launching its kernel once a
+    turn (LAUNCHES). Returns each kernel's launches in the phase."""
+    import numpy as np
+    import torch
+
+    from gol_tpu_torch.ops import bitlife, life
+    from gol_tpu_torch.ops import cuda_bitgens as cg
+    from gol_tpu_torch.ops import cuda_bitlife as cb
+    from gol_tpu_torch.ops import cuda_life as cl
+    from gol_tpu_torch.parallel import make_stepper
+    from gol_tpu_torch.parallel.stepper import (
+        compact_decode_rows,
+        compact_value_prefix,
+        sparse_decode_rows,
+    )
+
+    def host(t):
+        a = t.cpu().numpy()
+        return a.view(np.uint32) if a.dtype == np.int32 else a
+
+    cases = [  # kernel, its counts, rule, side, backend, plain backend
+        ("bitlife_resident", cb.LAUNCHES, "B3/S23", 512, "cuda-packed",
+         "packed"),
+        ("bitlife_tiled", cb.LAUNCHES, "B3/S23", 4096, "cuda-packed",
+         "packed"),
+        ("bitgens_resident", cg.LAUNCHES, "B2/S/C3", 512, "cuda-packed",
+         "packed"),
+        ("bitgens_tiled", cg.LAUNCHES, "B2/S/C3", 4096, "cuda-packed",
+         "packed"),
+        ("life_dense", cl.LAUNCHES, "B3/S23", 512, "cuda-dense", "dense"),
+    ]
+    ks = (1, 7, 64)
+    launches, checked = {}, 0
+    for name, counts, rule, side, backend, plain_backend in cases:
+        st = make_stepper(height=side, width=side, rule=rule,
+                          backend=backend)
+        ref = make_stepper(height=side, width=side, rule=rule,
+                           backend=plain_backend)
+        world = life.random_world(side, side, seed=side)
+        w0, r0 = st.put(world), ref.put(world)
+        packed = st.offers("packed_diffs")
+        total_words = side // 32 * side
+        # The per-turn walk's masks, packed words where the rows are.
+        walk, q = [], w0
+        for _ in range(max(ks)):
+            q, mask, _ = st.step_with_diff(q)
+            walk.append(host(bitlife.pack(mask)) if packed else host(mask))
+        launches[name] = 0
+
+        def scan(entry, k, *args):
+            counts[name] = 0
+            got = getattr(st, entry)(w0, k, *args)
+            torch.cuda.synchronize()
+            if counts[name] != k:
+                raise AssertionError(
+                    f"diffs {name} {entry} k={k}: {counts[name]} launches, "
+                    f"{k} turns scanned")
+            launches[name] += counts[name]
+            want = getattr(ref, entry)(r0, k, *args)
+            if not torch.equal(got[0], want[0]) or int(got[-1]) != int(want[-1]):
+                raise AssertionError(f"diffs {name} {entry} k={k}: final "
+                                     "world or count differs from plain")
+            for a, b in zip(got[1:-1], want[1:-1]):
+                if a.dtype != b.dtype or not np.array_equal(host(a), host(b)):
+                    raise AssertionError(f"diffs {name} {entry} k={k} "
+                                         f"{args}: rows differ from plain")
+            return [host(x) for x in got[1:-1]]
+
+        def same(words, t, what):
+            want = walk[t].reshape(-1)
+            if not np.array_equal(np.asarray(words).reshape(-1), want):
+                raise AssertionError(f"diffs {name} {what} turn {t}: "
+                                     "decoded mask differs from the walk")
+
+        for k in ks:
+            (stack,) = scan("step_n_with_diffs", k)
+            for t in range(k):
+                same(stack[t], t, f"dense k={k}")
+            checked += 1
+            if not packed:
+                continue
+            for cap in (total_words, 16):
+                (rows,) = scan("step_n_with_diffs_sparse", k, cap)
+                if cap == 16:
+                    if int(rows[:, 0].max()) <= cap:
+                        raise AssertionError(f"diffs {name}: cap 16 fits")
+                    continue
+                for t, words in enumerate(sparse_decode_rows(rows,
+                                                             total_words)):
+                    same(words, t, f"sparse k={k} cap={cap}")
+                checked += 1
+            for cap in (k * total_words, 16):
+                hdr, vals = scan("step_n_with_diffs_compact", k, cap)
+                total = int(hdr[:, 0].sum())
+                if cap == 16:
+                    if total <= cap:
+                        raise AssertionError(f"diffs {name}: cap 16 fits")
+                    continue
+                prefix = compact_value_prefix(vals, total)
+                for t, words in enumerate(compact_decode_rows(
+                        hdr, prefix, total_words)):
+                    same(words, t, f"compact k={k} cap={cap}")
+                checked += 1
+        del st, ref, w0, r0, walk, q
+        torch.cuda.empty_cache()
+        phase("diffs", f"{name} ({rule} {side}x{side}, {backend}): every "
+                       f"diff entry at k {ks} byte-identical to the plain "
+                       f"stepper ({plain_backend}) and to the per-turn walk; "
+                       f"{launches[name]} {name} launches (LAUNCHES), one a "
+                       f"scanned turn")
+    phase("diffs", f"{checked} decoded scans equal to the walk; launches "
+                   f"{launches}")
+    return launches
+
+
+def write_world(path: pathlib.Path, world) -> None:
+    from gol_tpu_torch.io.pgm import write_pgm
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    write_pgm(path, world)
+
+
+def glider_world(side: int):
+    """A sparse board — two gliders and a blinker (gol_tpu's
+    `tests/test_diffs.py` glider board) — whose per-turn activity is a
+    few dozen words, the steady state of the compact chunks."""
+    import numpy as np
+
+    world = np.zeros((side, side), np.uint8)
+    for dx, dy in ((1, 0), (2, 1), (0, 2), (1, 2), (2, 2)):
+        world[4 + dy, 4 + dx] = 255
+        world[40 + dy, 40 + dx] = 255
+    world[20, 20:23] = 255
+    return world
+
+
+def main_watched_512(tmp: pathlib.Path) -> int:
+    """Phase `main-watched-512`: run(Params 512x512, 100 turns) with
+    flips on the headline fixture through the diff chunks (kernel A, one
+    launch a turn): its normalized stream identical to the per-turn
+    path's, its PGM byte-equal to the fixture; then a 512² glider board
+    that engages the compact chunks, and the same run with the value
+    buffer forced to 4 words, which redoes — both streams identical to
+    the per-turn path's."""
+    import dataclasses
+
+    import gol_tpu_torch
+    from gol_tpu_torch import Params
+    from gol_tpu_torch.ops import cuda_bitlife as cb
+
+    golden = (FIXTURES / "check/images/512x512x100.pgm").read_bytes()
+    params = Params(image_width=512, image_height=512, turns=100, chunk=0,
+                    image_dir=str(FIXTURES / "images"),
+                    out_dir=str(tmp / "w512"))
+    for k in cb.LAUNCHES:
+        cb.LAUNCHES[k] = 0
+    before = engine_counters()
+    t0 = time.perf_counter()
+    evs = drain(gol_tpu_torch.run(params))
+    wall = time.perf_counter() - t0
+    launches = cb.LAUNCHES["bitlife_resident"]
+    series = moved(before)
+    if (tmp / "w512/512x512x100.pgm").read_bytes() != golden:
+        raise AssertionError("watched 512²: PGM differs from the fixture")
+    if launches != params.turns:
+        raise AssertionError(f"watched 512²: {launches} bitlife_resident "
+                             f"launches for {params.turns} turns")
+    ref, ref_wall, ref_series = run_engine(
+        dataclasses.replace(params, out_dir=str(tmp / "w512-per-turn")),
+        per_turn=True)
+    if normalize(evs) != normalize(ref):
+        raise AssertionError("watched 512²: stream differs from the "
+                             "per-turn path's")
+    phase("main-watched-512", f"run(Params 512x512, 100 turns, flips) "
+                              f"byte-equal to the fixture, stream identical "
+                              f"to the per-turn path ({len(normalize(evs))} "
+                              f"events); {wall:.3f} s wall (per-turn path "
+                              f"{ref_wall:.3f} s); {launches} "
+                              f"bitlife_resident launches; {series}; "
+                              f"per-turn path {ref_series}")
+    write_world(tmp / "gliders/512x512.pgm", glider_world(512))
+    glide = Params(image_width=512, image_height=512, turns=100, chunk=16,
+                   image_dir=str(tmp / "gliders"),
+                   out_dir=str(tmp / "g512"))
+    want = normalize(run_engine(glide, per_turn=True)[0])
+    for what, cap, key in (("compact", None, "compact_chunks"),
+                           ("forced overflow", 4, "compact_redos")):
+        evs, wall, series = run_engine(glide, total_cap=cap)
+        if normalize(evs) != want:
+            raise AssertionError(f"watched 512² gliders, {what}: stream "
+                                 "differs from the per-turn path's")
+        if series.get(key, 0) <= 0:
+            raise AssertionError(f"watched 512² gliders, {what}: {key} "
+                                 f"did not rise ({series})")
+        phase("main-watched-512", f"512² gliders x100 turns (chunk 16), "
+                                  f"{what}: stream identical to the "
+                                  f"per-turn path; {wall:.3f} s wall; "
+                                  f"{series}")
+    return launches
+
+
+def main_watched_gens_512(tmp: pathlib.Path) -> int:
+    """Phase `main-watched-gens-512`: run(Params 512x512, B2/S/C3, 100
+    turns) with level-mode FlipBatches (kernel C, one launch a turn):
+    its stream identical to the per-turn path's, the same PGM."""
+    import dataclasses
+
+    import gol_tpu_torch
+    from gol_tpu_torch import FlipBatch, Params
+    from gol_tpu_torch.ops import cuda_bitgens as cg
+
+    params = Params(image_width=512, image_height=512, turns=100,
+                    rule="B2/S/C3", chunk=0,
+                    image_dir=str(FIXTURES / "images"),
+                    out_dir=str(tmp / "wg512"))
+    for k in cg.LAUNCHES:
+        cg.LAUNCHES[k] = 0
+    before = engine_counters()
+    t0 = time.perf_counter()
+    evs = drain(gol_tpu_torch.run(params, emit_flip_batches=True))
+    wall = time.perf_counter() - t0
+    launches = cg.LAUNCHES["bitgens_resident"]
+    series = moved(before)
+    if launches != params.turns:
+        raise AssertionError(f"watched gens 512²: {launches} "
+                             f"bitgens_resident launches for "
+                             f"{params.turns} turns")
+    if not all(e.levels is not None for e in evs
+               if isinstance(e, FlipBatch)):
+        raise AssertionError("watched gens 512²: FlipBatch without levels")
+    ref, ref_wall, _ = run_engine(
+        dataclasses.replace(params, out_dir=str(tmp / "wg512-per-turn")),
+        per_turn=True, emit_flip_batches=True)
+    if normalize(evs) != normalize(ref):
+        raise AssertionError("watched gens 512²: FlipBatch stream differs "
+                             "from the per-turn path's")
+    if ((tmp / "wg512/512x512x100.pgm").read_bytes()
+            != (tmp / "wg512-per-turn/512x512x100.pgm").read_bytes()):
+        raise AssertionError("watched gens 512²: PGM differs from the "
+                             "per-turn path's")
+    batches = sum(isinstance(e, FlipBatch) for e in evs)
+    phase("main-watched-gens-512", f"run(Params 512x512, B2/S/C3, 100 "
+                                   f"turns, level-mode FlipBatch): {batches} "
+                                   f"batches identical to the per-turn "
+                                   f"path's; {wall:.3f} s wall (per-turn "
+                                   f"path {ref_wall:.3f} s); {launches} "
+                                   f"bitgens_resident launches; {series}")
+    return launches
+
+
+def glider_field(side: int, count: int, seed: int):
+    """A {0,255} board of `count` gliders (a square number), one in each
+    cell of a square grid at a random offset and heading."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    per = int(round(count ** 0.5))
+    cell = side // per
+    shape = np.zeros((3, 3), np.uint8)
+    for dx, dy in ((1, 0), (2, 1), (0, 2), (1, 2), (2, 2)):
+        shape[dy, dx] = 255
+    world = np.zeros((side, side), np.uint8)
+    for i in range(per):
+        for j in range(per):
+            g = shape[::rng.choice((1, -1)), ::rng.choice((1, -1))]
+            y = i * cell + int(rng.integers(0, cell - 3))
+            x = j * cell + int(rng.integers(0, cell - 3))
+            world[y:y + 3, x:x + 3] = g
+    return world
+
+
+def apply_chunks(board, chunks) -> None:
+    """XOR every turn of `chunks` (FlipChunk events) into a flat uint32
+    packed board: turn t's changed words sit at the set bits of its
+    bitmap row, their masks in `words` in ascending word order."""
+    import numpy as np
+
+    for ch in chunks:
+        counts = np.asarray(ch.counts)
+        words = np.asarray(ch.words, np.uint32)
+        off = 0
+        for t, m in enumerate(counts):
+            bits = np.unpackbits(np.ascontiguousarray(
+                ch.bitmaps[t], np.uint32).view(np.uint8), bitorder="little")
+            idx = np.flatnonzero(bits)
+            if idx.size != int(m):
+                raise AssertionError("FlipChunk: bitmap and count disagree")
+            board[idx] ^= words[off:off + int(m)]
+            off += int(m)
+
+
+def main_watched_16384(tmp: pathlib.Path, card: str) -> int:
+    """Phase `main-watched-16384`: a 16384² board of 1024 gliders from a
+    fixed seed, 128 turns, with FlipBatches and FlipChunks (kernel B,
+    one launch a turn) — the stream a server sends for a large, quiet
+    universe. The FlipChunk payloads applied to the initial packed board
+    on the host equal the final world of a headless step_n on the same
+    board; the compact chunks engaged."""
+    import numpy as np
+    import torch
+
+    import gol_tpu_torch
+    from gol_tpu_torch import FinalTurnComplete, Params
+    from gol_tpu_torch.events import FlipChunk
+    from gol_tpu_torch.engine.distributor import _METRICS
+    from gol_tpu_torch.ops import bitlife
+    from gol_tpu_torch.ops import cuda_bitlife as cb
+    from gol_tpu_torch.parallel import make_stepper
+
+    side, turns = 16384, 128
+    world = glider_field(side, 1024, seed=16384)
+    params = Params(image_width=side, image_height=side, turns=turns,
+                    chunk=0, out_dir=str(tmp / "w16384"))
+    for k in cb.LAUNCHES:
+        cb.LAUNCHES[k] = 0
+    before = engine_counters()
+    t0 = time.time()
+    timed = drain_timed(gol_tpu_torch.run(params, initial_world=world,
+                                          emit_flip_batches=True,
+                                          emit_flip_chunks=True))
+    wall = time.time() - t0
+    launches = cb.LAUNCHES["bitlife_tiled"]
+    evs = [ev for _, ev in timed]
+    split = wall_split(t0, timed)
+    series = moved(before)
+    chunks = [e for e in evs if isinstance(e, FlipChunk)]
+    sizes = sorted({e.completed_turns - e.first_turn + 1 for e in chunks})
+    if launches != turns:
+        raise AssertionError(f"watched 16384²: {launches} bitlife_tiled "
+                             f"launches for {turns} turns")
+    if series.get("compact_chunks", 0) <= 0:
+        raise AssertionError(f"watched 16384²: no compact chunk ({series})")
+    board = bitlife.pack_np(world).reshape(-1)
+    apply_chunks(board, chunks)
+    ref = make_stepper(height=side, width=side)
+    q, count = ref.step_n(ref.put(world), turns)
+    want = q.cpu().numpy().view(np.uint32).reshape(-1)
+    if not np.array_equal(board, want):
+        raise AssertionError("watched 16384²: FlipChunks applied to the "
+                             "initial board differ from the headless run")
+    final = [e for e in evs if isinstance(e, FinalTurnComplete)]
+    if not final or len(final[0].alive) != int(count.item()):
+        raise AssertionError("watched 16384²: FinalTurnComplete differs")
+    del q, ref
+    torch.cuda.empty_cache()
+    phase("main-watched-16384", f"run(Params 16384x16384, 1024 gliders, "
+                                f"{turns} turns, FlipBatch + FlipChunk): "
+                                f"{len(chunks)} FlipChunks of {sizes} turns "
+                                f"applied to the initial board equal the "
+                                f"headless run ({int(count.item())} alive); "
+                                f"{wall:.2f} s wall ({split}); {launches} "
+                                f"bitlife_tiled launches; compact_ratio "
+                                f"{_METRICS.compact_ratio.value}; {series}; "
+                                f"{card}")
+    return launches
+
+
 def cli(tmp: pathlib.Path) -> None:
     """Phase 6: the CLI writes the golden PGM."""
     out = tmp / "cli"
@@ -1091,21 +1551,33 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float) -> list:
          lambda x: life.step_n(x, 100),
          lambda x: 2 * x.numel(), lambda x: x.numel() // 4 * 100 * dense_ops),
     ]
+    # The single-turn launch the watched path makes, on the same input.
+    single = {
+        "bitlife_resident": lambda x: cb.step_n_packed_cuda_raw(x, 1),
+        "bitlife_tiled": lambda x: cb.step_n_packed_tiled2d_raw(x, 1),
+        "bitgens_resident": lambda x: cg.step_n_packed_gens_cuda_raw(
+            x, 1, brain),
+        "bitgens_tiled": lambda x: cg.step_n_packed_gens_tiled2d_raw(
+            x, 1, brain),
+        "life_dense": lambda x: cl.step_n_cuda_dense(x, 1),
+    }
     rows = []
     for name, shape, per, make, kernel, plain, nbytes, ops in specs:
         x = make()
         ms = time_ms(lambda: kernel(x), 20)
         plain_ms = time_ms(lambda: plain(x), 3)
+        n1_ms = time_ms(lambda: single[name](x), 50)
         b_ms, b_by = bound_ms(nbytes(x), ops(x), int_ops_per_s)
         rows.append({
             "name": name, "route": "cuda", **KERNELS[name],
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None, "shape": shape,
-            "per": per,
+            "per": per, "n1_ms": n1_ms,
         })
         phase("measure", f"{name} {shape}: {ms:.4f} ms per call, plain "
-                         f"{plain_ms:.3f} ms, bound {b_ms:.4g} ms ({b_by})")
+                         f"{plain_ms:.3f} ms, bound {b_ms:.4g} ms ({b_by}); "
+                         f"{n1_ms:.4f} ms per single-turn launch")
         if name == "bitlife_tiled":
             # Kernel B through the strip entry point (gol_tpu's 1-D tiled
             # kernel's replacement) on the same board and pass, and its
@@ -1490,6 +1962,7 @@ def main() -> int:
     check_kernels(errs)
     check_gens_kernels(errs)
     check_dense_kernel(errs)
+    diffs_launches = check_diffs()
     (REPO / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as d:
         tmp = pathlib.Path(d)
@@ -1499,8 +1972,15 @@ def main() -> int:
         launches["bitgens_resident"] = main_gens_512(tmp)
         launches["bitgens_tiled"] = main_gens_16384(tmp, card)
         launches["life_dense"] = main_dense_512(tmp)
+        watched = {"bitlife_resident": main_watched_512(tmp),
+                   "bitgens_resident": main_watched_gens_512(tmp),
+                   "bitlife_tiled": main_watched_16384(tmp, card)}
         cli(tmp)
     kernels = measure(errs, launches, int_ops_per_s)
+    for row in kernels:
+        # Launches of the watched phases (one a turn) and of `diffs`.
+        row["watched_launches"] = watched.get(row["name"])
+        row["diffs_launches"] = diffs_launches[row["name"]]
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

@@ -8,9 +8,10 @@ Backends:
 - "dense": one byte per cell (`ops/life.py`), plain PyTorch.
 - "packed": 32 cells per int32 word, the plain SWAR step
   (`ops/bitlife.py`).
-- "cuda-packed": packed state, multi-turn chunks through the
-  hand-written CUDA kernels (`ops/cuda_bitlife.py`); single turns and
-  the per-turn diff stay on the plain SWAR step, as in gol_tpu.
+- "cuda-packed": packed state, every step through the hand-written
+  CUDA kernels (`ops/cuda_bitlife.py`): multi-turn chunks in one call,
+  single turns, the per-turn diff and each turn of the diff scans as a
+  launch of n = 1.
 - "cuda-dense": the dense board, every step through the hand-written
   CUDA kernel of `ops/cuda_life.py` (gol_tpu's "pallas"); never picked
   by "auto".
@@ -23,9 +24,15 @@ one-hot packed planes (`ops/bitgens.py`, chunks through
 `ops/cuda_bitgens.py` for "cuda-packed", and for "auto" on a CUDA
 device) or the dense state grid (`ops/generations.py`).
 
-So far the port offers the core entries of the capability table (and
-`alive_mask` for Generations) only; the diff scans and the sharded and
-tiled backends are not ported yet and their entries stay None.
+Each backend offers exactly the capability set of its gol_tpu
+counterpart (`Stepper.capabilities()`): the core entries, `alive_mask`
+for Generations, and the diff scans — the dense mask stack on every
+backend, and on the packed ones the packed XOR stack with its sparse
+and compact encodings (`scan_diffs`, `sparse_scan_diffs`,
+`compact_scan_diffs`, decoded on the host by `sparse_decode_rows` and
+`compact_decode_rows`). `fetch_diffs`, `step_n_with_diffs_redo` and
+`fetch_compact_values` stay None, as on gol_tpu's single-device
+backends; the sharded and tiled backends are not ported yet.
 """
 
 from __future__ import annotations
@@ -86,6 +93,13 @@ ENTRY_TABLE: tuple = (
 )
 
 
+def entries(kind: Optional[str] = None) -> tuple:
+    """Capability-table rows, optionally filtered by `kind`."""
+    if kind is None:
+        return ENTRY_TABLE
+    return tuple(e for e in ENTRY_TABLE if e.kind == kind)
+
+
 def entry_info(name: str) -> EntryInfo:
     for e in ENTRY_TABLE:
         if e.name == name:
@@ -116,15 +130,34 @@ class Stepper:
     step_with_diff: Callable
     #: world -> count device scalar
     alive_count_async: Callable
-    #: The rest of gol_tpu's table; not offered yet.
+    #: host levels -> bool mask of ALIVE cells (Generations backends).
     alive_mask: Optional[Callable] = None
+    #: (world, k) -> (world, diffs, count_scalar): k turns with the
+    #: per-turn flip masks stacked on the device — int32 (k, H/32, W)
+    #: packed XOR word-rows (the uint32 words of gol_tpu, bitcast) on
+    #: packed backends, bool (k, H, W) on dense ones — shipped to the
+    #: host in one transfer per chunk.
     step_n_with_diffs: Optional[Callable] = None
+    #: Sharded backends' gather of a diff stack; None here.
     fetch_diffs: Optional[Callable] = None
+    #: True when `step_n_with_diffs` rows are packed words.
     packed_diffs: bool = False
+    #: (world, k, cap) -> (world, rows, count): one int32 row per turn,
+    #: [changed_count, changed-word bitmap (total_words/32), values
+    #: (cap)] — `sparse_scan_diffs`' layout, byte for byte gol_tpu's.
     step_n_with_diffs_sparse: Optional[Callable] = None
+    #: The sharded backends' explicit overflow redo; None here (the
+    #: engine redoes through `step_n_with_diffs`).
     step_n_with_diffs_redo: Optional[Callable] = None
+    #: (world, k, total_cap) -> (world, headers, values, count): the
+    #: variable-length scan of `compact_scan_diffs` — (k, 1 + nb) int32
+    #: [count, bitmap] headers and one (total_cap,) int32 value buffer.
     step_n_with_diffs_compact: Optional[Callable] = None
+    #: How the engine fetches a compact chunk's used value prefix; None
+    #: means `compact_value_prefix`.
     fetch_compact_values: Optional[Callable] = None
+    #: The rest of gol_tpu's table (sharded and tiled backends); not
+    #: offered yet.
     halo_cost: Optional[Callable] = None
     tiled: Optional[object] = None
 
@@ -137,6 +170,268 @@ class Stepper:
         entry_info(entry)
         value = getattr(self, entry)
         return value is not None and value is not False
+
+    def capabilities(self) -> tuple:
+        """Names of every table entry this backend offers (for the
+        bool-valued `packed_diffs` flag, offered means True)."""
+        return tuple(e.name for e in ENTRY_TABLE
+                     if getattr(self, e.name) not in (None, False))
+
+
+def _scan(step_fn, state, k: int, emit):
+    """Step `state` k turns with `step_fn`, handing each (old, new) pair
+    to `emit`; returns the final state. The one loop of the three scan
+    builders below: gol_tpu scans inside one XLA program, while here
+    each turn is the stepper's own step — on the card one kernel launch
+    (a Python loop of plain PyTorch ops would be dozens of launches a
+    turn, not one fused program) — followed by the turn's diff, all
+    enqueued without a host synchronisation."""
+    for _ in range(max(int(k), 0)):
+        new = step_fn(state)
+        emit(state, new)
+        state = new
+    return state
+
+
+def _stacked(rows: list, empty_row: Callable) -> torch.Tensor:
+    """The per-turn rows as one (k, ...) tensor; k = 0 gives an empty
+    stack shaped like `empty_row()`."""
+    if rows:
+        return torch.stack(rows)
+    row = empty_row()
+    return row.new_empty((0, *row.shape))
+
+
+def scan_diffs(step_fn, diff_fn, count_fn):
+    """Build a `step_n_with_diffs`: k turns of `step_fn`, the per-turn
+    output `diff_fn(old, new)` stacked on the device, and the alive
+    count once on the final state."""
+
+    def step_n_with_diffs(state, k):
+        diffs = []
+        new = _scan(step_fn, state, k,
+                    lambda old, nxt: diffs.append(diff_fn(old, nxt)))
+        return (new, _stacked(diffs, lambda: diff_fn(state, state)),
+                count_fn(new))
+
+    return step_n_with_diffs
+
+
+def sparse_bitmap_words(total_words: int) -> int:
+    """int32 words in the changed-word bitmap for a diff space of
+    `total_words` packed words — the one layout constant the encoder
+    and the decoders share."""
+    return -(-total_words // 32)
+
+
+def _bitmap(changed: torch.Tensor) -> torch.Tensor:
+    """(total,) bool changed-word flags -> (nb,) int32 bitmap words, bit
+    i of word w set when word 32w + i changed. Built in int64 (a sum of
+    bit weights up to 2**32 - 1 needs no overflowing shift or sum), then
+    narrowed to the two's-complement int32 bit pattern explicitly."""
+    total = changed.shape[0]
+    nb = sparse_bitmap_words(total)
+    bits = torch.zeros(nb * 32, dtype=torch.int64, device=changed.device)
+    bits[:total] = changed
+    weights = torch.ones(32, dtype=torch.int64, device=changed.device) << (
+        torch.arange(32, dtype=torch.int64, device=changed.device))
+    words = (bits.view(nb, 32) * weights).sum(dim=1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(
+        torch.int32)
+
+
+def _ranked_targets(changed: torch.Tensor, base, cap: int) -> torch.Tensor:
+    """Scatter targets of a turn's changed words, without a
+    data-dependent shape: base + rank (rank = cumsum(changed) - 1) where
+    a word changed and the target is below `cap`, else the sink slot
+    `cap` (one past the end, sliced off by the caller) — jnp.nonzero's
+    first-`cap` truncation and `mode="drop"` in one form."""
+    pos = torch.cumsum(changed, 0) - 1 + base
+    return torch.where(changed & (pos < cap), pos, cap)
+
+
+def sparse_decode_rows(host_rows, total_words: int):
+    """Decode sparse diff rows (see Stepper.step_n_with_diffs_sparse)
+    into flat (total_words,) uint32 word arrays. `host_rows` is the
+    fetched (k, 1 + bitmap + cap) stack viewed as uint32. Yields one
+    array per turn; raises ValueError on a truncated row (count above
+    the cap the row width implies) so callers can fall back to dense
+    masks."""
+    nb = sparse_bitmap_words(total_words)
+    cap = host_rows.shape[1] - 1 - nb
+    shifts = np.arange(32, dtype=np.uint32)
+    for t in range(host_rows.shape[0]):
+        m = int(host_rows[t, 0])
+        if m > cap:
+            raise ValueError(f"sparse row truncated: {m} > cap {cap}")
+        words = np.zeros(nb * 32, np.uint32)
+        if m:
+            bits = (host_rows[t, 1 : 1 + nb, None] >> shifts) & 1
+            words[np.flatnonzero(bits)] = host_rows[t, 1 + nb : 1 + nb + m]
+        yield words[:total_words]
+
+
+def sparse_scan_diffs(step_fn, diff_fn, count_fn):
+    """Build a `step_n_with_diffs_sparse`: the per-turn output row is
+
+        [changed_count (1), changed-word BITMAP (total/32), values (cap)]
+
+    as one int32 vector, byte for byte gol_tpu's row. Values are the
+    changed words in ascending word index; a count above `cap` marks
+    the list truncated to the first `cap`. The unused value slots of a
+    row hold d[0], the value of word 0 (gol_tpu pads jnp.nonzero with
+    index 0), so the buffer starts filled with it."""
+
+    def row(old, new, cap):
+        d = diff_fn(old, new).reshape(-1)
+        changed = d != 0
+        vals = d[:1].expand(cap + 1).clone()
+        vals.scatter_(0, _ranked_targets(changed, 0, cap), d)
+        return torch.cat([changed.sum(dtype=torch.int32).reshape(1),
+                          _bitmap(changed), vals[:cap]])
+
+    def step_n_with_diffs_sparse(state, k, cap):
+        cap = int(cap)
+        rows = []
+        new = _scan(step_fn, state, k,
+                    lambda old, nxt: rows.append(row(old, nxt, cap)))
+        return (new, _stacked(rows, lambda: row(state, state, cap)),
+                count_fn(new))
+
+    return step_n_with_diffs_sparse
+
+
+def compact_scan_diffs(step_fn, diff_fn, count_fn):
+    """Build a `step_n_with_diffs_compact`: per turn only the [count,
+    bitmap] header, while the changed-word VALUES are stream-compacted
+    into one shared (total_cap,) int32 buffer — each turn's words at
+    offset sum(counts so far) + rank, ascending word index within a
+    turn. The offset stays a device scalar, so the host never waits.
+    Targets at or past `total_cap` (an overflowing chunk) fall into a
+    sink slot that is sliced off: the buffer then holds exactly what
+    gol_tpu's `mode="drop"` keeps, and the host detects the overflow
+    from the summed counts."""
+
+    def step_n_with_diffs_compact(state, k, total_cap):
+        total_cap = int(total_cap)
+        buf = torch.zeros(total_cap + 1, dtype=torch.int32,
+                          device=state.device)
+        headers = []
+        off = torch.zeros((), dtype=torch.int64, device=state.device)
+
+        def header(d):
+            changed = d != 0
+            return changed, torch.cat([
+                changed.sum(dtype=torch.int32).reshape(1), _bitmap(changed)])
+
+        def emit(old, new):
+            nonlocal off
+            d = diff_fn(old, new).reshape(-1)
+            changed, head = header(d)
+            buf.scatter_(0, _ranked_targets(changed, off, total_cap), d)
+            headers.append(head)
+            off = off + changed.sum()
+
+        new = _scan(step_fn, state, k, emit)
+        return (new,
+                _stacked(headers,
+                         lambda: header(diff_fn(state, state).reshape(-1))[1]),
+                buf[:total_cap], count_fn(new))
+
+    return step_n_with_diffs_compact
+
+
+def compact_decode_rows(headers, values, total_words: int):
+    """Decode a compact chunk (see Stepper.step_n_with_diffs_compact)
+    into flat (total_words,) uint32 word arrays. `headers` is the
+    fetched (k, 1 + nb) stack viewed as uint32, `values` the
+    (>= Σcounts,) uint32 value prefix. Yields one array per turn;
+    raises ValueError on any inconsistency — a count disagreeing with
+    its bitmap's popcount, or offsets running past the supplied values
+    — so callers reject a truncated or corrupt chunk instead of
+    mis-attributing words to turns."""
+    nb = sparse_bitmap_words(total_words)
+    if headers.ndim != 2 or headers.shape[1] != 1 + nb:
+        raise ValueError(
+            f"compact header shape {headers.shape} != (k, {1 + nb})"
+        )
+    shifts = np.arange(32, dtype=np.uint32)
+    off = 0
+    for t in range(headers.shape[0]):
+        m = int(headers[t, 0])
+        words = np.zeros(nb * 32, np.uint32)
+        bits = (headers[t, 1 : 1 + nb, None] >> shifts) & 1
+        idx = np.flatnonzero(bits)
+        if idx.size != m:
+            raise ValueError(
+                f"compact turn {t}: bitmap pops {idx.size} words, "
+                f"count says {m}"
+            )
+        if off + m > len(values):
+            raise ValueError(
+                f"compact chunk truncated: turn {t} needs value words "
+                f"{off}..{off + m}, have {len(values)}"
+            )
+        if m:
+            words[idx] = values[off : off + m]
+        off += m
+        yield words[:total_words]
+
+
+def compact_value_bucket(total: int) -> int:
+    """Fetched-prefix length for `total` used value words: rounded up to
+    1/8th-of-a-power-of-two granularity (floor 1024), so a run slices a
+    bounded set of lengths (<= 8 per octave) while wasting under 25% of
+    the value bytes (gol_tpu's bucket, kept so both fetch the same
+    prefix)."""
+    if total <= 1024:
+        return 1024
+    step = 1 << ((total - 1).bit_length() - 3)
+    return -(-total // step) * step
+
+
+def sparse_chunk_from_dense(stack):
+    """(k, ...) uint32 (or int32) dense packed diff stack -> the
+    per-turn S-sparse chunk triple (counts (k,) int32, changed-word
+    bitmaps (k, nb) uint32, values (Σcounts,) uint32 in ascending word
+    order per turn) — the layout `compact_scan_diffs` produces on the
+    device, built on the host in one vectorized pass."""
+    S = np.ascontiguousarray(stack).reshape(stack.shape[0], -1)
+    if S.dtype != np.uint32:
+        S = S.view(np.uint32)
+    k, total = S.shape
+    nb = sparse_bitmap_words(total)
+    changed = S != 0
+    counts = changed.sum(axis=1, dtype=np.int32)
+    values = S[changed]
+    padded = (changed if nb * 32 == total
+              else np.pad(changed, ((0, 0), (0, nb * 32 - total))))
+    bitmaps = np.ascontiguousarray(
+        np.packbits(padded, axis=1, bitorder="little")
+    ).view(np.uint32).reshape(k, nb)
+    return counts, bitmaps, values
+
+
+def compact_value_prefix(values, total: int) -> np.ndarray:
+    """Fetch (at least) the first `total` words of a compact chunk's
+    value buffer as host uint32: the bucketed slice
+    (`compact_value_bucket`), so only this prefix crosses the link."""
+    if total <= 0:
+        return np.zeros(0, np.uint32)
+    n = min(int(values.shape[0]), compact_value_bucket(total))
+    head = values[:n]
+    if isinstance(head, torch.Tensor):
+        head = head.cpu().numpy()
+    return np.ascontiguousarray(head).view(np.uint32)
+
+
+def _planes_xor(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """Changed-cell words of a Generations plane stack: the OR over the
+    planes of their XORs (a cell changed when any plane's bit did)."""
+    changed = old[0] ^ new[0]
+    for i in range(1, old.shape[0]):
+        changed = changed | (old[i] ^ new[i])
+    return changed
 
 
 def resolve_device(device=None) -> torch.device:
@@ -169,6 +464,8 @@ def _single_device(rule: Rule, device) -> Stepper:
         step_n=lambda w, n: life.step_n_counted(w, int(n), rule=rule),
         step_with_diff=lambda w: life.step_with_diff(w, rule=rule),
         alive_count_async=life.alive_count,
+        step_n_with_diffs=scan_diffs(
+            lambda w: life.step(w, rule=rule), torch.ne, life.alive_count),
     )
 
 
@@ -176,30 +473,42 @@ def _packed_state_stepper(name: str, rule: Rule, height: int,
                           step_n_raw, device) -> Stepper:
     """The one constructor of the backends whose device state is the packed
     int32 board (packed on `put`, unpacked only on `fetch`).
-    `step_n_raw` is the (packed, n) -> packed multi-turn function; single
-    turns and the per-turn diff use the plain SWAR step, as in gol_tpu.
-    The count stays plain PyTorch on the device."""
+    `step_n_raw` is the (packed, n) -> packed multi-turn function; every
+    single turn — `step`, `step_with_diff`, each turn of the diff scans —
+    is `step_n_raw` at n = 1, so on the card it is one kernel launch.
+    The XOR, the unpack, the count and the encodings stay plain PyTorch
+    on the device (gol_tpu's are XLA code)."""
     _pack, _unpack, _fetch = bitlife.make_codec(height)
+
+    def _step(p):
+        return step_n_raw(p, 1)
 
     def _step_n(p, n):
         p = step_n_raw(p, int(n))
         return p, bitlife.count_packed(p)
 
     def _step_with_diff(p):
-        new = bitlife.step_packed(p, rule)
+        new = _step(p)
         # Diff mask unpacked to dense (H, W) bool for cells_from_mask.
         mask = bitlife.unpack(p ^ new, height) != 0
         return new, mask, bitlife.count_packed(new)
 
+    scan = (_step, torch.bitwise_xor, bitlife.count_packed)
     return Stepper(
         name=name,
         shards=1,
         put=lambda w: _pack(_host_tensor(w, device)),
         fetch=_fetch,
-        step=lambda p: bitlife.step_packed(p, rule),
+        step=_step,
         step_n=_step_n,
         step_with_diff=_step_with_diff,
         alive_count_async=bitlife.count_packed,
+        # Diffs stay packed: the (k, H/32, W) XOR stack is 8x smaller
+        # than dense masks on the host link.
+        step_n_with_diffs=scan_diffs(*scan),
+        packed_diffs=True,
+        step_n_with_diffs_sparse=sparse_scan_diffs(*scan),
+        step_n_with_diffs_compact=compact_scan_diffs(*scan),
     )
 
 
@@ -213,8 +522,9 @@ def _single_device_packed(rule: Rule, height: int, device) -> Stepper:
 
 def _single_device_cuda_packed(rule: Rule, height: int, width: int,
                                device) -> Stepper:
-    """Packed backend whose multi-turn chunks run the CUDA kernels:
-    kernel A when two copies of the packed board fit one block's shared
+    """Packed backend whose every step runs the CUDA kernels — multi-turn
+    chunks in one call, single turns and scanned turns at n = 1: kernel
+    A when two copies of the packed board fit one block's shared
     memory, else kernel B through the 2-D entry point (the counterpart
     of gol_tpu's `_single_device_pallas_packed`). Unlike the TPU's, the
     strip and 2-D entries launch kernel B with the same default tiles,
@@ -233,10 +543,14 @@ def _single_device_cuda_packed(rule: Rule, height: int, width: int,
 
 def _single_device_cuda_dense(rule: Rule, device) -> Stepper:
     """Dense backend whose every step runs kernel E (ops/cuda_life.py),
-    the counterpart of gol_tpu's `_single_device_pallas`: `step` and
-    `step_with_diff` launch it with n = 1, as gol_tpu does. Selectable
+    the counterpart of gol_tpu's `_single_device_pallas`: `step`,
+    `step_with_diff` and each turn of the mask scan launch it with
+    n = 1 (gol_tpu's scan runs its XLA dense step instead). Selectable
     for comparison, not picked by "auto"."""
     from gol_tpu_torch.ops import cuda_life
+
+    def _step(w):
+        return cuda_life.step_n_cuda_dense(w, 1, rule)
 
     def _step_with_diff(w):
         new, count = cuda_life.step_n_counted_cuda_dense(w, 1, rule)
@@ -247,11 +561,12 @@ def _single_device_cuda_dense(rule: Rule, device) -> Stepper:
         shards=1,
         put=lambda w: _host_tensor(w, device),
         fetch=lambda w: w.cpu().numpy(),
-        step=lambda w: cuda_life.step_n_cuda_dense(w, 1, rule),
+        step=_step,
         step_n=lambda w, n: cuda_life.step_n_counted_cuda_dense(
             w, int(n), rule),
         step_with_diff=_step_with_diff,
         alive_count_async=life.alive_count,
+        step_n_with_diffs=scan_diffs(_step, torch.ne, life.alive_count),
     )
 
 
@@ -289,6 +604,8 @@ def _gens_stepper(rule: GenRule, device) -> Stepper:
         step_with_diff=lambda s: gens.step_with_diff_states(s, rule),
         alive_count_async=gens.alive_count,
         alive_mask=_gens_alive_mask,
+        step_n_with_diffs=scan_diffs(
+            lambda s: gens.step_states(s, rule), torch.ne, gens.alive_count),
     )
 
 
@@ -300,8 +617,10 @@ def _gens_stepper_packed(rule: GenRule, device, height: int, width: int,
     kernels (ops/cuda_bitgens.py) — kernel C when every plane fits one
     block's shared memory, else kernel D through the 2-D entry — and
     the stepper is "generations-cuda-packed-1"; otherwise the plain
-    plane step, "generations-packed-1". Single turns and the per-turn
-    diff stay on the plain plane step, as in gol_tpu."""
+    plane step, "generations-packed-1". Every single turn — `step`,
+    `step_with_diff`, each turn of the diff scans over `_planes_xor` —
+    is the multi-turn function at n = 1, so on the card one launch of
+    kernel C or D."""
     raw = bitgens.step_n_packed_gens_raw
     if kernels:
         from gol_tpu_torch.ops import cuda_bitgens as cg
@@ -334,28 +653,33 @@ def _gens_stepper_packed(rule: GenRule, device, height: int, width: int,
     def count(planes):
         return bitlife.count_packed(planes[0])
 
+    def _step(planes):
+        return raw(planes, 1, rule)
+
     def _step_n(planes, k):
         planes = raw(planes, int(k), rule)
         return planes, count(planes)
 
     def _step_with_diff(planes):
-        new = bitgens.step_packed_gens(planes, rule)
-        changed = planes[0] ^ new[0]
-        for i in range(1, planes.shape[0]):
-            changed = changed | (planes[i] ^ new[i])
-        mask = bitlife.unpack(changed, height) != 0
+        new = _step(planes)
+        mask = bitlife.unpack(_planes_xor(planes, new), height) != 0
         return new, mask, count(new)
 
+    scan = (_step, _planes_xor, count)
     return Stepper(
         name="generations-cuda-packed-1" if kernels else "generations-packed-1",
         shards=1,
         put=put,
         fetch=_gens_fetch(to_levels),
-        step=lambda planes: bitgens.step_packed_gens(planes, rule),
+        step=_step,
         step_n=_step_n,
         step_with_diff=_step_with_diff,
         alive_count_async=count,
         alive_mask=_gens_alive_mask,
+        step_n_with_diffs=scan_diffs(*scan),
+        packed_diffs=True,
+        step_n_with_diffs_sparse=sparse_scan_diffs(*scan),
+        step_n_with_diffs_compact=compact_scan_diffs(*scan),
     )
 
 

@@ -42,7 +42,14 @@ def test_backend_selection_on_cpu(backend, h, w, name):
     s = ts.make_stepper(height=h, width=w, backend=backend, device="cpu")
     assert s.name == name
     offered = [e.name for e in ts.ENTRY_TABLE if s.offers(e.name)]
-    assert offered == [e.name for e in js.ENTRY_TABLE if e.kind == "core"]
+    # The entries of gol_tpu's counterpart: the core entries, then the
+    # diff scans (dense masks; packed rows with sparse and compact).
+    counterpart = js.make_stepper(
+        threads=1, height=h, width=w,
+        backend={"cuda-packed": "packed"}.get(backend, backend))
+    assert tuple(offered) == s.capabilities() == counterpart.capabilities()
+    core = [e.name for e in js.ENTRY_TABLE if e.kind == "core"]
+    assert offered[:len(core)] == core
 
 
 @pytest.mark.parametrize("backend", ["dense", "packed", "cuda-packed"])
