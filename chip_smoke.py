@@ -15,7 +15,11 @@ plain planes; the dense CUDA backend at 512² against the golden
 fixture; the watched runs (phases `main-watched-512`,
 `main-watched-gens-512`, `main-watched-16384`: the diff-chunk pipeline
 against the per-turn path, compact chunks, a forced overflow, level-mode
-FlipBatches, FlipChunks at 16384²) — runs the CLI, and prints
+FlipBatches, FlipChunks at 16384²) — runs the CLI, headless and (phase
+`main-cli-full`) visualised on the native board with
+`--check-invariants`, `--autosave-turns`, `--resume` and
+`--profile-dir`, whose `torch.profiler` captures give the device's busy
+share of a run — and prints
 the `kernels` JSON line, the card's name and power limit, and a last
 line `{"ok": true, "device": {...}}`. Any failed phase raises, so the
 script exits nonzero and prints no result. Without a CUDA device, or
@@ -1438,20 +1442,308 @@ def main_watched_16384(tmp: pathlib.Path, card: str) -> int:
     return launches
 
 
-def cli(tmp: pathlib.Path) -> None:
-    """Phase 6: the CLI writes the golden PGM."""
+def cli(tmp: pathlib.Path) -> float:
+    """Phase 6: the CLI writes the golden PGM; returns the process's
+    wall seconds."""
     out = tmp / "cli"
+    t0 = time.perf_counter()
     subprocess.run(
         [sys.executable, "-m", "gol_tpu_torch", "-w", "512", "-h", "512",
          "-turns", "100", "-noVis", "--images", str(FIXTURES / "images"),
          "--out", str(out)],
         check=True, cwd=REPO, capture_output=True, timeout=300,
     )
+    wall = time.perf_counter() - t0
     got = (out / "512x512x100.pgm").read_bytes()
     if got != (FIXTURES / "check/images/512x512x100.pgm").read_bytes():
         raise AssertionError("CLI PGM differs from the fixture")
     phase("cli", "python -m gol_tpu_torch -w 512 -h 512 -turns 100 -noVis: "
-                 "PGM byte-equal to the fixture")
+                 f"PGM byte-equal to the fixture; {wall:.3f} s wall")
+    return wall
+
+
+def board_frame(board):
+    """A native board's pixels as numpy: gray levels of a level board,
+    else alive as 255 (one ctypes read a pixel)."""
+    import numpy as np
+
+    if hasattr(board, "get_level"):
+        read = board.get_level
+    else:
+        def read(x, y):
+            return 255 if board.get(x, y) else 0
+    return np.array([[read(x, y) for x in range(board.width)]
+                     for y in range(board.height)], np.uint8)
+
+
+def cli_run(argv: list, metrics: bool = True, frames: bool = False) -> tuple:
+    """One in-process `python -m gol_tpu_torch ARGV` on the card, stdin
+    not a tty: (wall seconds, the boards its visualiser loop made — with
+    `frames`, each with its final `frame`, read before the loop destroys
+    it and inside the wall — and what it printed). `metrics=False` is
+    the GOL_TPU_METRICS=0 switch (`obs.set_enabled`), which makes
+    `make_stepper` build the bare stepper."""
+    import contextlib
+    import io
+
+    from gol_tpu_torch import cli, obs
+    from gol_tpu_torch.analysis import invariants
+    from gol_tpu_torch.visual import loop
+
+    boards = []
+    make_board = loop.make_board
+
+    def recording_board(*args, **kwargs):
+        board = make_board(*args, **kwargs)
+        destroy = board.destroy
+
+        def keep_frame():
+            board.frame = board_frame(board)
+            destroy()
+
+        if frames:
+            board.destroy = keep_frame
+        boards.append(board)
+        return board
+
+    loop.make_board = recording_board
+    obs.set_enabled(metrics)
+    stdin, sys.stdin = sys.stdin, open(os.devnull)
+    out = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        sys.stdin.close()
+        sys.stdin = stdin
+        loop.make_board = make_board
+        obs.set_enabled(True)
+        invariants.enable(False)
+    if rc != 0:
+        raise AssertionError(f"python -m gol_tpu_torch {argv}: exit {rc}\n"
+                             + out.getvalue())
+    return wall, boards, out.getvalue()
+
+
+def busy_share(trace: pathlib.Path, kernel: str) -> dict:
+    """The device's busy share in a `--profile-dir` trace: the union of
+    CUDA kernel, memcpy and memset intervals over the CLI's window
+    (`gol_tpu_torch.run`, run() to FinalTurnComplete), and the launches
+    of kernels named `kernel` the trace holds."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    (win,) = [e for e in events if e.get("name") == "gol_tpu_torch.run"
+              and e.get("cat") == "user_annotation"]
+    t0, t1 = float(win["ts"]), float(win["ts"]) + float(win["dur"])
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    spans = sorted((max(float(e["ts"]), t0),
+                    min(float(e["ts"]) + float(e.get("dur", 0)), t1))
+                   for e in device)
+    busy, end = 0.0, t0
+    for a, b in spans:
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    return {"window_ms": round((t1 - t0) / 1e3, 3),
+            "busy_ms": round(busy / 1e3, 3),
+            "busy_share": round(busy / (t1 - t0), 5),
+            "kernel_events": sum(1 for e in device
+                                 if e.get("cat") == "kernel"),
+            "launches": sum(1 for e in device if e.get("cat") == "kernel"
+                            and kernel in e.get("name", ""))}
+
+
+def main_cli_full(tmp: pathlib.Path, cli_wall: float) -> dict:
+    """Phase `main-cli-full`: the CLI made whole on the card.
+    (1) A visualised 512² x 100-turn run (no -noVis; the native board,
+    headless) with --check-invariants, --autosave-turns 50 and
+    --profile-dir: the fixture's PGM, the turn-50 autosave equal to the
+    plain version's turn 50, the board's final frame equal to the PGM,
+    no invariant violation, and the trace holding exactly the kernel A
+    launches the launcher counted (one a watched turn). (2) --resume from
+    that autosave, -noVis: the fixture, resume gauge 50, kernel A
+    chunks. (3) B2/S/C3 visualised in level mode with the invariants:
+    the PGM of phase `main-gens-512`, one kernel C launch a turn. (4)
+    `main-watched-512`'s glider board forced to a 4-word compact buffer
+    under the invariants: 5 redos, no violation. (5) The device's busy
+    share of the 512² headless and visualised runs from their captures,
+    and each run's wall with and without the capture and with metrics
+    off. (6) A fresh process's headless run with a capture, beside
+    phase `cli`'s same run without one (`cli_wall`)."""
+    import numpy as np
+
+    from gol_tpu_torch import Params, obs
+    from gol_tpu_torch.analysis import invariants
+    from gol_tpu_torch.engine.distributor import _METRICS as em
+    from gol_tpu_torch.io.pgm import read_pgm
+    from gol_tpu_torch.ops import cuda_bitgens as cg
+    from gol_tpu_torch.ops import cuda_bitlife as cb
+    from gol_tpu_torch.parallel import make_stepper
+    from gol_tpu_torch.visual import board as vboard
+
+    vboard.build_native()  # raises when the native core does not build
+    if vboard.native_lib() is None:
+        raise AssertionError("the native visualiser core did not load")
+    golden = (FIXTURES / "check/images/512x512x100.pgm").read_bytes()
+    base = ["-w", "512", "-h", "512", "-turns", "100",
+            "--images", str(FIXTURES / "images")]
+
+    def visualised_board(boards, level: bool):
+        cls = vboard.NativeLevelBoard if level else vboard.NativeBoard
+        if len(boards) != 1 or type(boards[0]) is not cls:
+            raise AssertionError(f"visualiser boards {boards}: not one "
+                                 f"{cls.__name__}")
+        return boards[0]
+
+    # (1) The visualised run.
+    out1 = tmp / "cli-vis"
+    v0 = invariants.violations_total()
+    for k in cb.LAUNCHES:
+        cb.LAUNCHES[k] = 0
+    wall, boards, _ = cli_run(base + [
+        "--out", str(out1), "--check-invariants", "--autosave-turns", "50",
+        "--profile-dir", str(tmp / "prof-vis-checked")], frames=True)
+    launches = cb.LAUNCHES["bitlife_resident"]
+    if (out1 / "512x512x100.pgm").read_bytes() != golden:
+        raise AssertionError("visualised 512²: PGM differs from the fixture")
+    plain = make_stepper(height=512, width=512, backend="packed")
+    want50 = plain.fetch(plain.step_n(
+        plain.put(read_pgm(FIXTURES / "images/512x512.pgm")), 50)[0])
+    if not np.array_equal(read_pgm(out1 / "512x512x50.pgm"), want50):
+        raise AssertionError("visualised 512²: the turn-50 autosave differs "
+                             "from the plain version's turn 50")
+    frame = visualised_board(boards, level=False).frame
+    if not np.array_equal(frame, read_pgm(out1 / "512x512x100.pgm")):
+        raise AssertionError("visualised 512²: the native board's final "
+                             "frame differs from the final PGM")
+    violations = invariants.violations_total() - v0
+    if violations:
+        raise AssertionError(f"visualised 512²: {violations} invariant "
+                             "violations")
+    (trace,) = (tmp / "prof-vis-checked").glob("trace-*.json")
+    prof = busy_share(trace, "bitlife_resident")
+    if launches != 100 or prof["launches"] != launches:
+        raise AssertionError(
+            f"visualised 512²: {launches} bitlife_resident launches "
+            f"counted, {prof['launches']} in the trace, 100 turns watched")
+    phase("main-cli-full", f"visualised 512² x 100 (native board, "
+                           f"--check-invariants, --autosave-turns 50, "
+                           f"--profile-dir): fixture PGM, turn-50 autosave "
+                           f"= plain turn 50, board frame = PGM, 0 "
+                           f"violations, {launches} bitlife_resident "
+                           f"launches = {prof['launches']} in the trace; "
+                           f"{wall:.3f} s wall; {prof}")
+    cli_launches = {"bitlife_resident": launches}
+
+    # (2) --resume from the turn-50 autosave.
+    for k in cb.LAUNCHES:
+        cb.LAUNCHES[k] = 0
+    chunk_turns = em.turns["chunk"].value
+    wall, _, _ = cli_run(base + [
+        "--out", str(tmp / "cli-resume"), "-noVis",
+        "--resume", str(out1 / "512x512x50.pgm")])
+    resume_turn = obs.registry().gauge("gol_tpu_resume_turn").value
+    resumed = cb.LAUNCHES["bitlife_resident"]
+    chunk_turns = em.turns["chunk"].value - chunk_turns
+    if (tmp / "cli-resume/512x512x100.pgm").read_bytes() != golden:
+        raise AssertionError("--resume 512²: PGM differs from the fixture")
+    if resume_turn != 50 or resumed <= 0 or chunk_turns != 50:
+        raise AssertionError(f"--resume 512²: resume turn {resume_turn}, "
+                             f"{resumed} bitlife_resident launches, "
+                             f"{chunk_turns} chunk turns")
+    phase("main-cli-full", f"--resume 512x512x50.pgm -turns 100 -noVis: "
+                           f"fixture PGM, gol_tpu_resume_turn {resume_turn:g}, "
+                           f"{chunk_turns:g} turns in fused chunks, {resumed} "
+                           f"bitlife_resident launches; {wall:.3f} s wall")
+
+    # (3) B2/S/C3, visualised in level mode.
+    for k in cg.LAUNCHES:
+        cg.LAUNCHES[k] = 0
+    v0 = invariants.violations_total()
+    wall, boards, _ = cli_run(base + [
+        "--rule", "B2/S/C3", "--out", str(tmp / "cli-gens"),
+        "--check-invariants"], frames=True)
+    gens = cg.LAUNCHES["bitgens_resident"]
+    got = (tmp / "cli-gens/512x512x100.pgm").read_bytes()
+    if got != (tmp / "gens512-auto/512x512x100.pgm").read_bytes():
+        raise AssertionError("visualised B2/S/C3 512²: PGM differs from "
+                             "phase main-gens-512's")
+    frame = visualised_board(boards, level=True).frame
+    if not np.array_equal(frame, read_pgm(tmp / "cli-gens/512x512x100.pgm")):
+        raise AssertionError("visualised B2/S/C3 512²: the level board's "
+                             "final frame differs from the PGM")
+    if gens != 100 or invariants.violations_total() != v0:
+        raise AssertionError(f"visualised B2/S/C3 512²: {gens} "
+                             "bitgens_resident launches for 100 turns, "
+                             f"{invariants.violations_total() - v0} "
+                             "violations")
+    phase("main-cli-full", f"visualised B2/S/C3 512² x 100 (level board, "
+                           f"--check-invariants): PGM = main-gens-512's, "
+                           f"frame = PGM, {gens} bitgens_resident launches, "
+                           f"0 violations; {wall:.3f} s wall")
+    cli_launches["bitgens_resident"] = gens
+
+    # (4) The glider board, forced compact overflow, under the checker.
+    write_world(tmp / "gliders/512x512.pgm", glider_world(512))
+    glide = Params(image_width=512, image_height=512, turns=100, chunk=16,
+                   image_dir=str(tmp / "gliders"),
+                   out_dir=str(tmp / "cli-g512"))
+    invariants.enable()
+    try:
+        name = make_stepper(height=512, width=512).name
+        v0 = invariants.violations_total()
+        _, wall, series = run_engine(glide, total_cap=4)
+        violations = invariants.violations_total() - v0
+    finally:
+        invariants.enable(False)
+    if (not name.startswith("checked-") or violations
+            or series.get("compact_redos") != 5):
+        raise AssertionError(f"checked 512² gliders: stepper {name}, "
+                             f"{violations} violations, {series}")
+    phase("main-cli-full", f"512² gliders, chunk 16, 4-word compact buffer, "
+                           f"{name}: 5 compact redos, 0 violations; "
+                           f"{wall:.3f} s wall")
+
+    # (5) Busy shares and walls: plain, captured, metrics off, in turns.
+    for kind, extra in (("headless", ["-noVis"]), ("visualised", [])):
+        walls = {"plain": [], "capture": [], "metrics off": []}
+        for i, how in enumerate(("plain", "capture", "metrics off",
+                                 "metrics off", "capture", "plain")):
+            argv = base + extra + ["--out", str(tmp / f"cli-{kind}-{i}")]
+            if how == "capture":
+                argv += ["--profile-dir", str(tmp / f"prof-{kind}-{i}")]
+            wall, _, _ = cli_run(argv, metrics=how != "metrics off")
+            walls[how].append(round(wall, 4))
+            if (tmp / f"cli-{kind}-{i}/512x512x100.pgm").read_bytes() != golden:
+                raise AssertionError(f"{kind} 512² ({how}): PGM differs")
+        shares = [busy_share(t, "bitlife_resident")
+                  for t in sorted(tmp.glob(f"prof-{kind}-*/trace-*.json"))]
+        if any(s["launches"] <= 0 for s in shares):
+            raise AssertionError(f"{kind} 512²: a capture holds no "
+                                 f"bitlife_resident launch: {shares}")
+        phase("main-cli-full", f"{kind} 512² x 100 walls (s; run order "
+                               f"plain, capture, off, off, capture, plain): "
+                               f"{walls}; busy share of the captures: "
+                               f"{shares}")
+    # (6) What a user's fresh process pays for a capture: the profiler's
+    # first start (CUPTI) and the export.
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "gol_tpu_torch", *base, "-noVis",
+                    "--out", str(tmp / "cli-fresh"),
+                    "--profile-dir", str(tmp / "prof-fresh")],
+                   check=True, cwd=REPO, capture_output=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if (tmp / "cli-fresh/512x512x100.pgm").read_bytes() != golden:
+        raise AssertionError("fresh-process 512² capture: PGM differs")
+    (trace,) = (tmp / "prof-fresh").glob("trace-*.json")
+    phase("main-cli-full", f"fresh process, python -m gol_tpu_torch 512² x "
+                           f"100 -noVis --profile-dir: {wall:.3f} s wall "
+                           f"(phase cli, the same without: {cli_wall:.3f} "
+                           f"s); {busy_share(trace, 'bitlife_resident')}")
+    return cli_launches
 
 
 def measure(errs: dict, launches: dict, int_ops_per_s: float) -> list:
@@ -1975,12 +2267,17 @@ def main() -> int:
         watched = {"bitlife_resident": main_watched_512(tmp),
                    "bitgens_resident": main_watched_gens_512(tmp),
                    "bitlife_tiled": main_watched_16384(tmp, card)}
-        cli(tmp)
-    kernels = measure(errs, launches, int_ops_per_s)
+        cli_wall = cli(tmp)
+        kernels = measure(errs, launches, int_ops_per_s)
+        # After `measure`, whose torch.profiler sessions then run as they
+        # did before this phase's captures existed.
+        cli_full = main_cli_full(tmp, cli_wall)
     for row in kernels:
-        # Launches of the watched phases (one a turn) and of `diffs`.
+        # Launches of the watched phases (one a turn), of `diffs` and of
+        # the visualised CLI runs.
         row["watched_launches"] = watched.get(row["name"])
         row["diffs_launches"] = diffs_launches[row["name"]]
+        row["cli_launches"] = cli_full.get(row["name"])
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

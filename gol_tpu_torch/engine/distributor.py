@@ -31,10 +31,15 @@ Verb semantics (ref README.md:177-183 and gol/distributor.go:223-280):
   'p'  pause/resume with StateChange events
   'k'  snapshot + full shutdown
 
+A caller may inject the stepper (an instrumented or invariant-checked
+one, say), the IO service and a `utils.trace.Timeline`, which records
+one span per dispatch; with a Timeline attached each fused chunk's
+count is realized, so its span measures device time — the observer tax
+is opt-in, and a run without one adds no synchronisation.
+
 Not ported yet: BoardSync for attached controllers
-(`request_board_sync`), the invariant checker, the sharded steppers'
-`fetch_diffs` / redo entries, and injected steppers, IO services and
-timelines.
+(`request_board_sync`) and the sharded steppers' `fetch_diffs` / redo
+entries.
 """
 
 from __future__ import annotations
@@ -367,6 +372,9 @@ class Engine:
         batch_turns_hint: int = 0,
         initial_world: Optional[np.ndarray] = None,
         start_turn: int = 0,
+        io_service: Optional[IOService] = None,
+        stepper=None,
+        timeline=None,
         cycle_check_seconds: float = 2.0,
         device=None,
     ):
@@ -401,7 +409,7 @@ class Engine:
         # Stepper before IOService: make_stepper validates (and can raise
         # on) the backend/grid/device combination, and the IO service
         # spawns a live thread that a failed construction would leak.
-        self.stepper = make_stepper(
+        self.stepper = stepper or make_stepper(
             threads=params.threads,
             height=params.image_height,
             width=params.image_width,
@@ -412,7 +420,8 @@ class Engine:
             mesh=params.mesh,
             partition_rules=params.partition_rules,
         )
-        self.io = IOService(params.image_dir, params.out_dir)
+        self.io = io_service or IOService(params.image_dir, params.out_dir)
+        self._own_io = io_service is None
         # Atomically published (completed_turns, device_world,
         # device_count). ONLY the engine thread launches device work or
         # realises device values; the ticker asks via _requests and the
@@ -429,6 +438,11 @@ class Engine:
         # always-consistent fallback for timed-out requests.
         self._last_pair = (0, 0)
         self._finished = threading.Event()
+        #: Optional utils.trace.Timeline recording one span per dispatch.
+        #: Profiling realizes each fused chunk's count so spans measure
+        #: true device time, at the cost of serializing the dispatch
+        #: pipeline (the observer tax, opt-in).
+        self.timeline = timeline
         #: Exception that killed the engine thread, if any.
         self.error: Optional[BaseException] = None
         #: The dispatch chunk actually in use (auto-calibration updates
@@ -540,7 +554,8 @@ class Engine:
             self._finished.set()
             self._service_requests()  # release any waiting requester
             self.events.close()  # idempotent; unblocks all consumers
-            self.io.stop()
+            if self._own_io:
+                self.io.stop()
 
     def _run(self) -> None:
         p = self.p
@@ -657,6 +672,8 @@ class Engine:
                 tracing.add_span("engine.dispatch", "engine",
                                  time.time() - elapsed, elapsed,
                                  {"kind": "diff", "turn": turn, "turns": 1})
+                if self.timeline:
+                    self.timeline.record(turn, 1, elapsed, "diff")
                 self._emit_turn_flips(turn, host_mask)
                 world = new_world
                 self._commit(turn, world, count)
@@ -717,11 +734,24 @@ class Engine:
                 _METRICS.turns["chunk"].inc(k)
                 _METRICS.effective_chunk.set(self.effective_chunk)
                 _charge_legacy(time.perf_counter() - tick, k)
-                # An instant mark, not a measured span: timing the chunk
-                # would need a realization, the observer tax this path
-                # avoids.
-                tracing.event("engine.dispatch", "engine",
-                              kind="chunk", turn=turn + k, turns=k)
+                if self.timeline:
+                    _realize(count)  # spans measure true device time
+                    elapsed = time.perf_counter() - tick
+                    # The fused path's histogram is fed only under a
+                    # Timeline: without the realization above, a wall
+                    # timing would measure the asynchronous enqueue.
+                    _METRICS.dispatch_seconds["chunk"].observe(elapsed)
+                    tracing.add_span("engine.dispatch", "engine",
+                                     time.time() - elapsed, elapsed,
+                                     {"kind": "chunk", "turn": turn + k,
+                                      "turns": k})
+                    self.timeline.record(turn + k, k, elapsed, "chunk")
+                else:
+                    # An instant mark, not a measured span: timing the
+                    # chunk would need a realization, the observer tax
+                    # this path avoids.
+                    tracing.event("engine.dispatch", "engine",
+                                  kind="chunk", turn=turn + k, turns=k)
                 first = turn + 1
                 turn += k
                 self._commit(turn, world, count)
@@ -1107,6 +1137,8 @@ class Engine:
             time.time() - (now - start), now - start,
             {"kind": "diffs", "turn": turn + k, "turns": k},
         )
+        if self.timeline:
+            self.timeline.record(turn + k, k, now - start, "diffs")
         self._commit(turn + k, new_world, count)
         if chunk is not None:
             # Chunk-granular emission: the whole decoded stack as ONE

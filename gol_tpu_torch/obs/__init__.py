@@ -1,6 +1,7 @@
 """gol_tpu_torch.obs — host-side observability for the port: metrics
 (`registry`), spans (`tracing`), the black box (`flight`), usage
-accounting (`accounting`) and the dispatch split (`device`).
+accounting (`accounting`), and the dispatch split, memory census and
+`torch.profiler` driver (`device`).
 
 Ground rules, as in `gol_tpu.obs`: metrics, spans and flight notes are
 host-side and dispatch-granular — never inside a kernel, never per
@@ -16,10 +17,12 @@ from gol_tpu_torch.obs.registry import (
     Registry,
     atomic_write_text,
     counter,
+    enabled,
     exponential_buckets,
     gauge,
     histogram,
     registry,
+    set_enabled,
 )
 
 __all__ = [
@@ -30,8 +33,10 @@ __all__ = [
     "Registry",
     "atomic_write_text",
     "counter",
+    "enabled",
     "exponential_buckets",
     "gauge",
     "histogram",
     "registry",
+    "set_enabled",
 ]

@@ -10,7 +10,7 @@ ported yet).
 - **Never inside a kernel.** All instrumentation is host-side, at
   dispatch/event granularity, never per cell.
 - **Zero-cost when disabled.** `GOL_TPU_METRICS=0` in the environment
-  turns every `inc`/`set`/`observe` into an immediate return behind one
+  (or `set_enabled(False)`) turns every `inc`/`set`/`observe` into an immediate return behind one
   module-global flag.
 - **Thread-safe.** Every mutation takes the metric's own lock.
 """
@@ -32,15 +32,29 @@ __all__ = [
     "REGISTRY",
     "atomic_write_text",
     "counter",
+    "enabled",
     "exponential_buckets",
     "gauge",
     "histogram",
     "registry",
+    "set_enabled",
 ]
 
 #: Module-global enablement flag — ONE attribute read on every metric
 #: mutation. Default on; `GOL_TPU_METRICS=0` turns the whole plane off.
 _ENABLED = os.environ.get("GOL_TPU_METRICS", "1") != "0"
+
+
+def enabled() -> bool:
+    return _ENABLED
+
+
+def set_enabled(on: bool = True) -> None:
+    """Programmatic switch (tests, embedders). Affects mutation calls
+    immediately; build-time gates (the stepper wrapper) read it at
+    construction."""
+    global _ENABLED
+    _ENABLED = bool(on)
 
 
 def atomic_write_text(path, text: str) -> None:

@@ -24,7 +24,7 @@ from typing import Optional
 # every record call reads `_registry._ENABLED`.
 _registry = importlib.import_module("gol_tpu_torch.obs.registry")
 
-__all__ = ["TRACER", "Tracer", "add_span", "event"]
+__all__ = ["TRACER", "Tracer", "add_span", "event", "set_metadata"]
 
 #: Ring capacity: ~64k records keep the recent minutes of a run.
 DEFAULT_CAPACITY = 65_536
@@ -37,6 +37,9 @@ class Tracer:
         self.capacity = capacity
         self._ring: "Optional[collections.deque]" = None
         self._recorded = 0
+        #: Extra metadata keys carried verbatim in the export (the
+        #: --profile-dir capture directory).
+        self.extra_metadata: dict = {}
 
     def _rec(self, record) -> None:
         ring = self._ring
@@ -96,6 +99,7 @@ class Tracer:
                 "recorded": self._recorded,
                 "dropped": self.dropped,
                 "dumped_at": time.time(),
+                **self.extra_metadata,
             },
         }
 
@@ -111,3 +115,9 @@ def event(name: str, cat: str = "", **args) -> None:
 def add_span(name: str, cat: str, ts: float, dur: float,
              args: Optional[dict] = None) -> None:
     TRACER.add_span(name, cat, ts, dur, args)
+
+
+def set_metadata(key: str, value) -> None:
+    """Attach one JSON-able key to the export metadata (the
+    --profile-dir capture directory, so a dump names the capture)."""
+    TRACER.extra_metadata[str(key)] = value

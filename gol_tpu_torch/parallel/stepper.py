@@ -33,6 +33,11 @@ and compact encodings (`scan_diffs`, `sparse_scan_diffs`,
 `compact_decode_rows`). `fetch_diffs`, `step_n_with_diffs_redo` and
 `fetch_compact_values` stay None, as on gol_tpu's single-device
 backends; the sharded and tiled backends are not ported yet.
+
+`make_stepper` wraps the backend as gol_tpu's does: `instrument_stepper`
+(per-entry dispatch counters, host-blocking histograms and spans) unless
+metrics are off, then `analysis.invariants.checked_stepper` when the
+invariant checker is on.
 """
 
 from __future__ import annotations
@@ -710,6 +715,145 @@ def _make_gens_stepper(rule: GenRule, height: int, width: int, dev,
     return _gens_stepper(rule, dev)
 
 
+def instrument_stepper(s: Stepper) -> Stepper:
+    """Wrap a Stepper's dispatch entries with gol_tpu_torch.obs counters,
+    wall-time histograms and one `stepper.<entry>` span each on
+    `obs.tracing` (dataclasses.replace, the checked_stepper pattern) —
+    gol_tpu's `instrument_stepper`. Everything here is host-side,
+    per-DISPATCH bookkeeping: the wrapped callables receive and return
+    the exact same objects, so dispatch-identity invariants and the
+    pipelined diff path see nothing new.
+
+    Timing semantics: the histograms record the host-blocking time of
+    the dispatch call — true device time on the CPU, and the enqueue
+    time of the launches on a CUDA stream (nothing here synchronises);
+    the engine's Timeline remains the realizing profiler.
+
+    Halo traffic: the gol_tpu_halo_* series are registered as in
+    gol_tpu and stay at zero while the stepper publishes no `halo_cost`
+    (every single-device backend). gol_tpu's XLA cost probe has no
+    counterpart here."""
+    import time
+
+    from gol_tpu_torch import obs
+    from gol_tpu_torch.obs import device as obs_device
+    from gol_tpu_torch.obs import tracing
+
+    backend = {"backend": s.name}
+    dispatches = {}
+    seconds = {}
+    # The wrap set comes from the capability table: an entry gains
+    # instrumentation by declaring a `wrap` shape in ENTRY_TABLE.
+    for entry in (e.name for e in ENTRY_TABLE if e.wrap is not None):
+        dispatches[entry] = obs.counter(
+            "gol_tpu_stepper_dispatches_total",
+            "Stepper entry invocations", {**backend, "entry": entry},
+        )
+        seconds[entry] = obs.histogram(
+            "gol_tpu_stepper_dispatch_seconds",
+            "Host-blocking seconds per stepper entry call",
+            {**backend, "entry": entry},
+        )
+    halo_exchanges = obs.counter(
+        "gol_tpu_halo_exchanges_total",
+        "Ring ppermute slab sends dispatched", backend,
+    )
+    halo_bytes = obs.counter(
+        "gol_tpu_halo_bytes_total",
+        "Ring halo bytes moved (both directions, all shards)", backend,
+    )
+    halo_seconds = obs.histogram(
+        "gol_tpu_halo_dispatch_seconds",
+        "Host-blocking seconds per ring-stepper multi-turn dispatch",
+        backend,
+    )
+
+    def _charge_halo(world, k, per_turn: bool):
+        if s.halo_cost is None:
+            return None
+        cost = s.halo_cost(world, k, per_turn)
+        halo_exchanges.inc(cost["exchanges"])
+        halo_bytes.inc(cost["bytes"])
+        return cost
+
+    def _span(entry, wall0, dt, cost=None) -> None:
+        args = {"halo_bytes": cost["bytes"]} if cost else None
+        tracing.add_span(f"stepper.{entry}", "stepper", wall0, dt, args)
+
+    def timed(entry, fn):
+        disp, hist = dispatches[entry], seconds[entry]
+
+        def wrapper(*args):
+            disp.inc()
+            wall0 = time.time()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            dt = time.perf_counter() - t0
+            hist.observe(dt)
+            _span(entry, wall0, dt)
+            return out
+
+        return wrapper
+
+    def step_n(world, k):
+        dispatches["step_n"].inc()
+        cost = _charge_halo(world, int(k), False)
+        wall0 = time.time()
+        t0 = time.perf_counter()
+        out = s.step_n(world, k)
+        dt = time.perf_counter() - t0
+        seconds["step_n"].observe(dt)
+        if s.halo_cost is not None:
+            halo_seconds.observe(dt)
+        _span("step_n", wall0, dt, cost)
+        # Memory census at the dispatch boundary (rate-limited inside):
+        # the watermark tracks every dispatching run.
+        obs_device.observe_memory(getattr(world, "device", None))
+        return out
+
+    def _diffy(entry, fn):
+        def wrapper(world, k, *rest):
+            dispatches[entry].inc()
+            cost = _charge_halo(world, int(k), True)
+            wall0 = time.time()
+            t0 = time.perf_counter()
+            out = fn(world, k, *rest)
+            dt = time.perf_counter() - t0
+            seconds[entry].observe(dt)
+            _span(entry, wall0, dt, cost)
+            obs_device.observe_memory(getattr(world, "device", None))
+            return out
+
+        return wrapper
+
+    def _one_turn(entry, fn):
+        def wrapper(world):
+            dispatches[entry].inc()
+            cost = _charge_halo(world, 1, True)
+            wall0 = time.time()
+            t0 = time.perf_counter()
+            out = fn(world)
+            dt = time.perf_counter() - t0
+            seconds[entry].observe(dt)
+            _span(entry, wall0, dt, cost)
+            return out
+
+        return wrapper
+
+    # The replace set is DERIVED from the capability table: every entry
+    # declaring a `wrap` shape gets that wrapper, absent entries stay
+    # None.
+    wrappers = {"timed": timed, "one_turn": _one_turn, "diffy": _diffy}
+    repl: dict = {"put": timed("put", s.put), "step_n": step_n}
+    for e in ENTRY_TABLE:
+        if e.wrap is None or e.name in repl:
+            continue
+        fn = getattr(s, e.name)
+        if fn is not None:
+            repl[e.name] = wrappers[e.wrap](e.name, fn)
+    return dataclasses.replace(s, **repl)
+
+
 def make_stepper(
     threads: int = 1,
     height: int = 512,
@@ -723,8 +867,40 @@ def make_stepper(
 ) -> Stepper:
     """Build the stepper for the request on one device (`device`: None
     means the CUDA card; pass "cpu" to run the plain versions on the
-    CPU). `threads` is the reference's shard request; one device holds
+    CPU), wrapped as gol_tpu wraps it: with per-dispatch obs
+    instrumentation unless GOL_TPU_METRICS=0 (the disabled path builds
+    the bare stepper), and with the runtime dispatch-linearity checker
+    when GOL_TPU_CHECK_INVARIANTS=1 (cli --check-invariants;
+    gol_tpu_torch.analysis.invariants) — host-side identity checks
+    only. `threads` is the reference's shard request; one device holds
     one shard, which never changes results."""
+    from gol_tpu_torch import obs
+    from gol_tpu_torch.analysis.invariants import (
+        checked_stepper,
+        invariants_enabled,
+    )
+
+    s = _make_stepper(threads, height, width, rule, device, backend, tile,
+                      mesh, partition_rules)
+    if obs.enabled():
+        s = instrument_stepper(s)
+    if invariants_enabled():
+        s = checked_stepper(s)
+    return s
+
+
+def _make_stepper(
+    threads: int = 1,
+    height: int = 512,
+    width: int = 512,
+    rule: Rule | str = LIFE,
+    device=None,
+    backend: str = "auto",
+    tile: int = 0,
+    mesh: Optional[tuple | str] = None,
+    partition_rules: Optional[str] = None,
+) -> Stepper:
+    """The bare stepper of `make_stepper`."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if tile:

@@ -1,5 +1,5 @@
 """`python -m gol_tpu_torch` on the CPU: the reference flags write the
-golden PGM byte for byte, and the unported visualiser is refused."""
+golden PGM byte for byte, with and without the visualiser."""
 
 import os
 import pathlib
@@ -32,11 +32,17 @@ def test_cli_writes_golden_pgm(golden_root, tmp_path, size, turns):
     assert got == want.read_bytes()
 
 
-def test_cli_without_novis_is_refused(tmp_path):
-    r = cli("-w", "16", "-h", "16", "-turns", "1", "--platform", "cpu",
-            "--out", str(tmp_path))
-    assert r.returncode != 0
-    assert "visualiser not yet ported" in r.stderr
+def test_cli_without_novis_visualises_headless(golden_root, tmp_path):
+    """Without -noVis the run drives the visualiser loop — here on a
+    headless board (no SDL2, no display) — and still writes the golden
+    PGM, printing the loop's loggable events."""
+    r = cli("-w", "64", "-h", "64", "-turns", "100", "--platform", "cpu",
+            "--images", str(golden_root / "images"), "--out", str(tmp_path))
+    assert r.returncode == 0, r.stderr
+    got = (tmp_path / "64x64x100.pgm").read_bytes()
+    want = golden_root / "check" / "images" / "64x64x100.pgm"
+    assert got == want.read_bytes()
+    assert "Completed Turns 100" in r.stdout
 
 
 def test_cli_missing_image_fails(tmp_path):

@@ -45,15 +45,28 @@ def test_ast_scan_finds_no_jax_or_gol_tpu_import():
 
 def test_scan_covers_every_port_module():
     """The scan reads every module of the package, the Generations and
-    dense-kernel modules and chip_smoke.py among them."""
+    dense-kernel modules, the invariant checker, the visualiser, the
+    checkpoint and trace utilities and chip_smoke.py among them; the
+    native core's directory holds its sources only (it builds under
+    build/gol_tpu_torch/)."""
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
     for want in ("gol_tpu_torch/ops/generations.py",
                  "gol_tpu_torch/ops/bitgens.py",
                  "gol_tpu_torch/ops/cuda_bitgens.py",
                  "gol_tpu_torch/ops/cuda_life.py",
                  "gol_tpu_torch/ops/cuda_bitlife.py",
+                 "gol_tpu_torch/analysis/invariants.py",
+                 "gol_tpu_torch/visual/board.py",
+                 "gol_tpu_torch/visual/loop.py",
+                 "gol_tpu_torch/utils/check.py",
+                 "gol_tpu_torch/utils/trace.py",
+                 "gol_tpu_torch/utils/visualise.py",
+                 "gol_tpu_torch/checkpoint.py",
                  "chip_smoke.py"):
         assert want in names
+    native = sorted(p.name for p in (REPO / "gol_tpu_torch" / "native")
+                    .iterdir() if p.name != "__pycache__")
+    assert native == ["Makefile", "board.cpp"]
 
 
 def test_full_cpu_run_loads_no_jax(golden_root, tmp_path):
@@ -73,7 +86,9 @@ for kw in ({{"rule": "B2/S/C3"}}, {{"rule": "B2/S/C3", "backend": "cuda-packed"}
     q = dataclasses.replace(p, turns=3, **kw)
     assert any(isinstance(e, FinalTurnComplete)
                for e in gol_tpu_torch.run(q, device="cpu"))
-import gol_tpu_torch.interop, gol_tpu_torch.cli
+import gol_tpu_torch.interop, gol_tpu_torch.cli, gol_tpu_torch.checkpoint
+import gol_tpu_torch.analysis, gol_tpu_torch.visual, gol_tpu_torch.utils.trace
+import gol_tpu_torch.utils.check
 bad = sorted(m for m in sys.modules
              if m.split(".")[0].startswith("jax") or m == "gol_tpu"
              or m.startswith("gol_tpu."))
