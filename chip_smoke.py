@@ -15,7 +15,13 @@ plain planes; the dense CUDA backend at 512² against the golden
 fixture; the watched runs (phases `main-watched-512`,
 `main-watched-gens-512`, `main-watched-16384`: the diff-chunk pipeline
 against the per-turn path, compact chunks, a forced overflow, level-mode
-FlipBatches, FlipChunks at 16384²) — runs the CLI, headless and (phase
+FlipBatches, FlipChunks at 16384²); the activity-tiled stepper (kernel
+A batched over each slab of ghost-extended tiles: phase `kernels` holds
+the batched entry bit-exact against the batched plain step, phase
+`tiled` holds a 32768² tiled world bit-identical to the dense stepper's
+and times both, `main-tiled-16384` runs `run(Params(tile=1024))`,
+`main-watched-tiled` a watched tiled run against the dense paths) —
+runs the CLI (also with `--tile 1024`), headless and (phase
 `main-cli-full`) visualised on the native board with
 `--check-invariants`, `--autosave-turns`, `--resume` and
 `--profile-dir`, whose `torch.profiler` captures give the device's busy
@@ -80,6 +86,14 @@ KERNELS = {
     "life_dense": {
         "source": "gol_tpu_torch/csrc/life.cu",
         "replaces": "gol_tpu/ops/pallas_life.py:89",
+    },
+    # Kernel A's batched entry: the tiled stepper's slab, one cluster a
+    # ghost-extended tile, in place of gol_tpu's jax.vmap of the plain
+    # packed step (no Pallas kernel).
+    "bitlife_resident_batch": {
+        "source": "gol_tpu_torch/csrc/bitlife.cu",
+        "replaces": "gol_tpu/parallel/tiled.py:292",
+        "kernel": "bitlife_resident",
     },
 }
 
@@ -1442,6 +1456,398 @@ def main_watched_16384(tmp: pathlib.Path, card: str) -> int:
     return launches
 
 
+#: Tile sides of the tiled stepper's ext blocks checked against the
+#: batched plain step: one-row slabs of 3 and 4 blocks (32, 64), the
+#: watched path's 6 x 3 rows (512), the main path's 2 x 17 rows (1024)
+#: and 6 x 11 rows (2048).
+BATCH_TILES = (32, 64, 512, 1024, 2048)
+#: Stack sizes of that check: one block, a few, and up to a whole 8 x 8
+#: tile grid (the most one slab of `main-watched-tiled` can hold).
+BATCH_SIZES = (1, 3, 16, 64)
+#: The centred soup of the tiled phases (bench.py's activity lane).
+SOUP_SIDE, SOUP_DENSITY, SOUP_SEED = 512, 0.35, 7
+#: Board sides of the phases `tiled` (bench.py's activity lane),
+#: `main-tiled-16384`, `main-watched-tiled` and the tiled `cli` run.
+TILED_AB_SIDE, MAIN_TILED_SIDE, WATCHED_TILED_SIDE = 32768, 16384, 4096
+
+
+def ext_shape(tile: int) -> tuple:
+    """(word-rows, columns) of a tile's ghost-extended block at g = 1."""
+    return tile // 32 + 2, tile + 64
+
+
+def check_batch_kernel(errs: dict) -> dict:
+    """Phase `kernels`, batched kernel A: the ext blocks of tiles 32, 64,
+    512, 1024 and 2048 in stacks of 1, 3, 16 and 64, k = 1, 31 and 32,
+    Life and B36/S23 (the masks form), bit-exact against the batched
+    plain step, one launch a stack; and tile 4096, whose block no
+    cluster plan fits, through kernel B's 2-D entry, one launch a
+    block. Returns the plans."""
+    import torch
+
+    from gol_tpu_torch.models.rules import get_rule
+    from gol_tpu_torch.ops import bitlife
+    from gol_tpu_torch.ops import cuda_bitlife as cb
+    from gol_tpu_torch.parallel import tiled
+
+    gen = torch.Generator().manual_seed(11)
+    rules = [get_rule("B3/S23"), get_rule("B36/S23")]
+    plans, checked = {}, 0
+    for tile in BATCH_TILES:
+        rows, cols = ext_shape(tile)
+        if tiled.slab_route(tile) != "resident":
+            raise AssertionError(f"tile {tile}: no kernel-A cluster plan")
+        plans[tile] = cb._resident_args(rows, cols, 2)
+        for b in BATCH_SIZES:
+            stack = torch.randint(-2**31, 2**31 - 1, (b, rows, cols),
+                                  dtype=torch.int32, generator=gen).cuda()
+            for rule in rules:
+                want = plain_turns(
+                    lambda x, k: bitlife.step_n_packed_raw(x, k, rule),
+                    stack, (1, 31, 32))
+                for k in (1, 31, 32):
+                    before = cb.LAUNCHES["bitlife_resident"]
+                    got = cb.step_n_packed_batch_cuda_raw(stack, k, rule)
+                    torch.cuda.synchronize()
+                    if cb.LAUNCHES["bitlife_resident"] - before != 1:
+                        raise AssertionError("a batch is not one launch")
+                    err = max_abs_err(got, want[k])
+                    errs["bitlife_resident_batch"] = max(
+                        errs["bitlife_resident_batch"], err)
+                    if err:
+                        raise AssertionError(
+                            f"bitlife_resident batch {b} x {rows}x{cols} "
+                            f"k={k} {rule}: mismatch")
+                    checked += 1
+    if [plans[t][0] for t in (32, 64)] != [3, 4] or plans[32][1] != 1:
+        raise AssertionError(f"tiles 32 and 64 are not one-row slabs: {plans}")
+    rows, cols = ext_shape(4096)
+    if tiled.slab_route(4096) != "tiled2d":
+        raise AssertionError("tile 4096 has a kernel-A plan")
+    stack = torch.randint(-2**31, 2**31 - 1, (3, rows, cols),
+                          dtype=torch.int32, generator=gen).cuda()
+    for rule in rules:
+        for k in (1, 31, 32):
+            want = bitlife.step_n_packed_raw(stack, k, rule)
+            before = cb.LAUNCHES["bitlife_tiled"]
+            got = torch.stack([cb.step_n_packed_tiled2d_raw(s, k, rule)
+                               for s in stack])
+            torch.cuda.synchronize()
+            if cb.LAUNCHES["bitlife_tiled"] - before != len(stack):
+                raise AssertionError("kernel B is not one launch a block")
+            err = max_abs_err(got, want)
+            errs["bitlife_tiled"] = max(errs["bitlife_tiled"], err)
+            if err:
+                raise AssertionError(f"bitlife_tiled 4096 ext block k={k} "
+                                     f"{rule}: mismatch")
+            checked += 1
+    phase("kernels", f"{checked} batched runs bit-exact against the batched "
+                     f"plain step (ext blocks of tiles {BATCH_TILES} in "
+                     f"stacks of {BATCH_SIZES}, k = 1, 31, 32, and tile "
+                     f"4096's {rows}x{cols} block through kernel B, one "
+                     f"launch a block); kernel A's (blocks, slab_rows, "
+                     f"halo, threads, seg_rows) by tile {plans}")
+    return plans
+
+
+def soup_world(side: int):
+    """A {0,255} side² board, empty but for a centred SOUP_SIDE² soup at
+    SOUP_DENSITY from SOUP_SEED (the parameters of bench.py's activity
+    lane, `measure_activity`)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SOUP_SEED)
+    board = np.zeros((side, side), np.uint8)
+    r0 = (side - SOUP_SIDE) // 2
+    board[r0:r0 + SOUP_SIDE, r0:r0 + SOUP_SIDE] = (
+        (rng.random((SOUP_SIDE, SOUP_SIDE)) < SOUP_DENSITY) * 255
+    ).astype(np.uint8)
+    return board
+
+
+def tiled_activity() -> dict:
+    """The tiled stepper's activity series, and kernel A's launches."""
+    from gol_tpu_torch.ops import cuda_bitlife as cb
+    from gol_tpu_torch.parallel.tiled import _METRICS as m
+
+    return {"tile_steps": m.tile_steps.value, "tile_rides": m.tile_rides.value,
+            "tile_skips": m.tile_skips.value,
+            "dispatches": m.dispatches.value,
+            "paged_in": m.paged["in"].value, "paged_out": m.paged["out"].value,
+            "launches": cb.LAUNCHES["bitlife_resident"]}
+
+
+def tiled_ab(card: str, int_ops_per_s: float) -> dict:
+    """Phase `tiled`: the tiled stepper (T = 1024) against the dense
+    `cuda-packed` stepper (kernel B's 2-D entry) on bench.py's activity
+    lane — a 32768² board, empty but for a centred 512² soup, 64 turns in
+    32-turn chunks, each chunk's count realized. The packed words and the
+    counts are bit-identical. Prints both turn rates and the speedup
+    without the first chunk, the activity accounting, the slab launch's
+    device time against its bound, and one chunk's wall split."""
+    import numpy as np
+    import torch
+
+    from gol_tpu_torch.parallel import make_stepper
+    from gol_tpu_torch.parallel.tiled import _METRICS as m
+
+    side, tile, turns, chunk = TILED_AB_SIDE, 1024, 64, 32
+    board = soup_world(side)
+
+    def run(stepper):
+        t0 = time.perf_counter()
+        world = stepper.put(board)
+        put_s = time.perf_counter() - t0
+        per_chunk, count, splits = [], 0, []
+        for _ in range(turns // chunk):
+            steps = m.tile_steps.value
+            t0 = time.perf_counter()
+            world, count = stepper.step_n(world, chunk)
+            count = int(count)
+            per_chunk.append(time.perf_counter() - t0)
+            if stepper.tiled is not None:
+                splits.append({**stepper.tiled.last_split,
+                               "blocks": m.tile_steps.value - steps})
+        rate = (turns - chunk) / sum(per_chunk[1:])
+        return world, count, rate, per_chunk, put_s, splits
+
+    dense = make_stepper(height=side, width=side, backend="cuda-packed")
+    dw, dcount, dense_tps, dense_chunks, dense_put, _ = run(dense)
+    dense_words = dw.cpu().numpy().view(np.uint32)
+    del dw, dense
+    torch.cuda.empty_cache()
+    before = tiled_activity()
+    tiled = make_stepper(height=side, width=side, tile=tile)
+    tiled.tiled.time_split = True
+    tw, tcount, tiled_tps, tiled_chunks, tiled_put, splits = run(tiled)
+    acts = {k: v - before[k] for k, v in tiled_activity().items()}
+    impl = tiled.tiled
+    if tcount != dcount or not np.array_equal(tw.words, dense_words):
+        raise AssertionError(f"tiled {side}²: the tiled world differs from "
+                             "the dense cuda-packed stepper's")
+    if impl.route != "resident" or acts["launches"] != acts["dispatches"]:
+        raise AssertionError(f"tiled {side}²: {acts['launches']} batched "
+                             f"kernel-A launches for {acts['dispatches']} slab "
+                             f"dispatches (route {impl.route})")
+    p = torch.zeros((32, 64), dtype=torch.int32).cuda()
+    life_ops = life_fewest_instructions(p)[1]
+    slab = int(m.resident.value)
+    rows, cols = impl.ext_h, impl.ext_w
+    last = splits[-1]
+    blocks = int(last.pop("blocks"))
+    words = blocks * rows * cols
+    b_ms, b_by = bound_ms(2 * 4 * words, words * chunk * life_ops,
+                          int_ops_per_s)
+    launch_ms = last["launch"] * 1e3
+    split = ", ".join(f"{k} {v * 1e3:.3f}" for k, v in last.items())
+    phase("tiled", f"{side}² board, centred 512² soup at 0.35 (seed 7), T = "
+                   f"{tile}, {turns} turns in {chunk}-turn chunks: tiled "
+                   f"world and count ({tcount}) bit-identical to the dense "
+                   f"cuda-packed stepper's; {tiled_tps:.2f} turns/s tiled "
+                   f"against {dense_tps:.2f} dense after the first chunk "
+                   f"(x{tiled_tps / dense_tps:.2f}); chunks {tiled_chunks} s "
+                   f"against {dense_chunks} s; put {tiled_put:.3f} s against "
+                   f"{dense_put:.3f} s; on {card}")
+    phase("tiled", f"activity: {impl.gr * impl.gc} tiles, {int(m.active.value)} "
+                   f"active in the last chunk, {acts['tile_steps']} tile steps, "
+                   f"{acts['tile_rides']} rides, {acts['tile_skips']} skips; "
+                   f"paged {acts['paged_in']} B in, {acts['paged_out']} B out; "
+                   f"slab capacity {slab} (max_resident {impl.max_resident}); "
+                   f"{acts['launches']} batched kernel-A launches for "
+                   f"{acts['dispatches']} gol_tpu_tiled_dispatches_total")
+    phase("tiled", f"last chunk's slab launch {launch_ms:.4f} ms (CUDA events) "
+                   f"for {blocks} blocks of {rows}x{cols} "
+                   f"words x {chunk} turns, bound {b_ms:.4f} ms ({b_by}); "
+                   f"its wall split (ms): {split}")
+    return {"tiled_tps": tiled_tps, "dense_tps": dense_tps,
+            "launch_ms": launch_ms, "bound_ms": b_ms, "split": last,
+            "acts": acts}
+
+
+def main_tiled_16384(tmp: pathlib.Path, card: str) -> tuple:
+    """Phase `main-tiled-16384`: run(Params 16384², tile 1024, 256 turns,
+    cycle_detect on) headless through the engine, on a board empty but
+    for the centred soup: the engine's cycle detectors are off, the
+    batched kernel A launched, and the PGM and the FinalTurnComplete
+    alive set equal the `cuda-packed` stepper's. Returns (kernel A's
+    launches, the slab capacity)."""
+    import numpy as np
+
+    from gol_tpu_torch import FinalTurnComplete, Params
+    from gol_tpu_torch.engine.distributor import Engine
+    from gol_tpu_torch.io.pgm import read_pgm
+    from gol_tpu_torch.ops import cuda_bitlife as cb
+    from gol_tpu_torch.parallel import make_stepper
+    from gol_tpu_torch.utils.cell import cells_from_mask
+
+    side, tile, turns = MAIN_TILED_SIDE, 1024, 256
+    world = soup_world(side)
+    params = Params(image_width=side, image_height=side, turns=turns,
+                    chunk=0, tile=tile, cycle_detect=True,
+                    out_dir=str(tmp / "t16384"))
+    engine = Engine(params, emit_flips=False, initial_world=world)
+    if engine._cycles is not None or engine._ride_cycles is not None:
+        raise AssertionError(f"tiled {side}²: a cycle detector is on")
+    for k in cb.LAUNCHES:
+        cb.LAUNCHES[k] = 0
+    before = tiled_activity()
+    t0 = time.time()
+    engine.start()
+    timed = drain_timed(engine.events)
+    wall = time.time() - t0
+    engine.join(timeout=60)
+    if engine.error is not None:
+        raise engine.error
+    launches = dict(cb.LAUNCHES)
+    acts = {k: v - before[k] for k, v in tiled_activity().items()}
+    split = wall_split(t0, timed)
+    if launches["bitlife_resident"] <= 0 or launches["bitlife_tiled"]:
+        raise AssertionError(f"tiled {side}²: launches {launches}")
+    final = [e for _, e in timed if isinstance(e, FinalTurnComplete)]
+    ref = make_stepper(height=side, width=side)
+    q, count = ref.step_n(ref.put(world), turns)
+    want = ref.fetch(q)
+    got = read_pgm(tmp / f"t16384/{side}x{side}x{turns}.pgm")
+    if not np.array_equal(got, want):
+        raise AssertionError(f"tiled {side}²: PGM differs from cuda-packed's")
+    if not final or final[0].alive != cells_from_mask(want):
+        raise AssertionError(f"tiled {side}²: FinalTurnComplete differs")
+    impl = engine.stepper.tiled
+    phase("main-tiled-16384", f"run(Params {side}x{side}, tile {tile}, {turns} "
+                              f"turns, cycle_detect) headless: PGM and "
+                              f"FinalTurnComplete ({int(count)} alive) equal "
+                              f"the cuda-packed stepper's; cycle detectors "
+                              f"off; {launches['bitlife_resident']} batched "
+                              f"kernel-A launches; {acts}; slab capacity "
+                              f"{impl.activity()['pool_cap']}; {wall:.2f} s "
+                              f"wall ({split}) on {card}")
+    return launches["bitlife_resident"], impl.activity()["pool_cap"]
+
+
+def chunk_flips(evs, width: int) -> list:
+    """(turn, sorted flat indices y * width + x of the turn's flips) of
+    every turn of a run's FlipChunks or FlipBatches, in turn order — the
+    two forms of one watched stream."""
+    import numpy as np
+
+    from gol_tpu_torch.events import FlipBatch, FlipChunk
+
+    out = []
+    for e in evs:
+        if isinstance(e, FlipBatch):
+            xy = np.asarray(e.cells, np.int64).reshape(-1, 2)
+            out.append((e.completed_turns,
+                        np.sort(xy[:, 1] * width + xy[:, 0])))
+        elif isinstance(e, FlipChunk):
+            words = np.asarray(e.words, np.uint32)
+            off = 0
+            for i, m in enumerate(np.asarray(e.counts)):
+                idx = np.flatnonzero(np.unpackbits(np.ascontiguousarray(
+                    e.bitmaps[i], np.uint32).view(np.uint8), bitorder="little"))
+                w = np.ascontiguousarray(words[off:off + int(m)])
+                off += int(m)
+                word, bit = np.nonzero(np.unpackbits(
+                    w.view(np.uint8), bitorder="little").reshape(-1, 32))
+                ys = idx[word] // width * 32 + bit
+                out.append((e.first_turn + i,
+                            np.sort(ys * width + idx[word] % width)))
+    return out
+
+
+def main_watched_tiled(tmp: pathlib.Path, card: str) -> int:
+    """Phase `main-watched-tiled`: a 4096² board with a centred 1024² soup,
+    T = 512, 64 turns, chunk 16, with FlipBatches and FlipChunks, through
+    the engine's unpipelined `_run_diff_chunk` branch (the tiled stepper
+    fetches its own diff stacks). Its FlipChunks decoded per turn equal
+    the dense per-turn path's FlipBatches (cuda-packed, no diff entries),
+    and its stream equals the dense diff-chunk path's event for event."""
+    import numpy as np
+
+    from gol_tpu_torch import Params, TurnComplete
+    from gol_tpu_torch.events import FlipBatch, FlipChunk
+    from gol_tpu_torch.ops import cuda_bitlife as cb
+
+    side, tile, turns = WATCHED_TILED_SIDE, 512, 64
+    rng = np.random.default_rng(SOUP_SEED)
+    world = np.zeros((side, side), np.uint8)
+    r0 = (side - 1024) // 2
+    world[r0:r0 + 1024, r0:r0 + 1024] = (
+        (rng.random((1024, 1024)) < SOUP_DENSITY) * 255).astype(np.uint8)
+    kw = {"initial_world": world, "emit_flip_batches": True,
+          "emit_flip_chunks": True}
+    base = dict(image_width=side, image_height=side, turns=turns, chunk=16)
+    for k in cb.LAUNCHES:
+        cb.LAUNCHES[k] = 0
+    evs, wall, series = run_engine(
+        Params(**base, tile=tile, out_dir=str(tmp / "wt-tiled")), **kw)
+    launches = cb.LAUNCHES["bitlife_resident"]
+    dense, dense_wall, dense_series = run_engine(
+        Params(**base, out_dir=str(tmp / "wt-dense")), **kw)
+    per_turn, turn_wall, _ = run_engine(
+        Params(**base, out_dir=str(tmp / "wt-per-turn")), per_turn=True, **kw)
+    if launches != turns or series.get("dispatches[diffs]") != turns // 16:
+        raise AssertionError(f"watched tiled: {launches} batched launches, "
+                             f"{series}")
+    if normalize(evs) != normalize(dense):
+        raise AssertionError("watched tiled: stream differs from the dense "
+                             "diff-chunk path's")
+    got, want = chunk_flips(evs, side), chunk_flips(per_turn, side)
+    same = len(got) == len(want) and all(
+        t == u and np.array_equal(a, b) for (t, a), (u, b) in zip(got, want))
+    tails = [normalize([e for e in r if not isinstance(
+                 e, (FlipBatch, FlipChunk, TurnComplete))])
+             for r in (evs, per_turn)]
+    if not same or tails[0] != tails[1]:
+        raise AssertionError("watched tiled: flips differ from the per-turn "
+                             "path's")
+    n_chunks = sum(isinstance(e, FlipChunk) for e in evs)
+    n_batches = sum(isinstance(e, FlipBatch) for e in per_turn)
+    phase("main-watched-tiled", f"{side}² board, centred 1024² soup, T = {tile}, "
+                                f"{turns} turns, chunk 16: {n_chunks} "
+                                f"FlipChunks, event for event the dense "
+                                f"diff-chunk path's, and per turn the dense "
+                                f"per-turn path's {n_batches} FlipBatches; "
+                                f"{launches} batched kernel-A launches; "
+                                f"{wall:.3f} s wall (dense chunks "
+                                f"{dense_wall:.3f} s, per-turn "
+                                f"{turn_wall:.3f} s); engine series tiled "
+                                f"{series}, dense {dense_series}; {card}")
+    return launches
+
+
+def cli_tiled(tmp: pathlib.Path, card: str) -> dict:
+    """Phase `cli`, tiled: `python -m gol_tpu_torch --tile 1024 -noVis` and
+    the same run untiled, 100 turns of a 4096² board holding the 512²
+    fixture at its centre; both PGMs equal; the two walls."""
+    import numpy as np
+
+    from gol_tpu_torch.io.pgm import read_pgm
+
+    side = WATCHED_TILED_SIDE
+    board = np.zeros((side, side), np.uint8)
+    r0 = (side - 512) // 2
+    board[r0:r0 + 512, r0:r0 + 512] = read_pgm(FIXTURES / "images/512x512.pgm")
+    write_world(tmp / "cli-tiled-images" / f"{side}x{side}.pgm", board)
+    walls, pgms = {}, {}
+    for kind, extra in (("tiled", ["--tile", "1024"]), ("untiled", [])):
+        out = tmp / f"cli-{kind}"
+        t0 = time.perf_counter()
+        subprocess.run(
+            [sys.executable, "-m", "gol_tpu_torch", "-w", str(side), "-h",
+             str(side), "-turns", "100", "-noVis", *extra, "--images",
+             str(tmp / "cli-tiled-images"), "--out", str(out)],
+            check=True, cwd=REPO, capture_output=True, timeout=300)
+        walls[kind] = time.perf_counter() - t0
+        pgms[kind] = (out / f"{side}x{side}x100.pgm").read_bytes()
+    if pgms["tiled"] != pgms["untiled"]:
+        raise AssertionError("CLI --tile 1024: PGM differs from the untiled run")
+    phase("cli", f"python -m gol_tpu_torch -w {side} -h {side} -turns 100 "
+                 f"-noVis --tile 1024 (the 512² fixture at the centre): PGM "
+                 f"equal to the untiled run's; {walls['tiled']:.3f} s wall "
+                 f"tiled, {walls['untiled']:.3f} s untiled; {card}")
+    return walls
+
+
 def cli(tmp: pathlib.Path) -> float:
     """Phase 6: the CLI writes the golden PGM; returns the process's
     wall seconds."""
@@ -1746,9 +2152,12 @@ def main_cli_full(tmp: pathlib.Path, cli_wall: float) -> dict:
     return cli_launches
 
 
-def measure(errs: dict, launches: dict, int_ops_per_s: float) -> list:
+def measure(errs: dict, launches: dict, int_ops_per_s: float,
+            slab: int) -> list:
     """Phase 7: ms per launch of each kernel at its main-path shape, the
-    plain version's ms for the same work, and the bound."""
+    plain version's ms for the same work, and the bound. `slab` is the
+    tiled main path's slab of T = 1024 ext blocks."""
+    import numpy as np
     import torch
 
     from gol_tpu_torch.models.rules import get_rule
@@ -1809,7 +2218,9 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float) -> list:
     #  engine's first chunk). B, D: one 32-turn pass of the 16384² board.
     #  E: one 100-turn call on the 512² dense board (⌈100/k⌉ launches);
     #  its bound is the call's (the board read once and written once, 100
-    #  turns of instructions).
+    #  turns of instructions). A batched: one 32-turn launch over the
+    #  tiled main path's slab of T = 1024 ext blocks, each the 1088² soup
+    #  board's words.
     w512 = torch.from_numpy(life.random_world(512, 512, seed=1)).cuda()
     specs = [
         ("bitlife_resident", "512x512 board, 64 turns per launch",
@@ -1842,6 +2253,15 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float) -> list:
          lambda x: cl.step_n_cuda_dense(x, 100),
          lambda x: life.step_n(x, 100),
          lambda x: 2 * x.numel(), lambda x: x.numel() // 4 * 100 * dense_ops),
+        ("bitlife_resident_batch",
+         f"{slab} ext blocks of 34x1088 words (T = 1024), 32 turns per "
+         "launch", "32-turn launch",
+         lambda: torch.from_numpy(np.stack([
+             bitlife.pack_np(soup_world(1088)[:1088, :1088])] * slab
+         ).view(np.int32)).cuda(),
+         lambda x: cb.step_n_packed_batch_cuda_raw(x, 32),
+         lambda x: bitlife.step_n_packed_raw(x, 32),
+         lambda x: 2 * 4 * x.numel(), lambda x: x.numel() * 32 * life_ops),
     ]
     # The single-turn launch the watched path makes, on the same input.
     single = {
@@ -1852,6 +2272,8 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float) -> list:
         "bitgens_tiled": lambda x: cg.step_n_packed_gens_tiled2d_raw(
             x, 1, brain),
         "life_dense": lambda x: cl.step_n_cuda_dense(x, 1),
+        "bitlife_resident_batch": lambda x: cb.step_n_packed_batch_cuda_raw(
+            x, 1),
     }
     rows = []
     for name, shape, per, make, kernel, plain, nbytes, ops in specs:
@@ -2254,6 +2676,7 @@ def main() -> int:
     check_kernels(errs)
     check_gens_kernels(errs)
     check_dense_kernel(errs)
+    check_batch_kernel(errs)
     diffs_launches = check_diffs()
     (REPO / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as d:
@@ -2267,8 +2690,12 @@ def main() -> int:
         watched = {"bitlife_resident": main_watched_512(tmp),
                    "bitgens_resident": main_watched_gens_512(tmp),
                    "bitlife_tiled": main_watched_16384(tmp, card)}
+        tiled_ab(card, int_ops_per_s)
+        launches["bitlife_resident_batch"], slab = main_tiled_16384(tmp, card)
+        watched["bitlife_resident_batch"] = main_watched_tiled(tmp, card)
         cli_wall = cli(tmp)
-        kernels = measure(errs, launches, int_ops_per_s)
+        cli_tiled(tmp, card)
+        kernels = measure(errs, launches, int_ops_per_s, slab)
         # After `measure`, whose torch.profiler sessions then run as they
         # did before this phase's captures existed.
         cli_full = main_cli_full(tmp, cli_wall)
@@ -2276,7 +2703,7 @@ def main() -> int:
         # Launches of the watched phases (one a turn), of `diffs` and of
         # the visualised CLI runs.
         row["watched_launches"] = watched.get(row["name"])
-        row["diffs_launches"] = diffs_launches[row["name"]]
+        row["diffs_launches"] = diffs_launches.get(row["name"])
         row["cli_launches"] = cli_full.get(row["name"])
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
 

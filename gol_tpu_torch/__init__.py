@@ -42,6 +42,9 @@ __all__ = [
     "run",
 ]
 
+#: The version of gol_tpu whose contract this port implements.
+__version__ = "0.4.0"
+
 
 def run(params, keypresses=None, events=None, device=None, **kwargs):
     """Start the engine; returns the event queue (see engine.distributor).

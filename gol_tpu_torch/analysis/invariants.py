@@ -36,10 +36,14 @@ and a test fails loudly on any nonzero delta.
 
 This module imports neither torch nor the engine (gol_tpu_torch.obs is
 pure stdlib): it must be importable from worker processes at zero cost.
-Identity is checked through weak references, which torch tensors
-support; every stepper entry of the port returns a freshly allocated
-world (the CUDA wrappers allocate their outputs), so a stale world can
-never pass as a new one.
+Identity is checked through weak references where the world's type
+allows one. Torch tensors do, and every tensor-state stepper entry
+returns a freshly allocated world (the CUDA wrappers allocate their
+outputs), so a stale world can never pass as a new one. The tiled
+stepper's `TiledWorld` has `__slots__` and no `__weakref__`, so the
+checker holds it strongly; that stepper returns the same handle it was
+given, mutated in place, which the identity chain accepts as the output
+of the dispatch before.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@
 The reference flags with the reference spelling (`-t 8 -w 512 -h 512
 -turns N -noVis`, ref: main.go:17-46), plus gol_tpu's single-device
 extensions — `--rule`, `--backend`, `--chunk`, `--images`, `--out`,
-`--tick`, `--autosave-turns`, `--autosave-secs`, `--cycle-detect`,
+`--tick`, `--autosave-turns`, `--autosave-secs`, `--tile`, `--cycle-detect`,
 `--resume SNAPSHOT.pgm|latest`, `--check-invariants` and
 `--profile-dir` (a `torch.profiler` capture of the whole run, written
 as a Chrome trace) — and `--platform {gpu,cpu}` (gpu by default;
@@ -81,6 +81,16 @@ def build_parser() -> argparse.ArgumentParser:
                     metavar="SEC",
                     help="auto-checkpoint the board to out/ every SEC "
                          "seconds (0 = off)")
+    ap.add_argument("--tile", type=int, default=0, metavar="T",
+                    help="activity-driven tiled stepping: split the "
+                         "board into T x T macro-tiles (T a multiple "
+                         "of 32 dividing both axes) and dispatch only "
+                         "tiles a change's light cone touched; the "
+                         "board stays host-resident, so size stops "
+                         "being a device-memory bound (0 = off; -t does "
+                         "not apply — the dispatch set is the "
+                         "parallelism; see gol_tpu_torch/parallel/"
+                         "tiled.py)")
     ap.add_argument("--cycle-detect", action="store_true",
                     dest="cycle_detect",
                     help="exact cycle fast-forward: once the board "
@@ -172,6 +182,7 @@ def main(argv: Optional[list[str]] = None) -> int:
             autosave_turns=args.autosave_turns,
             autosave_seconds=args.autosave_secs,
             cycle_detect=args.cycle_detect,
+            tile=args.tile,
         )
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(f"error: {e}") from None

@@ -283,7 +283,7 @@ int bitgens_resident_launch(const void* in, void* out, int planes, int rows,
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  return gol::launch_cluster(kernel, blocks, threads, smem, stream,
+  return gol::launch_cluster(kernel, blocks, threads, smem, stream, 1,
                              (const u32*)in, (u32*)out, planes, rows, cols,
                              slab_rows, halo, n, (u32)birth, (u32)survive, k);
 }

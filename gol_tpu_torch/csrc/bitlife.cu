@@ -151,13 +151,18 @@ __global__ void __launch_bounds__(kTiledThreads<kForm>, 2)
 
 // Kernel A: the forms and block sizes of kernel B, run by the resident
 // cluster (walk.cuh) on row slabs with `halo` ghost word-rows and no
-// ghost columns.
+// ghost columns. A batch of boards of one shape, stored one after the
+// other, runs as one launch: the grid's z index picks the board, and
+// each board is its own cluster.
 template <int kForm>
 __global__ void __launch_bounds__(kTiledThreads<kForm>, 1)
     bitlife_resident(const u32* __restrict__ in, u32* __restrict__ out,
                      int rows, int cols, int slab_rows, int halo, int n,
                      u32 birth, u32 survive, int combine, const gol::Walk k) {
   using gol::smem;
+  const size_t board = (size_t)blockIdx.z * rows * cols;
+  in += board;
+  out += board;
   load_tile(in, smem, rows, cols, slab_rows, cols, halo, 0, k.ec, k.words);
   const int cur = gol::cluster_turns(k, n, slab_rows, halo, 2, [&](int t) {
     if constexpr (kForm == FORM_LIFE) {
@@ -185,19 +190,23 @@ extern "C" {
 // Kernel A runs the cluster plan (`blocks` slabs of `slab_rows`
 // word-rows, `halo` ghost word-rows a side) in kernel B's forms: B3/S23
 // on the walkers with `threads` and `seg_rows`, every other rule on the
-// masks with kMaskThreads. A plan or block size the kernel does not run
-// is refused (cudaErrorInvalidValue), as is a cluster the card cannot
-// schedule (by the launch).
-int bitlife_resident_launch(const void* in, void* out, int rows, int cols,
-                            int n, unsigned birth, unsigned survive,
-                            int combine, int blocks, int slab_rows, int halo,
-                            int threads, int seg_rows, void* stream) {
+// masks with kMaskThreads, on each of `batch` boards of rows x cols
+// words stored one after the other (one cluster a board). A plan, block
+// size or batch the kernel does not run is refused
+// (cudaErrorInvalidValue), as is a cluster the card cannot schedule (by
+// the launch).
+int bitlife_resident_launch(const void* in, void* out, int batch, int rows,
+                            int cols, int n, unsigned birth,
+                            unsigned survive, int combine, int blocks,
+                            int slab_rows, int halo, int threads,
+                            int seg_rows, void* stream) {
   const bool life = birth == (1u << 3) && survive == ((1u << 2) | (1u << 3));
   void (*kernel)(const u32*, u32*, int, int, int, int, int, u32, u32, int,
                  const gol::Walk) =
       life ? bitlife_resident<FORM_LIFE> : bitlife_resident<FORM_MASKS>;
   if (!life) threads = kMaskThreads;
-  if (threads > gol::kWalkThreads ||
+  if (threads > gol::kWalkThreads || batch < 1 ||
+      batch > gol::kMaxGridZ ||
       !gol::cluster_plan_ok(rows, blocks, slab_rows, halo))
     return (int)cudaErrorInvalidValue;
   const gol::Walk k =
@@ -206,7 +215,7 @@ int bitlife_resident_launch(const void* in, void* out, int rows, int cols,
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  return gol::launch_cluster(kernel, blocks, threads, smem, stream,
+  return gol::launch_cluster(kernel, blocks, threads, smem, stream, batch,
                              (const u32*)in, (u32*)out, rows, cols,
                              slab_rows, halo, n, (u32)birth, (u32)survive,
                              combine, k);

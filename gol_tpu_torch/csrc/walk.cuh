@@ -267,15 +267,19 @@ __device__ __forceinline__ int cluster_turns(const Walk k, int n,
   }
 }
 
-// Launches `kernel` on a grid of (1, blocks) blocks that form one
-// cluster of (1, blocks, 1), on `stream`; returns the launch's error
-// code, or else cudaGetLastError() (0 = the launch was accepted).
+// The most boards of one batched launch: CUDA's limit on gridDim.z.
+constexpr int kMaxGridZ = 65535;
+
+// Launches `kernel` on a grid of (1, blocks, batch) blocks, each
+// (1, blocks, 1) column of them one cluster, on `stream`; returns the
+// launch's error code, or else cudaGetLastError() (0 = the launch was
+// accepted).
 template <typename... Params, typename... Args>
 inline int launch_cluster(void (*kernel)(Params...), int blocks,
                           int threads, size_t smem_bytes, void* stream,
-                          Args... args) {
+                          int batch, Args... args) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(1, blocks, 1);
+  cfg.gridDim = dim3(1, blocks, batch);
   cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem_bytes;
   cfg.stream = (cudaStream_t)stream;

@@ -24,9 +24,10 @@ import torch
 class CycleDetector:
     """Feed `observe(turn, world)` after each committed dispatch; it
     returns a period multiple `m` once `world` provably equals an
-    earlier committed state `m` turns back, else None. The steppers never
-    update a world in place, so the anchor cannot alias the moving
-    state."""
+    earlier committed state `m` turns back, else None. The anchor is a
+    reference to a committed world, so it needs steppers that return a
+    new world each dispatch: the tiled stepper updates its host world in
+    place, and the engine runs no detector on it."""
 
     def __init__(self, interval_seconds: float = 2.0):
         self.interval = interval_seconds

@@ -16,12 +16,14 @@ world that lives on one CUDA device (or the CPU, when the caller asks):
   chunk's event fan-out; the host decodes with NumPy and emits the
   same per-turn stream as one-turn-at-a-time stepping, or one
   `FlipChunk` per chunk for a chunk consumer, and rides proven cycles
-  without dispatching. Steppers without diff scans take the per-turn
-  path. When no consumer needs diffs, the engine runs `chunk` turns
-  per dispatch through the stepper's multi-turn kernel without
-  touching the host — the events-off fast path; CUDA launches are
-  asynchronous, so the only synchronisations are the realizations
-  below, exactly where gol_tpu realizes.
+  without dispatching. A stepper that fetches its own diff stacks (the
+  activity-tiled one, whose stack is built on the host) takes the
+  unpipelined `_run_diff_chunk` branch. Steppers without diff scans
+  take the per-turn path. When no consumer needs diffs, the engine
+  runs `chunk` turns per dispatch through the stepper's multi-turn
+  kernel without touching the host — the events-off fast path; CUDA
+  launches are asynchronous, so the only synchronisations are the
+  realizations below, exactly where gol_tpu realizes.
 - Control (ticker, keyboard verbs s/q/p/k, pause) interleaves with the
   turn loop between dispatches.
 
@@ -38,8 +40,7 @@ count is realized, so its span measures device time — the observer tax
 is opt-in, and a run without one adds no synchronisation.
 
 Not ported yet: BoardSync for attached controllers
-(`request_board_sync`) and the sharded steppers' `fetch_diffs` / redo
-entries.
+(`request_board_sync`) and the sharded steppers' redo entries.
 """
 
 from __future__ import annotations
@@ -490,6 +491,15 @@ class Engine:
             CycleDetector(min(cycle_check_seconds, 1.0))
             if params.cycle_detect else None
         )
+        if self.stepper.offers("tiled"):
+            # Activity-driven tiled backend: the whole-board cycle
+            # machinery stands down. Per-tile period-riding (the ride
+            # cache inside parallel/tiled.py) subsumes it at finer
+            # grain, and the tiled world handle is mutated in place —
+            # a CycleDetector anchor would alias the moving state and
+            # "prove" a period instantly.
+            self._cycles = None
+            self._ride_cycles = None
         # In-flight chunk of the pipelined diff path (see
         # _diff_pipeline_step); engine thread only.
         self._pending_diffs: Optional[dict] = None

@@ -15,6 +15,7 @@ from gol_tpu_torch.obs.registry import (
     Gauge,
     Histogram,
     Registry,
+    TopKGauge,
     atomic_write_text,
     counter,
     enabled,
@@ -31,6 +32,7 @@ __all__ = [
     "Histogram",
     "REGISTRY",
     "Registry",
+    "TopKGauge",
     "atomic_write_text",
     "counter",
     "enabled",

@@ -8,7 +8,11 @@
   total memory) into gauges and a process-peak watermark;
 - `start_profile()` / `stop_profile()` drive the opt-in
   `--profile-dir` capture with `torch.profiler` and export it as a
-  Chrome trace.
+  Chrome trace;
+- `device_budget()`, `tile_ext_bytes()`, `max_resident_tiles()` and
+  `fits()` answer capacity questions from arithmetic alone — the tiled
+  stepper's slab bound and the capacity answer price one per-slot
+  constant.
 
 gol_tpu's compile watcher and XLA cost probes have no counterpart here
 yet. Host-side only: nothing here synchronises the device (the
@@ -31,6 +35,9 @@ from gol_tpu_torch.obs import flight, tracing
 __all__ = [
     "cause",
     "current_cause",
+    "device_budget",
+    "fits",
+    "max_resident_tiles",
     "memory_census",
     "observe_memory",
     "observe_split",
@@ -38,6 +45,7 @@ __all__ = [
     "profiler",
     "start_profile",
     "stop_profile",
+    "tile_ext_bytes",
 ]
 
 CAUSE_UNATTRIBUTED = "unattributed"
@@ -178,6 +186,144 @@ def observe_memory(dev=None, min_interval: float = 0.5) -> None:
     _last_census = now
     with contextlib.suppress(Exception):
         memory_census(dev)
+
+
+# --- capacity estimation -------------------------------------------------
+
+
+def device_budget(device=None) -> Optional[int]:
+    """Device-memory budget in bytes: the GOL_TPU_DEVICE_BUDGET_BYTES
+    override when set (explicit operator intent always wins), else on a
+    CUDA device (`device`; None means the current card when there is
+    one) its total memory, or the caching allocator's cap where
+    `torch.cuda.set_per_process_memory_fraction` set one, else None (the
+    CPU has no meaningful ceiling, and fits() answers None rather than
+    inventing one)."""
+    env = os.environ.get("GOL_TPU_DEVICE_BUDGET_BYTES")
+    if env:
+        with contextlib.suppress(ValueError):
+            return int(env)
+    import torch
+
+    if not torch.cuda.is_available():
+        return None
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        return None
+    total = int(torch.cuda.get_device_properties(dev).total_memory)
+    fraction = 1.0
+    with contextlib.suppress(Exception):
+        fraction = float(torch.cuda.get_per_process_memory_fraction(dev))
+    return int(total * min(fraction, 1.0)) or None
+
+
+#: Working-set multiple over one board's bytes: the scanned diff paths
+#: keep the carry board, the new board and the stacked per-turn output
+#: alive at once; 3x is the boards' own share (the diff STACK is priced
+#: separately — it is chunk-bounded by DIFF_STACK_BUDGET already). Also
+#: the per-slot multiple of a resident macro-tile (upload slab + stepped
+#: result + interiors).
+_BOARD_WORKING_SET = 3
+
+
+def tile_ext_bytes(tile: int, halo_words: int = 1) -> int:
+    """Device bytes of ONE resident macro-tile: the ghost-extended
+    packed block the activity-driven stepper uploads per dispatch —
+    (TILE/32 + 2g) word-rows by (TILE + 64g) columns of 32-bit words
+    (parallel/tiled.py geometry). The ONE constant both `fits()`'s
+    `resident_tiles` term and `max_resident_tiles` price, so the
+    paging policy and the capacity answer cannot disagree."""
+    if tile <= 0 or tile % 32 or halo_words < 1:
+        raise ValueError(
+            f"tile must be a positive multiple of 32 (got {tile}) "
+            f"with halo_words >= 1 (got {halo_words})"
+        )
+    return (tile // 32 + 2 * halo_words) * (tile + 64 * halo_words) * 4
+
+
+def max_resident_tiles(tile: int, halo_words: int = 1,
+                       device=None) -> Optional[int]:
+    """How many ghost-extended macro-tiles one device dispatch slab
+    may hold: the budget over `tile_ext_bytes` times the same
+    working-set multiple `fits()` charges per resident tile. None when
+    there is no budget (the tiled stepper then falls back to its own
+    conservative default) — never a guess."""
+    budget = device_budget(device)
+    if budget is None:
+        return None
+    return max(1, int(budget)
+               // (tile_ext_bytes(tile, halo_words) * _BOARD_WORKING_SET))
+
+
+def fits(height: int, width: int, *, sessions: int = 1,
+         packed: Optional[bool] = None,
+         diff_stack_bytes: Optional[int] = None,
+         resident_tiles: int = 0, tile: int = 0,
+         tile_halo_words: int = 1) -> dict:
+    """Will this geometry fit device memory — and how far can it grow?
+    gol_tpu's `obs.device.fits`, against `device_budget()`.
+
+    Pure arithmetic (never a device call): one packed board is
+    H/32 * W * 4 bytes, a dense one H * W; a bucket of S sessions stacks
+    S of them; the working set holds ~3 boards' worth plus the engine's
+    diff-stack budget when the caller prices a watched run
+    (`diff_stack_bytes`), plus `resident_tiles` ghost-extended
+    macro-tile slots of side `tile` at the same per-slot constant as the
+    tiled stepper's paging policy. The side terms come off the budget
+    first; `max_sessions` and `max_board_side` are answered from the
+    remainder. With no budget, `fits` and both maxima are None."""
+    if height <= 0 or width <= 0 or sessions < 1:
+        raise ValueError("need positive geometry and sessions >= 1")
+    if resident_tiles < 0:
+        raise ValueError("resident_tiles must be >= 0")
+    if resident_tiles and not tile:
+        raise ValueError(
+            "resident_tiles needs tile= (the macro-tile side) to "
+            "price a slot"
+        )
+    if packed is None:
+        packed = height % 32 == 0 and height >= 32  # ops.bitlife.packable
+    board = (height // 32) * width * 4 if packed else height * width
+    bucket = board * sessions
+    tile_bytes = (
+        resident_tiles * tile_ext_bytes(tile, tile_halo_words)
+        * _BOARD_WORKING_SET if resident_tiles else 0
+    )
+    side_terms = (diff_stack_bytes or 0) + tile_bytes
+    need = bucket * _BOARD_WORKING_SET + side_terms
+    budget = device_budget()
+    out = {
+        "height": height,
+        "width": width,
+        "sessions": sessions,
+        "packed": bool(packed),
+        "board_bytes": board,
+        "bucket_bytes": bucket,
+        "resident_tiles": resident_tiles,
+        "resident_tile_bytes": tile_bytes,
+        "working_set_bytes": need,
+        "budget_bytes": budget,
+        "fits": None,
+        "max_sessions": None,
+        "max_board_side": None,
+    }
+    if budget is None:
+        return out
+    usable = budget - side_terms
+    out["fits"] = need <= budget
+    out["headroom_bytes"] = budget - need
+    if board > 0 and usable > 0:
+        out["max_sessions"] = max(
+            0, usable // (board * _BOARD_WORKING_SET)
+        )
+    # Largest square single board: bytes/cell is 1/8 packed, 1 dense;
+    # side rounded down to the packed layout's 32-row granularity so the
+    # answer is actually buildable.
+    per_cell = 0.125 if packed else 1.0
+    if usable > 0:
+        side = int((usable / (_BOARD_WORKING_SET * per_cell)) ** 0.5)
+        out["max_board_side"] = side // 32 * 32 if packed else side
+    return out
 
 
 # --- profiler driver (--profile-dir) -------------------------------------

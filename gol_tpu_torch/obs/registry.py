@@ -2,9 +2,11 @@
 
 The host-side copy of `gol_tpu.obs.registry` that the engine and the
 stepper of this package count into: `Counter`, `Gauge` and `Histogram`
-in one get-or-create `Registry`, exposed as a JSON-able snapshot (the
-flight recorder embeds it; the Prometheus text and HTTP planes are not
-ported yet).
+in one get-or-create `Registry`, with `TopKGauge`, the bounded labeled
+family whose exposition stays O(cap) however many children are live
+(the tiled stepper's per-tile streaks ride one), exposed as a JSON-able
+snapshot (the flight recorder embeds it) and as Prometheus text
+(`Registry.prometheus_text`; the HTTP plane is not ported yet).
 
 - **Pure stdlib.** Nothing here touches torch or the device.
 - **Never inside a kernel.** All instrumentation is host-side, at
@@ -22,7 +24,7 @@ import contextlib
 import os
 import tempfile
 import threading
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 __all__ = [
     "Counter",
@@ -30,6 +32,7 @@ __all__ = [
     "Histogram",
     "Registry",
     "REGISTRY",
+    "TopKGauge",
     "atomic_write_text",
     "counter",
     "enabled",
@@ -108,6 +111,14 @@ def _fmt_labels(key: _LabelsKey, extra: Sequence[Tuple[str, str]] = ()) -> str:
     return "{" + ",".join(f'{k}="{esc(v)}"' for k, v in pairs) + "}"
 
 
+def _fmt_value(v: float) -> str:
+    if v == float("inf"):
+        return "+Inf"
+    # Integral values print without the trailing .0 — easier to grep
+    # and byte-stable across Python versions.
+    return str(int(v)) if float(v).is_integer() and abs(v) < 1e15 else repr(v)
+
+
 class _Metric:
     """Shared identity + lock; subclasses hold the value plane."""
 
@@ -118,6 +129,10 @@ class _Metric:
         self.help = help
         self.labels = labels
         self._lock = threading.Lock()
+
+    def sample_lines(self) -> Iterable[str]:
+        """This metric's lines of the Prometheus text exposition."""
+        raise NotImplementedError
 
     def snapshot_value(self):
         raise NotImplementedError
@@ -144,6 +159,9 @@ class Counter(_Metric):
     def value(self) -> float:
         return self._value
 
+    def sample_lines(self):
+        yield f"{self.name}{_fmt_labels(self.labels)} {_fmt_value(self._value)}"
+
     def snapshot_value(self):
         return self._value
 
@@ -166,6 +184,9 @@ class Gauge(_Metric):
     @property
     def value(self) -> float:
         return self._value
+
+    def sample_lines(self):
+        yield f"{self.name}{_fmt_labels(self.labels)} {_fmt_value(self._value)}"
 
     def snapshot_value(self):
         return self._value
@@ -199,6 +220,21 @@ class Histogram(_Metric):
             self._sum += v
             self._count += 1
 
+    def sample_lines(self):
+        cum = 0
+        with self._lock:
+            counts = list(self._counts)
+            total, s = self._count, self._sum
+        for bound, n in zip(self.bounds, counts):
+            cum += n
+            yield (f"{self.name}_bucket"
+                   f"{_fmt_labels(self.labels, [('le', _fmt_value(bound))])}"
+                   f" {cum}")
+        yield (f"{self.name}_bucket"
+               f"{_fmt_labels(self.labels, [('le', '+Inf')])} {total}")
+        yield f"{self.name}_sum{_fmt_labels(self.labels)} {_fmt_value(s)}"
+        yield f"{self.name}_count{_fmt_labels(self.labels)} {total}"
+
     def snapshot_value(self):
         with self._lock:
             return {
@@ -209,9 +245,74 @@ class Histogram(_Metric):
             }
 
 
+class TopKGauge(_Metric):
+    """Bounded-cardinality labeled gauge family — ONE registry entry
+    whose exposition emits at most `cap` labeled children (the top-cap
+    by value, the ones an operator wants named) plus a single
+    `{label="other"}` aggregate (max over the rest, with an
+    `<name>_other_children` companion so the hidden population is
+    visible). Children live in a plain dict — `set_child` /
+    `remove_child` are O(1); ranking happens at exposition time only.
+    The registry stays O(cap) on the wire and O(live children) in
+    memory, and teardown (`remove_child`) keeps the dict bounded under
+    churn."""
+
+    kind = "gauge"
+
+    def __init__(self, name, help, labels, label: str = "peer",
+                 cap: int = 16):
+        super().__init__(name, help, labels)
+        if cap < 1:
+            raise ValueError("cap must be >= 1")
+        self.label = label
+        self.cap = cap
+        self._children: Dict[str, float] = {}
+
+    def set_child(self, child, v: float) -> None:
+        if not _ENABLED:
+            return
+        with self._lock:
+            self._children[str(child)] = float(v)
+
+    def remove_child(self, child) -> bool:
+        with self._lock:
+            return self._children.pop(str(child), None) is not None
+
+    def child_count(self) -> int:
+        return len(self._children)
+
+    def _ranked(self):
+        with self._lock:
+            items = list(self._children.items())
+        items.sort(key=lambda kv: (-kv[1], kv[0]))
+        return items[: self.cap], items[self.cap:]
+
+    def sample_lines(self):
+        top, rest = self._ranked()
+        for k, v in sorted(top):
+            yield (f"{self.name}"
+                   f"{_fmt_labels(self.labels, [(self.label, k)])}"
+                   f" {_fmt_value(v)}")
+        if rest:
+            other = max(v for _, v in rest)
+            yield (f"{self.name}"
+                   f"{_fmt_labels(self.labels, [(self.label, 'other')])}"
+                   f" {_fmt_value(other)}")
+            yield (f"{self.name}_other_children"
+                   f"{_fmt_labels(self.labels)} {len(rest)}")
+
+    def snapshot_value(self):
+        top, rest = self._ranked()
+        out = {"children": dict(top)}
+        if rest:
+            out["other"] = max(v for _, v in rest)
+            out["other_children"] = len(rest)
+        return out
+
+
 class Registry:
-    """Get-or-create metric store with a JSON snapshot. One
-    process-global instance (`REGISTRY`)."""
+    """Get-or-create metric store with Prometheus-text and JSON
+    exposition. One process-global instance (`REGISTRY`)."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -244,9 +345,31 @@ class Registry:
         return self._get_or_create(Histogram, name, help, labels,
                                    buckets=buckets)
 
+    def topk_gauge(self, name: str, help: str = "",
+                   labels: Optional[dict] = None, *,
+                   label: str = "peer", cap: int = 16) -> TopKGauge:
+        """Bounded per-entity gauge family (see TopKGauge): exposition
+        cardinality is O(cap) however many children are live."""
+        return self._get_or_create(TopKGauge, name, help, labels,
+                                   label=label, cap=cap)
+
     def metrics(self) -> list:
         with self._lock:
             return list(self._metrics.values())
+
+    def prometheus_text(self) -> str:
+        """The text exposition format (one HELP/TYPE header per metric
+        family, then every labeled series)."""
+        lines = []
+        seen_headers = set()
+        for m in sorted(self.metrics(), key=lambda m: (m.name, m.labels)):
+            if m.name not in seen_headers:
+                seen_headers.add(m.name)
+                if m.help:
+                    lines.append(f"# HELP {m.name} {m.help}")
+                lines.append(f"# TYPE {m.name} {m.kind}")
+            lines.extend(m.sample_lines())
+        return "\n".join(lines) + "\n"
 
     def snapshot(self) -> dict:
         """JSON-able {series: {type, value}} map; series keys carry their

@@ -1,5 +1,6 @@
 from gol_tpu_torch.ops.life import (
     ALIVE,
+    alive_cells,
     alive_count,
     from_bits,
     neighbour_counts,
@@ -11,6 +12,7 @@ from gol_tpu_torch.ops.life import (
 
 __all__ = [
     "ALIVE",
+    "alive_cells",
     "alive_count",
     "from_bits",
     "neighbour_counts",

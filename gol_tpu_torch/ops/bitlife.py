@@ -89,14 +89,16 @@ def lsr(p: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _shift_up(p: torch.Tensor) -> torch.Tensor:
-    """result[y] = orig[y-1] (toroidal): bits move up one row index."""
-    carry = lsr(torch.roll(p, 1, 0), WORD - 1)
+    """result[y] = orig[y-1] (toroidal): bits move up one row index.
+    Word-rows are the second-to-last dim, so a (B, rows, cols) stack
+    shifts each board alone."""
+    carry = lsr(torch.roll(p, 1, -2), WORD - 1)
     return (p << 1) | carry
 
 
 def _shift_down(p: torch.Tensor) -> torch.Tensor:
     """result[y] = orig[y+1] (toroidal)."""
-    carry = torch.roll(p, -1, 0) << (WORD - 1)
+    carry = torch.roll(p, -1, -2) << (WORD - 1)
     return lsr(p, 1) | carry
 
 
@@ -113,9 +115,10 @@ def rule_masks(p: torch.Tensor, up: torch.Tensor, down: torch.Tensor,
 
     Column-sum form: the 8-neighbour count is (left column sum) +
     (right column sum) + (up + down), where each column sum is the
-    2-bit CSA of a vertical triple. `roll(x, 1, 1)` is the LEFT column
-    (result[:, x] = x[:, x-1]). Count bit-slices are materialized only
-    if some minimized implicant reads them."""
+    2-bit CSA of a vertical triple. `roll(x, 1, -1)` is the LEFT column
+    (result[..., x] = x[..., x-1]); columns are the last dim, so a
+    (B, rows, cols) stack rolls each board alone. Count bit-slices are
+    materialized only if some minimized implicant reads them."""
     if roll is None:
         roll = torch.roll
     need = plan.needed
@@ -124,9 +127,9 @@ def rule_masks(p: torch.Tensor, up: torch.Tensor, down: torch.Tensor,
     pc = up & down
     vs = upd ^ p
     vc = pc | (p & upd)
-    ls, lc = roll(vs, 1, 1), roll(vc, 1, 1)
-    w = p.shape[1]
-    rs, rc = roll(vs, w - 1, 1), roll(vc, w - 1, 1)
+    ls, lc = roll(vs, 1, -1), roll(vc, 1, -1)
+    w = p.shape[-1]
+    rs, rc = roll(vs, w - 1, -1), roll(vc, w - 1, -1)
     # count = (ls,lc) + (rs,rc) + (up+down as (upd, pc)).
     x = ls ^ rs
     k0 = (ls & rs) | (upd & x)           # carry out of bit 0
@@ -209,17 +212,37 @@ def combine_packed(p: torch.Tensor, up: torch.Tensor, down: torch.Tensor,
 
 
 def step_packed(p: torch.Tensor, rule: Rule = LIFE) -> torch.Tensor:
-    """One turn on a packed board."""
+    """One turn on a packed board, or on each board of a (B, rows, cols)
+    stack."""
     return combine_packed(p, _shift_up(p), _shift_down(p), rule)
 
 
 def step_n_packed_raw(p: torch.Tensor, n: int,
                       rule: Rule = LIFE) -> torch.Tensor:
     """`n` turns, packed in / packed out — the plain version of every
-    kernel in `ops/cuda_bitlife.py`."""
+    kernel in `ops/cuda_bitlife.py`. A (B, rows, cols) stack steps each
+    board alone (gol_tpu's `jax.vmap` of this function), the plain
+    version of the batched entry `step_n_packed_batch_cuda_raw`."""
     for _ in range(n):
         p = step_packed(p, rule)
     return p
+
+
+def step_n_packed(world: torch.Tensor, n: int,
+                  rule: Rule = LIFE) -> torch.Tensor:
+    """`n` turns on a {0,255} uint8 world via the packed representation —
+    drop-in for `ops.life.step_n` when `packable(H, W)`."""
+    world = torch.as_tensor(world)
+    p = step_n_packed_raw(pack(to_bits(world)), n, rule)
+    return from_bits(unpack(p, world.shape[0]))
+
+
+def step_n_counted_packed(world: torch.Tensor, n: int,
+                          rule: Rule = LIFE) -> tuple:
+    """`n` turns + alive count (popcount over the packed words)."""
+    world = torch.as_tensor(world)
+    p = step_n_packed_raw(pack(to_bits(world)), n, rule)
+    return from_bits(unpack(p, world.shape[0])), count_packed(p)
 
 
 def _popcount16(x: torch.Tensor) -> torch.Tensor:

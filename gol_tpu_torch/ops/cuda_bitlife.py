@@ -10,6 +10,12 @@ version `ops.bitlife.step_n_packed_raw`:
   shared memory of one thread-block cluster of row slabs
   (`_cluster_plan`), whose blocks exchange their ghost rows every 32
   turns. Replaces `step_n_packed_pallas_raw`.
+- `step_n_packed_batch_cuda_raw`: kernel A on a (B, rows, cols) stack of
+  boards of one shape, one cluster a board, all in one launch (the grid's
+  z index picks the board). Replaces the `jax.vmap` of the plain packed
+  step with which gol_tpu's activity-tiled stepper steps its slab of
+  ghost-extended tiles (gol_tpu/parallel/tiled.py), which is no Pallas
+  kernel.
 - `step_n_packed_tiled_raw` / `step_n_packed_tiled2d_raw`: kernel B
   (`bitlife_tiled`), temporally blocked tiles with ghost word-rows and
   ghost columns, k <= min(32*halo, ghost) turns per launch; B3/S23 is
@@ -66,6 +72,10 @@ MAX_HALO_WORDS = 8
 GHOST_COLS = 32
 #: Largest grid height CUDA accepts.
 _MAX_GRID_Y = 65_535
+#: Most boards of one batched launch of kernel A: CUDA's limit on the
+#: grid's z size (`kMaxGridZ` in csrc/walk.cuh, whose launcher refuses
+#: more).
+MAX_BATCH = 65_535
 
 #: The combine forms of `rulecomp.compile_rule`, as kernel arguments.
 COMBINE = {"b_subset": 0, "s_subset": 1, "general": 2}
@@ -194,7 +204,41 @@ def step_n_packed_cuda_raw(p: torch.Tensor, n: int,
     plan = _resident_args(rows, cols, 2)
     out = torch.empty_like(p)
     _launch(LAUNCHES, "bitlife_resident", p, p.data_ptr(), out.data_ptr(),
-            rows, cols, n, *rule_args(rule), *plan)
+            1, rows, cols, n, *rule_args(rule), *plan)
+    return out
+
+
+def step_n_packed_batch_cuda_raw(stack: torch.Tensor, n: int,
+                                 rule: Rule = LIFE,
+                                 out: torch.Tensor | None = None
+                                 ) -> torch.Tensor:
+    """`n` toroidal turns of each board of a packed int32 (B, rows, cols)
+    stack, one launch of kernel A for the whole stack: each board is one
+    cluster of `_cluster_plan(rows, cols, 2)`, the grid's z index the
+    board, so a batch costs one launch whatever B is (at most
+    MAX_BATCH). `out`, when given, is a separate buffer of the stack's
+    shape that receives the result (the cluster's blocks read their
+    ghost rows from the input while others store)."""
+    if n < 0:
+        raise ValueError("n must be >= 0")
+    if stack.dim() != 3 or min(stack.shape) < 1:
+        raise ValueError(
+            f"a batch must be a non-empty 3-D stack, got {tuple(stack.shape)}")
+    if stack.shape[0] > MAX_BATCH:
+        raise ValueError(f"a batch of {stack.shape[0]} boards is over the "
+                         f"{MAX_BATCH} one launch takes")
+    if stack.device.type == "cpu":
+        got = bitlife.step_n_packed_raw(stack, n, rule)
+        return got if out is None else out.copy_(got)
+    _check_cuda(stack, 3)
+    if out is None:
+        out = torch.empty_like(stack)
+    else:
+        _check_pass(stack, out, lambda t: _check_cuda(t, 3))
+    batch, rows, cols = stack.shape
+    plan = _resident_args(rows, cols, 2)
+    _launch(LAUNCHES, "bitlife_resident", stack, stack.data_ptr(),
+            out.data_ptr(), batch, rows, cols, n, *rule_args(rule), *plan)
     return out
 
 

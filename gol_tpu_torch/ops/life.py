@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from gol_tpu_torch.models.rules import LIFE, Rule, get_rule
+from gol_tpu_torch.utils.cell import cells_from_mask
 
 #: Alive pixel value — the grid is 2-valued {0, 255} like the reference's
 #: PGM world (ref: gol/io.go raster; README.md:24-31).
@@ -113,6 +114,23 @@ def alive_count(world: torch.Tensor) -> torch.Tensor:
     """Number of alive cells as an int32 device scalar
     (ref: gol/distributor.go:420-432)."""
     return torch.sum(torch.as_tensor(world) != 0, dtype=torch.int32)
+
+
+def alive_cells(world) -> list:
+    """Host-side alive-cell set as Cell(x=col, y=row) — the payload of
+    `FinalTurnComplete` (ref: gol/distributor.go:420-432,
+    gol/event.go:65-68)."""
+    return cells_from_mask(_host(world))
+
+
+def flipped_cells(mask) -> list:
+    """Host-side coordinates of a diff mask, as Cell(x, y)."""
+    return cells_from_mask(_host(mask))
+
+
+def _host(arr):
+    """A tensor on any device as numpy; anything else as it is."""
+    return arr.cpu().numpy() if isinstance(arr, torch.Tensor) else arr
 
 
 def random_world(height: int, width: int, density: float = 0.25,

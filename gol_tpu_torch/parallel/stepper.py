@@ -15,6 +15,11 @@ Backends:
 - "cuda-dense": the dense board, every step through the hand-written
   CUDA kernel of `ops/cuda_life.py` (gol_tpu's "pallas"); never picked
   by "auto".
+- `tile=T`: the activity-driven tiled backend (`parallel/tiled.py`): a
+  host-resident packed universe of T x T macro-tiles, each chunk's
+  active ghost-extended tiles stepped as one slab by one launch of the
+  batched kernel A; two-state rules only, built before the rule
+  dispatch as in gol_tpu.
 
 "auto" picks "cuda-packed" on a CUDA device whenever the board packs,
 "packed" on the CPU (the kernels never run off the card), else "dense".
@@ -32,7 +37,9 @@ and compact encodings (`scan_diffs`, `sparse_scan_diffs`,
 `compact_scan_diffs`, decoded on the host by `sparse_decode_rows` and
 `compact_decode_rows`). `fetch_diffs`, `step_n_with_diffs_redo` and
 `fetch_compact_values` stay None, as on gol_tpu's single-device
-backends; the sharded and tiled backends are not ported yet.
+backends; the tiled backend offers `fetch_diffs` (its diff stack is
+already on the host) and `tiled`, as gol_tpu's does. The sharded
+backends are not ported yet.
 
 `make_stepper` wraps the backend as gol_tpu's does: `instrument_stepper`
 (per-entry dispatch counters, host-blocking histograms and spans) unless
@@ -143,7 +150,9 @@ class Stepper:
     #: packed backends, bool (k, H, W) on dense ones — shipped to the
     #: host in one transfer per chunk.
     step_n_with_diffs: Optional[Callable] = None
-    #: Sharded backends' gather of a diff stack; None here.
+    #: Host fetch of a diff stack that the stepper builds itself (the
+    #: tiled backend's host stack; gol_tpu's sharded gathers); None on
+    #: the single-device backends, whose stacks the engine copies.
     fetch_diffs: Optional[Callable] = None
     #: True when `step_n_with_diffs` rows are packed words.
     packed_diffs: bool = False
@@ -161,13 +170,13 @@ class Stepper:
     #: How the engine fetches a compact chunk's used value prefix; None
     #: means `compact_value_prefix`.
     fetch_compact_values: Optional[Callable] = None
-    #: The rest of gol_tpu's table (sharded and tiled backends); not
-    #: offered yet.
+    #: The sharded backends' halo pricing; not offered yet.
     halo_cost: Optional[Callable] = None
+    #: The activity plane of the tiled backend (`tiled.TiledStepper`).
     tiled: Optional[object] = None
 
     def alive_count(self, world) -> int:
-        return int(self.alive_count_async(world).item())
+        return int(self.alive_count_async(world))
 
     def offers(self, entry: str) -> bool:
         """True when this backend provides capability-table entry
@@ -903,8 +912,6 @@ def _make_stepper(
     """The bare stepper of `make_stepper`."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    if tile:
-        raise not_yet_ported("tiled stepping (tile > 0)")
     if mesh is not None:
         raise not_yet_ported("2-D device meshes (mesh)")
     if partition_rules:
@@ -913,6 +920,10 @@ def _make_stepper(
         raise ValueError("threads must be >= 1")
     rule = get_rule(rule) if isinstance(rule, str) else rule
     dev = resolve_device(device)
+    if tile:
+        from gol_tpu_torch.parallel.tiled import tiled_stepper
+
+        return tiled_stepper(rule, height, width, tile, device=dev)
     if isinstance(rule, GenRule):
         return _make_gens_stepper(rule, height, width, dev, backend)
     packable = bitlife.packable(height, width)

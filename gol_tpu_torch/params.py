@@ -2,10 +2,10 @@
 (ref: gol/gol.go:4-9) plus the knobs of `gol_tpu.params.Params`, with the
 same fields and the same checks.
 
-The fields this port does not run yet (`mesh`, `partition_rules`,
-`tile > 0`) are accepted by name and rejected with "not yet ported", so
-a caller moving between the two packages gets a clear error instead of
-a silently different run.
+The fields this port does not run yet (`mesh`, `partition_rules`) are
+accepted by name and rejected with "not yet ported", so a caller moving
+between the two packages gets a clear error instead of a silently
+different run.
 """
 
 from __future__ import annotations
@@ -72,8 +72,6 @@ class Params:
             raise ValueError(
                 "tile must be 0 (off) or a positive multiple of 32"
             )
-        if self.tile:
-            raise not_yet_ported("tiled stepping (tile > 0)")
         if self.mesh is not None:
             raise not_yet_ported("2-D device meshes (mesh)")
         if self.partition_rules is not None:

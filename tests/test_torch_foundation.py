@@ -216,11 +216,14 @@ def test_params_fields_and_names_equal():
         t.input_name, t.output_name(), t.output_name(7))
 
 
-@pytest.mark.parametrize("kw", [{"tile": 64}, {"tile": 32},
-                                {"mesh": "2x2"}, {"partition_rules": "x=rows"}])
+@pytest.mark.parametrize("kw", [{"mesh": "1x2"}, {"mesh": "2x2"},
+                                {"partition_rules": "x=rows"},
+                                {"tile": 64, "mesh": "2x2"}])
 def test_params_unported_features_raise(kw):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tparams.Params(**kw)
+    # Tiled stepping is ported: the same tiles as gol_tpu's Params.
+    assert tparams.Params(tile=64).tile == jparams.Params(tile=64).tile == 64
 
 
 # --- interop ---

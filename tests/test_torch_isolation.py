@@ -62,6 +62,9 @@ def test_scan_covers_every_port_module():
                  "gol_tpu_torch/utils/trace.py",
                  "gol_tpu_torch/utils/visualise.py",
                  "gol_tpu_torch/checkpoint.py",
+                 "gol_tpu_torch/parallel/tiled.py",
+                 "gol_tpu_torch/obs/registry.py",
+                 "gol_tpu_torch/obs/device.py",
                  "chip_smoke.py"):
         assert want in names
     native = sorted(p.name for p in (REPO / "gol_tpu_torch" / "native")
@@ -89,6 +92,10 @@ for kw in ({{"rule": "B2/S/C3"}}, {{"rule": "B2/S/C3", "backend": "cuda-packed"}
 import gol_tpu_torch.interop, gol_tpu_torch.cli, gol_tpu_torch.checkpoint
 import gol_tpu_torch.analysis, gol_tpu_torch.visual, gol_tpu_torch.utils.trace
 import gol_tpu_torch.utils.check
+q = dataclasses.replace(p, turns=40, tile=32)
+evs = list(gol_tpu_torch.run(q, device="cpu", emit_flip_batches=True))
+assert any(isinstance(e, FinalTurnComplete) for e in evs)
+import gol_tpu_torch.parallel.tiled
 bad = sorted(m for m in sys.modules
              if m.split(".")[0].startswith("jax") or m == "gol_tpu"
              or m.startswith("gol_tpu."))
@@ -141,9 +148,11 @@ def test_cli_without_gpu_exits_nonzero(no_cuda, golden_root, tmp_path):
 def test_unported_requests_raise():
     from gol_tpu_torch.parallel import make_stepper
 
-    for kw in ({"tile": 32}, {"mesh": "2x2"}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            make_stepper(height=64, width=64, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        make_stepper(height=64, width=64, device="cpu", mesh="2x2")
+    # Tiled stepping is ported (parallel/tiled.py).
+    assert make_stepper(height=64, width=64, device="cpu",
+                        tile=32).tiled is not None
     with pytest.raises(ValueError):
         make_stepper(height=48, width=64, device="cpu", backend="cuda-packed")
     # Generations rules and the dense kernel are ported: gol_tpu's

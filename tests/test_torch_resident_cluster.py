@@ -274,8 +274,8 @@ def test_wrapper_hands_the_plan_to_the_launcher(monkeypatch, notation):
         cb.step_n_packed_cuda_raw(x, 100, rule)
         (name, args), = seen
         assert name == "bitlife_resident"
-        assert args[2:5] == (16, 512, 100)
-        assert args[5:8] == cb.rule_args(rule)
+        assert args[2:6] == (1, 16, 512, 100)  # a batch of one board
+        assert args[6:9] == cb.rule_args(rule)
     assert len(args) + 1 == len(_build._SIGNATURES[f"{name}_launch"])
     assert args[-5:] == (8, 2, 1, 512, 4)
 
