@@ -25,7 +25,15 @@ runs the CLI (also with `--tile 1024`), headless and (phase
 `main-cli-full`) visualised on the native board with
 `--check-invariants`, `--autosave-turns`, `--resume` and
 `--profile-dir`, whose `torch.profiler` captures give the device's busy
-share of a run — and prints
+share of a run — serves the engine over TCP (phases `main-serve-512`:
+an EngineServer on the card with a batching driver behind a
+byte-counting proxy and two observers, delivered turns/s and link bytes
+per turn, beside the same server on the host CPU; `main-serve-attach`:
+headless, watched, headless and observed legs of one run;
+`main-serve-16384`: a BoardSync's bytes and seconds by leg, the 'k'
+snapshot and the final frame; `main-serve-gens`: gray levels;
+`cli-serve`: `--serve` and `--connect` processes, 'k' typed on the
+connect's terminal), every board against the plain version — and prints
 the `kernels` JSON line, the card's name and power limit, and a last
 line `{"ok": true, "device": {...}}`. Any failed phase raises, so the
 script exits nonzero and prints no result. Without a CUDA device, or
@@ -2152,6 +2160,737 @@ def main_cli_full(tmp: pathlib.Path, cli_wall: float) -> dict:
     return cli_launches
 
 
+# --- the serving core (EngineServer, Controller, the wire) on the card ---
+
+
+def counting_proxy(target) -> tuple:
+    """A loopback proxy in front of `target` that counts the bytes it
+    carries toward the client — the link cost of the watched wire,
+    measured outside both endpoints (bench.py's watched-wire lane counts
+    it the same way). Returns ((host, port), stats, close)."""
+    import contextlib
+    import socket
+    import threading
+
+    lsock = socket.create_server(("127.0.0.1", 0))
+    stats = {"down": 0}
+    socks = []
+
+    def pump(src, dst, key=None):
+        while True:
+            try:
+                data = src.recv(1 << 16)
+            except OSError:
+                break
+            if not data:
+                break
+            if key is not None:
+                stats[key] += len(data)
+            try:
+                dst.sendall(data)
+            except OSError:
+                break
+        for s in (src, dst):
+            with contextlib.suppress(OSError):
+                s.shutdown(socket.SHUT_RDWR)
+
+    def serve():
+        with contextlib.suppress(OSError):
+            c, _ = lsock.accept()
+            u = socket.create_connection(target)
+            socks.extend((c, u))
+            threading.Thread(target=pump, args=(c, u), daemon=True).start()
+            threading.Thread(target=pump, args=(u, c, "down"),
+                             daemon=True).start()
+
+    threading.Thread(target=serve, daemon=True).start()
+
+    def close():
+        lsock.close()
+        for s in socks:
+            s.close()
+
+    return lsock.getsockname(), stats, close
+
+
+def reset_launches() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from gol_tpu_torch.ops import cuda_bitgens as cg
+    from gol_tpu_torch.ops import cuda_bitlife as cb
+    from gol_tpu_torch.ops import cuda_life as cl
+
+    for table in (cb.LAUNCHES, cg.LAUNCHES, cl.LAUNCHES):
+        for k in table:
+            table[k] = 0
+
+
+def read_launches() -> dict:
+    from gol_tpu_torch.ops import cuda_bitgens as cg
+    from gol_tpu_torch.ops import cuda_bitlife as cb
+    from gol_tpu_torch.ops import cuda_life as cl
+
+    return {**cb.LAUNCHES, **cg.LAUNCHES, **cl.LAUNCHES}
+
+
+def packed_board(world):
+    """A host {0,255} board packed on the card."""
+    import numpy as np
+    import torch
+
+    from gol_tpu_torch.ops import bitlife, life
+
+    return bitlife.pack(life.to_bits(torch.from_numpy(
+        np.ascontiguousarray(world, np.uint8)).cuda()))
+
+
+class PlainLife:
+    """The plain packed Life step on the card from one board, at any
+    turn: stepped turn by turn from the board up to `settle`, where the
+    board's exact period (at most `max_period`) is found by comparing
+    each next state with the state at `settle`; a later turn maps onto
+    the period. The fixture's 512² board is periodic (period 2) by turn
+    5000."""
+
+    def __init__(self, world, settle: int = 5000, max_period: int = 64):
+        self.p0 = packed_board(world)
+        self.settle, self.max_period = settle, max_period
+        self._anchor = None  # (settle state, period)
+
+    def _step(self, p, n):
+        from gol_tpu_torch.ops import bitlife
+
+        return bitlife.step_n_packed_raw(p, n)
+
+    def _period(self):
+        import torch
+
+        if self._anchor is None:
+            s = self._step(self.p0, self.settle)
+            q = s
+            for m in range(1, self.max_period + 1):
+                q = self._step(q, 1)
+                if torch.equal(q, s):
+                    self._anchor = (s, m)
+                    break
+            else:
+                raise AssertionError(
+                    f"the plain board has no period <= {self.max_period} "
+                    f"at turn {self.settle}")
+        return self._anchor
+
+    def at(self, turns: int):
+        if turns <= self.settle:
+            return self._step(self.p0, turns)
+        s, m = self._period()
+        return self._step(s, (turns - self.settle) % m)
+
+
+def wait_until(pred, what: str, timeout: float = 120.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.001)
+
+
+def consume(ctl, out: dict, stop_after: int = 0):
+    """Drain a controller's events on a thread until its stream ends.
+    `out["turns"]` counts TurnComplete events after the sync's; with
+    `stop_after`, (turns, seconds, proxy bytes at each end) of the first
+    `stop_after` of them land in `out["window"]` (`out["bytes"]` is read
+    at both ends when a proxy counts it)."""
+    import threading
+
+    def run():
+        out["turns"], t0 = 0, None
+        for ev in ctl.events:
+            if type(ev).__name__ != "TurnComplete":
+                continue
+            if ev.completed_turns <= ctl.sync_turn:
+                continue
+            if t0 is None:
+                t0 = time.perf_counter()
+                b0 = out["bytes"]() if "bytes" in out else 0
+            out["turns"] += 1
+            if stop_after and out["turns"] == stop_after + 1:
+                out["window"] = (stop_after, time.perf_counter() - t0,
+                                 (out["bytes"]() if "bytes" in out else 0)
+                                 - b0)
+        out["closed"] = True
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t
+
+
+def join_all(threads, timeout: float = 120.0) -> None:
+    for t in threads:
+        t.join(timeout)
+        if t.is_alive():
+            raise AssertionError("a controller's stream did not end")
+
+
+def the_snapshot(out: pathlib.Path) -> tuple:
+    """(turn, board) of the one PGM a 'k' left in `out`."""
+    from gol_tpu_torch.io.pgm import read_pgm
+
+    (snap,) = sorted(out.glob("*.pgm"))
+    return int(snap.stem.split("x")[2]), read_pgm(snap)
+
+
+def dispatch_kinds(before: dict) -> dict:
+    return {k[len("dispatches["):-1]: int(v) for k, v in moved(before).items()
+            if k.startswith("dispatches[")}
+
+
+def serve_params(out: pathlib.Path, **kw):
+    from gol_tpu_torch import Params
+
+    base = dict(image_width=512, image_height=512, turns=10**9, chunk=0,
+                tick_seconds=60.0, image_dir=str(FIXTURES / "images"),
+                out_dir=str(out))
+    base.update(kw)
+    return Params(**base)
+
+
+def serve_512(tmp: pathlib.Path, card: str, oracle: PlainLife,
+              device=None) -> int:
+    """Phase `main-serve-512`: README's deployment at the headline width.
+    An EngineServer on the card over the 512² fixture, paused at turn 0
+    while a batching binary delta driver (through the byte-counting
+    proxy) and two observers attach; the driver resumes the run and
+    watches 2000 turns; then 'k'. Every shadow board equals the
+    snapshot, and the snapshot the plain version at its turn; the
+    engine's dispatches and its enqueue / sync / host split. With
+    `device="cpu"` the same run with the server's engine on this host's
+    CPU (the plain versions), for comparison."""
+    import numpy as np
+    import torch
+
+    from gol_tpu_torch.distributed import Controller, EngineServer
+
+    where = "the host CPU" if device == "cpu" else "the card"
+    out = tmp / f"serve512-{device or 'card'}"
+    server = EngineServer(serve_params(out), port=0, device=device)
+    server._keys.put("p")  # every peer syncs at turn 0
+    reset_launches()
+    before = engine_counters()
+    server.start()
+    ctls, threads, close_proxy = [], [], None
+    try:
+        wait_until(lambda: server.engine._paused, "the engine to pause")
+        addr, stats, close_proxy = counting_proxy(server.address)
+        drv = Controller(*addr, want_flips=True, batch=True, binary=True,
+                         delta=True, timeout=60)
+        ctls.append(drv)
+        ctls += [Controller(*server.address, want_flips=True, batch=True,
+                            observe=True, timeout=60) for _ in range(2)]
+        for c in ctls:
+            if not c.wait_sync(60):
+                raise AssertionError("main-serve-512: a peer got no sync")
+        seen = {"bytes": lambda: stats["down"]}
+        threads = [consume(drv, seen, stop_after=2000)]
+        threads += [consume(c, {}) for c in ctls[1:]]
+        drv.send_key("p")
+        wait_until(lambda: "window" in seen, "2000 watched turns", 300)
+        drv.send_key("k")
+        join_all(threads)
+        if not server.wait(120):
+            raise AssertionError("main-serve-512: the server did not stop")
+    finally:
+        for c in ctls:
+            c.close()
+        server.shutdown()
+        if close_proxy is not None:
+            close_proxy()
+    launches = read_launches()["bitlife_resident"]
+    series = moved(before)
+    turns, secs, nbytes = seen["window"]
+    t_end, world = the_snapshot(out)
+    for i, c in enumerate(ctls):
+        if not np.array_equal(c.board, world):
+            raise AssertionError(f"main-serve-512: peer {i}'s shadow board "
+                                 "differs from the snapshot")
+    if not torch.equal(packed_board(world), oracle.at(t_end)):
+        raise AssertionError("main-serve-512: the snapshot differs from the "
+                             f"plain version at turn {t_end}")
+    if device is None and launches <= 0:
+        raise AssertionError("main-serve-512 never launched bitlife_resident")
+    phase("main-serve-512", f"EngineServer 512² B3/S23 on {where}, a "
+          f"batching binary delta driver through the proxy and 2 observers: "
+          f"{turns / secs:.1f} delivered turns/s over {turns} watched turns "
+          f"({secs:.3f} s), {nbytes / turns:.1f} link bytes/turn; 'k' at "
+          f"turn {t_end}: 3 shadow boards = snapshot = plain version; "
+          f"engine series {series}; {launches} bitlife_resident launches; "
+          f"{card}")
+    return launches
+
+
+def serve_attach(tmp: pathlib.Path, card: str, oracle: PlainLife) -> int:
+    """Phase `main-serve-attach`: one 512² run headless, watched by a
+    driver that attaches with flips and detaches, headless again, then
+    watched by an observer that reattaches; 'k'. The BoardSync is the
+    committed world at a dispatch boundary; each leg's dispatches by
+    kind; the final board the plain run's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gol_tpu_torch.distributed import Controller, EngineServer
+
+    out = tmp / "serve-attach"
+    server = EngineServer(serve_params(out), port=0)
+    eng = server.engine
+    fetched = []
+    real_fetch = eng.stepper.fetch
+
+    def fetch(world):  # the engine thread's sync fetch, observed
+        fetched.append((eng._committed[0], eng._pending_diffs is not None,
+                        eng._emitting))
+        return real_fetch(world)
+
+    eng.stepper = dataclasses.replace(eng.stepper, fetch=fetch)
+    reset_launches()
+    legs = []
+
+    def mark(name):
+        legs.append((name, engine_counters(), read_launches(),
+                     eng.completed_turns))
+
+    ctls = []
+    mark("start")
+    server.start()
+    try:
+        wait_until(lambda: eng.completed_turns >= 4096, "headless turns")
+        mark("headless")
+        drv = Controller(*server.address, want_flips=True, batch=True,
+                         timeout=60)
+        ctls.append(drv)
+        if not drv.wait_sync(60):
+            raise AssertionError("main-serve-attach: no sync for the driver")
+        sync_turn = drv.sync_turn
+        sync_service = fetched[-1]
+        mine = np.zeros((512, 512), np.uint8)
+        for ev in drv.events:
+            name = type(ev).__name__
+            if name == "FlipBatch":
+                mine[ev.cells[:, 1], ev.cells[:, 0]] ^= 255
+            elif name == "TurnComplete" and ev.completed_turns == sync_turn + 1000:
+                break
+        if not drv.detach(60):
+            raise AssertionError("main-serve-attach: the driver did not detach")
+        mark("watched")
+        # The in-flight diff chunk is flushed, then fused chunks resume.
+        chunks = legs[-1][1]["dispatches[chunk]"]
+        wait_until(lambda: engine_counters()["dispatches[chunk]"] >= chunks + 2,
+                   "fused chunks after the detach")
+        mark("flush")
+        t = eng.completed_turns
+        wait_until(lambda: eng.completed_turns >= t + 4096, "headless turns")
+        mark("headless-2")
+        ob = Controller(*server.address, want_flips=True, batch=True,
+                        observe=True, timeout=60)
+        ctls.append(ob)
+        if not ob.wait_sync(60):
+            raise AssertionError("main-serve-attach: no sync for the observer")
+        seen = {}
+        threads = [consume(ob, seen)]
+        wait_until(lambda: seen.get("turns", 0) >= 500, "observed turns")
+        mark("observed")
+        killer = Controller(*server.address, want_flips=False, batch=True,
+                            timeout=60)
+        ctls.append(killer)
+        if not killer.wait_sync(60):
+            raise AssertionError("main-serve-attach: no sync for the 'k' driver")
+        threads.append(consume(killer, {}))
+        killer.send_key("k")
+        join_all(threads)
+        if not server.wait(120):
+            raise AssertionError("main-serve-attach: the server did not stop")
+    finally:
+        for c in ctls:
+            c.close()
+        server.shutdown()
+    mark("end")
+    t_end, world = the_snapshot(out)
+    if not torch.equal(packed_board(mine), oracle.at(sync_turn + 1000)):
+        raise AssertionError("main-serve-attach: the driver's stream differs "
+                             "from the plain run")
+    if not np.array_equal(ob.board, world):
+        raise AssertionError("main-serve-attach: the observer's board "
+                             "differs from the snapshot")
+    if not torch.equal(packed_board(world), oracle.at(t_end)):
+        raise AssertionError("main-serve-attach: the snapshot differs from "
+                             f"the plain run at turn {t_end}")
+    if sync_service[0] != sync_turn or sync_service[2]:
+        raise AssertionError(f"main-serve-attach: sync at {sync_turn}, "
+                             f"served at {sync_service}")
+    rows = []  # (leg, dispatches by kind, kernel A launches, turns)
+    for (_, c0, l0, t0), (name, c1, l1, t1) in zip(legs, legs[1:]):
+        kinds = {k[len("dispatches["):-1]: int(c1[k] - c0[k]) for k in c0
+                 if k.startswith("dispatches[") and c1[k] != c0[k]}
+        rows.append((name, kinds,
+                     l1["bitlife_resident"] - l0["bitlife_resident"], t1 - t0))
+    by = {r[0]: r for r in rows}
+    if by["headless"][1].get("diffs") or not by["headless"][1].get("chunk"):
+        raise AssertionError(f"main-serve-attach: headless leg {by['headless']}")
+    if not by["watched"][1].get("diffs"):
+        raise AssertionError(f"main-serve-attach: watched leg {by['watched']}")
+    if by["headless-2"][1].get("diffs") or not by["headless-2"][1].get("chunk"):
+        raise AssertionError(f"main-serve-attach: headless-2 leg "
+                             f"{by['headless-2']}")
+    if not by["observed"][1].get("diffs"):
+        raise AssertionError(f"main-serve-attach: observed leg {by['observed']}")
+    launches = legs[-1][2]["bitlife_resident"]
+    if launches <= 0:
+        raise AssertionError("main-serve-attach never launched bitlife_resident")
+    phase("main-serve-attach", f"BoardSync at turn {sync_turn}, committed "
+          f"turn when served {sync_service[0]} (diff chunk in flight: "
+          f"{sync_service[1]}, mid-emission: {sync_service[2]}); legs "
+          + "; ".join(f"{n}: {k}, {a} A launches, {d} turns"
+                      for n, k, a, d in rows)
+          + f"; 'k' at {t_end}: observer board = snapshot = plain run; "
+          f"{launches} bitlife_resident launches; {card}")
+    return launches
+
+
+def serve_16384(tmp: pathlib.Path, card: str) -> int:
+    """Phase `main-serve-16384`: a 16384² Life server, headless on kernel
+    B's 2-D entry, paused a few chunks in while an observer attaches
+    once: the BoardSync's bytes and seconds from hello to sync (waiting
+    for the engine's boundary, the device fetch, the zlib compress, the
+    send and the client's decode), equal to the plain version at its
+    turn; then a driver's 'k' snapshot. The final frame of the board's
+    alive cells is timed through the wire codec at its real size."""
+    import dataclasses
+    import socket
+    import threading
+
+    import numpy as np
+    import torch
+
+    from gol_tpu_torch.distributed import Controller, EngineServer
+    from gol_tpu_torch.distributed import server as srv_mod
+    from gol_tpu_torch.distributed import wire
+    from gol_tpu_torch.ops import bitlife, life
+
+    side = 16384
+    world0 = life.random_world(side, side, seed=0)
+    out = tmp / "serve16384"
+    server = EngineServer(serve_params(out, image_width=side,
+                                       image_height=side, chunk=64),
+                          port=0, initial_world=world0)
+    eng = server.engine
+    legs = {}
+    real_fetch = eng.stepper.fetch
+
+    def fetch(world):
+        t = time.perf_counter()
+        host = real_fetch(world)
+        legs.setdefault("fetch", []).append((t, time.perf_counter()))
+        return host
+
+    eng.stepper = dataclasses.replace(eng.stepper, fetch=fetch)
+    real_frame = srv_mod.wire.board_to_frame
+
+    def board_to_frame(turn, w, token=0):
+        t = time.perf_counter()
+        frame = real_frame(turn, w, token)
+        legs.setdefault("compress", []).append((t, time.perf_counter(),
+                                                len(frame)))
+        return frame
+
+    srv_mod.wire.board_to_frame = board_to_frame
+    server._keys.put("p")
+    reset_launches()
+    ctls = []
+    try:
+        server.start()
+        wait_until(lambda: eng._paused, "the engine to pause", 300)
+        server._keys.put("p")
+        wait_until(lambda: eng.completed_turns >= 128, "128 turns", 300)
+        server._keys.put("p")
+        wait_until(lambda: eng._paused, "the engine to pause again", 300)
+        t_hello = time.perf_counter()
+        ob = Controller(*server.address, want_flips=False, batch=True,
+                        observe=True, timeout=60)
+        ctls.append(ob)
+        t_ack = time.perf_counter()
+        if not ob.wait_sync(120):
+            raise AssertionError("main-serve-16384: no sync")
+        t_sync = time.perf_counter()
+        sync_turn = ob.sync_turn
+        (f0, f1), (c0, c1, nbytes) = legs["fetch"][-1], legs["compress"][-1]
+        drv = Controller(*server.address, want_flips=False, batch=True,
+                         timeout=60)
+        ctls.append(drv)
+        if not drv.wait_sync(120):
+            raise AssertionError("main-serve-16384: no sync for the driver")
+        got = {}
+
+        def tail():
+            for ev in drv.events:
+                if type(ev).__name__ == "ImageOutputComplete":
+                    got["image"] = time.perf_counter()
+            got["end"] = time.perf_counter()
+
+        threads = [threading.Thread(target=tail, daemon=True),
+                   consume(ob, {})]
+        threads[0].start()
+        t_k = time.perf_counter()
+        drv.send_key("k")
+        join_all(threads, 300)
+        if not server.wait(300):
+            raise AssertionError("main-serve-16384: the server did not stop")
+    finally:
+        srv_mod.wire.board_to_frame = real_frame
+        for c in ctls:
+            c.close()
+        server.shutdown()
+    launches = read_launches()["bitlife_tiled"]
+    want = bitlife.step_n_packed_raw(packed_board(world0), sync_turn)
+    if not torch.equal(packed_board(ob.board), want):
+        raise AssertionError("main-serve-16384: the synced board differs "
+                             f"from the plain version at turn {sync_turn}")
+    t_end, snap = the_snapshot(out)
+    if t_end != sync_turn or not np.array_equal(snap, ob.board):
+        raise AssertionError("main-serve-16384: the 'k' snapshot differs "
+                             "from the paused board")
+    if launches <= 0:
+        raise AssertionError("main-serve-16384 never launched bitlife_tiled")
+    phase("main-serve-16384", f"BoardSync of 16384² at turn {sync_turn}: "
+          f"{nbytes} frame bytes ({side * side} raster bytes); hello -> sync "
+          f"{t_sync - t_hello:.3f} s = ack {t_ack - t_hello:.3f} + wait for "
+          f"the engine's boundary {f0 - t_ack:.3f} + fetch {f1 - f0:.3f} + "
+          f"compress {c1 - c0:.3f} + send and decode {t_sync - c1:.3f} s; "
+          f"equal to the plain version; 'k' -> snapshot written "
+          f"{got['image'] - t_k:.3f} s, -> stream end {got['end'] - t_k:.3f} "
+          f"s; {launches} bitlife_tiled launches; {card}")
+    # The final frame: every alive cell of the board, through the codec
+    # and a socket with the server's send timeout, at its real size.
+    ys, xs = torch.nonzero(life.to_bits(torch.from_numpy(
+        np.ascontiguousarray(snap)).cuda()), as_tuple=True)
+    coords = torch.stack([xs, ys], 1).to(torch.int32).cpu().numpy()
+    t0 = time.perf_counter()
+    frame = wire.final_to_frame(t_end, coords)
+    t1 = time.perf_counter()
+    if len(frame) > wire.MAX_FRAME:
+        raise AssertionError(f"final frame of {len(frame)} bytes exceeds "
+                             f"MAX_FRAME {wire.MAX_FRAME}")
+    a, b = socket.socketpair()
+    a.settimeout(srv_mod._Conn.IO_TIMEOUT)  # the server's send timeout
+    b.settimeout(60.0)
+    sender = threading.Thread(target=wire.send_frame, args=(a, frame),
+                              daemon=True)
+    try:
+        sender.start()
+        msg = wire.recv_msg(b)
+        t2 = time.perf_counter()
+        sender.join(60)
+    finally:
+        a.close()
+        b.close()
+    if msg["turn"] != t_end or not np.array_equal(msg["coords"], coords):
+        raise AssertionError("main-serve-16384: the final frame does not "
+                             "round-trip")
+    phase("main-serve-16384", f"final frame of {len(coords)} alive cells: "
+          f"{len(frame)} bytes (MAX_FRAME {wire.MAX_FRAME}), encode "
+          f"{t1 - t0:.3f} s, send + receive + decode {t2 - t1:.3f} s; {card}")
+    return launches
+
+
+def serve_gens(tmp: pathlib.Path, card: str) -> int:
+    """Phase `main-serve-gens`: a B2/S/C3 512² server (kernel C) paused at
+    turn 0 while a level-capable driver and an observer without levels
+    attach; 300 watched turns, then 'k'. The driver's shadow gray levels
+    equal the snapshot, the snapshot the plain planes at its turn, and
+    the observer gets plain flips."""
+    import threading
+
+    import numpy as np
+
+    from gol_tpu_torch.distributed import Controller, EngineServer
+    from gol_tpu_torch.io.pgm import read_pgm
+    from gol_tpu_torch.models.rules import get_rule
+    from gol_tpu_torch.ops import bitgens
+    from gol_tpu_torch.parallel import make_stepper
+
+    rule = "B2/S/C3"
+    out = tmp / "serve-gens"
+    server = EngineServer(serve_params(out, rule=rule), port=0)
+    server._keys.put("p")
+    reset_launches()
+    before = engine_counters()
+    server.start()
+    ctls = []
+    try:
+        wait_until(lambda: server.engine._paused, "the engine to pause")
+        drv = Controller(*server.address, want_flips=True, batch=True,
+                         levels=True, timeout=60)
+        ob = Controller(*server.address, want_flips=True, batch=True,
+                        observe=True, timeout=60)
+        ctls += [drv, ob]
+        for c in ctls:
+            if not c.wait_sync(60):
+                raise AssertionError("main-serve-gens: a peer got no sync")
+        seen, plain_flips = {}, []
+
+        def watch_ob():
+            for ev in ob.events:
+                if type(ev).__name__ == "FlipBatch" and len(ev.cells):
+                    plain_flips.append(ev.levels is None)
+
+        threads = [consume(drv, seen),
+                   threading.Thread(target=watch_ob, daemon=True)]
+        threads[1].start()
+        drv.send_key("p")
+        wait_until(lambda: seen.get("turns", 0) >= 300, "300 watched turns")
+        drv.send_key("k")
+        join_all(threads)
+        if not server.wait(120):
+            raise AssertionError("main-serve-gens: the server did not stop")
+    finally:
+        for c in ctls:
+            c.close()
+        server.shutdown()
+    launches = read_launches()["bitgens_resident"]
+    kinds = dispatch_kinds(before)
+    t_end, world = the_snapshot(out)
+    if not np.array_equal(drv.board, world):
+        raise AssertionError("main-serve-gens: the shadow gray levels "
+                             "differ from the snapshot")
+    ref = make_stepper(height=512, width=512, rule=rule, backend="packed")
+    q = ref.put(read_pgm(FIXTURES / "images/512x512.pgm"))
+    for _ in range(t_end):
+        q = bitgens.step_packed_gens(q, get_rule(rule))
+    if not np.array_equal(ref.fetch(q), world):
+        raise AssertionError("main-serve-gens: the snapshot differs from the "
+                             f"plain planes at turn {t_end}")
+    if not plain_flips or not all(plain_flips):
+        raise AssertionError("main-serve-gens: the observer without levels "
+                             "got no plain flips")
+    if launches <= 0:
+        raise AssertionError("main-serve-gens never launched bitgens_resident")
+    phase("main-serve-gens", f"EngineServer 512² {rule}: 'k' at turn {t_end}, "
+          f"the level driver's gray board = snapshot = plain planes; the "
+          f"observer without levels got {len(plain_flips)} plain flip "
+          f"batches; dispatches {kinds}; {launches} bitgens_resident "
+          f"launches; {card}")
+    return launches
+
+
+def serve_cli(tmp: pathlib.Path, card: str, oracle: PlainLife) -> dict:
+    """Phase `cli-serve`: `python -m gol_tpu_torch --serve 0` in one
+    process, `--connect -noVis` in another on a terminal (a pty), whose
+    'k' ends both; the walls of both processes, the served engine's
+    kernel A dispatches (its /metrics), the snapshot against the plain
+    run."""
+    import os
+    import pty
+    import re
+    import urllib.request
+
+    import torch
+
+    out = tmp / "cli-serve"
+    common = ["-w", "512", "-h", "512", "--images",
+              str(FIXTURES / "images"), "--out", str(out)]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    master, slave = pty.openpty()
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        srv = subprocess.Popen(
+            [sys.executable, "-m", "gol_tpu_torch", "--serve", "0",
+             "-turns", str(10**9), "--tick", "0.5", "--metrics-port", "0",
+             *common],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env, cwd=str(REPO))
+        procs.append(srv)
+        port = metrics = None
+        for line in srv.stdout:
+            if line.startswith("engine serving on "):
+                port = int(line.rsplit(":", 1)[1])
+                t_listen = time.perf_counter()
+            m = re.search(r"metrics serving on http://([^/]+)/metrics", line)
+            if m:
+                metrics = m.group(1)
+                break
+        if port is None or metrics is None:
+            raise AssertionError("cli-serve: the server printed no address")
+        t1 = time.perf_counter()
+        con = subprocess.Popen(
+            [sys.executable, "-m", "gol_tpu_torch", "--connect",
+             f"127.0.0.1:{port}", "-noVis", *common],
+            stdin=slave, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, env=env, cwd=str(REPO))
+        procs.append(con)
+        lines = []
+        for line in con.stdout:
+            lines.append(line)
+            if line.startswith("Completed Turns"):
+                break
+        t_attached = time.perf_counter()
+        with urllib.request.urlopen(f"http://{metrics}/metrics",
+                                    timeout=30) as r:
+            text = r.read().decode()
+        dispatched = sum(float(ln.rsplit(" ", 1)[1])
+                         for ln in text.splitlines()
+                         if ln.startswith("gol_tpu_stepper_dispatches_total")
+                         and 'entry="step_n"' in ln)
+        os.write(master, b"k")
+        rest, _ = con.communicate(timeout=120)
+        t_con = time.perf_counter()
+        srv_rest, _ = srv.communicate(timeout=120)
+        t_srv = time.perf_counter()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+        os.close(master)
+        os.close(slave)
+    if srv.returncode != 0 or con.returncode != 0:
+        raise AssertionError(f"cli-serve: exit codes {srv.returncode}, "
+                             f"{con.returncode}: {srv_rest[-2000:]} "
+                             f"{rest[-2000:]}")
+    t_end, world = the_snapshot(out)
+    if not torch.equal(packed_board(world), oracle.at(t_end)):
+        raise AssertionError("cli-serve: the snapshot differs from the plain "
+                             f"run at turn {t_end}")
+    if dispatched <= 0:
+        raise AssertionError("cli-serve: the served engine dispatched no "
+                             "step_n")
+    phase("cli-serve", f"--serve 0 process: listening {t_listen - t0:.3f} s "
+          f"after spawn, exit {t_srv - t0:.3f} s; --connect -noVis process: "
+          f"attached {t_attached - t1:.3f} s after spawn, exit after 'k' "
+          f"{t_con - t1:.3f} s; snapshot at turn {t_end} = plain run; "
+          f"{int(dispatched)} step_n dispatches (kernel A launches) by the "
+          f"served engine's /metrics before 'k'; {card}")
+    return {"turn": t_end, "step_n": dispatched}
+
+
+def serving(tmp: pathlib.Path, card: str) -> dict:
+    """The serving phases; {kernel: {phase: launches}}."""
+    from gol_tpu_torch.io.pgm import read_pgm
+
+    oracle = PlainLife(read_pgm(FIXTURES / "images/512x512.pgm"))
+    t0 = time.perf_counter()
+    a1 = serve_512(tmp, card, oracle)
+    serve_512(tmp, card, oracle, device="cpu")
+    a2 = serve_attach(tmp, card, oracle)
+    b = serve_16384(tmp, card)
+    c = serve_gens(tmp, card)
+    serve_cli(tmp, card, oracle)
+    phase("serving", f"{time.perf_counter() - t0:.1f} s for the serving "
+          "phases")
+    return {"bitlife_resident": {"main-serve-512": a1,
+                                 "main-serve-attach": a2},
+            "bitlife_tiled": {"main-serve-16384": b},
+            "bitgens_resident": {"main-serve-gens": c}}
+
+
 def measure(errs: dict, launches: dict, int_ops_per_s: float,
             slab: int) -> list:
     """Phase 7: ms per launch of each kernel at its main-path shape, the
@@ -2699,12 +3438,15 @@ def main() -> int:
         # After `measure`, whose torch.profiler sessions then run as they
         # did before this phase's captures existed.
         cli_full = main_cli_full(tmp, cli_wall)
+        served = serving(tmp, card)
     for row in kernels:
         # Launches of the watched phases (one a turn), of `diffs` and of
         # the visualised CLI runs.
         row["watched_launches"] = watched.get(row["name"])
         row["diffs_launches"] = diffs_launches.get(row["name"])
         row["cli_launches"] = cli_full.get(row["name"])
+        # Launches on each serving path, the counts set to 0 before it.
+        row["serve_launches"] = served.get(row["name"])
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

@@ -20,19 +20,31 @@ sdl/loop.go:44-47). With `-noVis` the stream is drained silently until
 
 Keyboard verbs p/s/q/k are forwarded from the window when visualising
 (ref: sdl/loop.go:18-27) or from a raw-mode stdin reader when stdin is
-a terminal. gol_tpu's serving, session, relay, replay, collector and
-metrics flags belong to later slices of the port and are absent.
+a terminal.
+
+Serving, as in gol_tpu: `--serve [HOST:]PORT` runs the engine headless
+on the card behind an `EngineServer`; `--connect HOST:PORT` attaches a
+controller (visualised, or printing events with `-noVis`), read-only
+with `--observe`; `--secret` / `$GOL_SECRET`, the liveness, overload and
+batching knobs and `--no-reconnect` / `--reconnect-secs` keep gol_tpu's
+names and defaults. `--metrics-port` serves `/metrics`, `/healthz`,
+`/vars`, `/trace` and `/flightrecorder` for local, `--serve` and
+`--connect` runs. `--sessions`, `--relay`, `--record` and `--replay`
+exit with "not yet ported"; gol_tpu's control, collector, alerting and
+multi-host flags are absent.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import os
 import queue
 import sys
 import threading
 from typing import Optional
 
-from gol_tpu_torch.params import BACKENDS, Params
+from gol_tpu_torch.params import BACKENDS, Params, not_yet_ported
 
 #: --platform names -> torch device types.
 PLATFORMS = {"gpu": "cuda", "cpu": "cpu"}
@@ -119,7 +131,102 @@ def build_parser() -> argparse.ArgumentParser:
                          "picks the newest matching snapshot in --out")
     ap.add_argument("--platform", default="gpu", choices=sorted(PLATFORMS),
                     help="device to run on (default gpu)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    dest="metrics_port", metavar="PORT",
+                    help="serve live observability on "
+                         "127.0.0.1:PORT — /metrics (Prometheus text), "
+                         "/vars (JSON snapshot), /healthz (liveness); "
+                         "0 picks an ephemeral port (printed). Works "
+                         "for local engines, --serve and --connect")
+    ap.add_argument("--metrics-host", default="127.0.0.1", metavar="HOST",
+                    help="bind address for --metrics-port (default "
+                         "loopback; non-loopback exposure should sit "
+                         "behind the same controls as --serve)")
+    # Serving (gol_tpu_torch.distributed).
+    ap.add_argument("--serve", default=None, metavar="[HOST:]PORT",
+                    help="run as a headless engine server on this address")
+    ap.add_argument("--writer-pool-threads", type=int, default=2,
+                    dest="writer_pool_threads", metavar="N",
+                    help="with --serve: selector event-loop "
+                         "threads draining every peer's outbound "
+                         "frames (default 2; 0 = one writer thread per "
+                         "connection)")
+    ap.add_argument("--connect", default=None, metavar="HOST:PORT",
+                    help="run as a controller attached to a remote engine")
+    ap.add_argument("--observe", action="store_true",
+                    help="with --connect: attach read-only (board sync "
+                         "+ events; steering verbs rejected) — any "
+                         "number of observers may watch alongside the "
+                         "one driving controller")
+    ap.add_argument("--secret", default=os.environ.get("GOL_SECRET"),
+                    metavar="TOKEN",
+                    help="shared secret for --serve/--connect: a serving "
+                         "engine rejects attaches whose hello carries a "
+                         "different token (defaults to $GOL_SECRET; unset "
+                         "means unauthenticated)")
+    ap.add_argument("--hb-secs", type=float, default=2.0, metavar="SEC",
+                    dest="hb_secs",
+                    help="with --serve: heartbeat cadence into idle "
+                         "peer streams; silent heartbeat-capable peers "
+                         "are evicted after --evict-secs (0 disables "
+                         "the liveness plane; default 2)")
+    ap.add_argument("--evict-secs", type=float, default=None,
+                    metavar="SEC", dest="evict_secs",
+                    help="with --serve: idle-eviction deadline for "
+                         "peers that stop answering heartbeats "
+                         "(default 3x --hb-secs)")
+    ap.add_argument("--max-peers", type=int, default=None,
+                    dest="max_peers", metavar="N",
+                    help="with --serve: admission budget — attaches "
+                         "past N live peers are rejected "
+                         "'at-capacity' with a retry_after hint "
+                         "(default: unbounded)")
+    ap.add_argument("--high-water", type=int, default=None,
+                    dest="high_water", metavar="FRAMES",
+                    help="with --serve: writer-queue depth at which a "
+                         "slow peer is DEGRADED (stream frames shed, "
+                         "coalesced BoardSync on drain) instead of "
+                         "evicted (default 256)")
+    ap.add_argument("--drain-secs", type=float, default=None,
+                    dest="drain_secs", metavar="SEC",
+                    help="with --serve: how long a degraded peer may "
+                         "stay wedged before eviction — peers that "
+                         "drain inside the deadline are resynced and "
+                         "keep watching (default 10)")
+    ap.add_argument("--batch-turns", type=int, default=None,
+                    dest="batch_turns", metavar="K",
+                    help="with --serve: ceiling on a peer's hello "
+                         "\"batch\" max-k (turns per flip-batch wire "
+                         "frame; default 1024, 0 disables batching). "
+                         "With --connect: request k-turn batch frames "
+                         "— the watched-path throughput mode")
+    ap.add_argument("--no-reconnect", action="store_true",
+                    dest="no_reconnect",
+                    help="with --connect: die on the first link "
+                         "failure instead of re-dialing with backoff "
+                         "and resuming via board sync")
+    ap.add_argument("--reconnect-secs", type=float, default=60.0,
+                    metavar="SEC", dest="reconnect_secs",
+                    help="with --connect: total re-dial window after a "
+                         "link failure — long enough to ride out a "
+                         "server crash-restart with --resume "
+                         "(default 60)")
+    # gol_tpu's session, relay and replay modes: accepted by name and
+    # refused, so a command line moved between the packages gets a
+    # clear error.
+    for flag, what in UNPORTED_FLAGS.items():
+        ap.add_argument(flag, default=None, nargs="?", const=True,
+                        dest=flag.strip("-"), help=f"{what}: not yet ported")
     return ap
+
+
+#: gol_tpu flags of later slices -> what they would run.
+UNPORTED_FLAGS = {
+    "--sessions": "multi-tenant session serving (--sessions)",
+    "--relay": "the relay node (--relay)",
+    "--record": "the session replay recorder (--record)",
+    "--replay": "the replay server (--replay)",
+}
 
 
 def _stdin_keys(keypresses: queue.Queue, stop: threading.Event) -> None:
@@ -134,6 +241,9 @@ def _stdin_keys(keypresses: queue.Queue, stop: threading.Event) -> None:
 
 def main(argv: Optional[list[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    for flag, what in UNPORTED_FLAGS.items():
+        if getattr(args, flag.strip("-")) is not None:
+            raise SystemExit(f"error: {not_yet_ported(what)}")
 
     if args.check_invariants:
         # Env-var form on purpose: spawned processes inherit the opt-in
@@ -142,10 +252,8 @@ def main(argv: Optional[list[str]] = None) -> int:
 
         enable()
 
-    from gol_tpu_torch.engine.distributor import Engine
-    from gol_tpu_torch.events import FinalTurnComplete
     from gol_tpu_torch.models.rules import GenRule, get_rule
-    from gol_tpu_torch.obs import device, flight
+    from gol_tpu_torch.obs import device, flight, tracing
 
     try:
         rule = get_rule(args.rule)
@@ -153,7 +261,16 @@ def main(argv: Optional[list[str]] = None) -> int:
         raise SystemExit(f"error: {e}") from None
     # Multi-state rules visualise as gray levels.
     vis_levels = isinstance(rule, GenRule)
+    # Observability bootstrap, as in gol_tpu: label this process for
+    # merged timelines, arm the flight recorder's dump directory, and
+    # dump the black box when SIGTERM lands (the handler then raises
+    # KeyboardInterrupt, so every mode's graceful shutdown still runs).
+    tracing.set_process_label(
+        "serve" if args.serve is not None
+        else "connect" if args.connect is not None else "local"
+    )
     flight.configure(args.out)
+    flight.install_sigterm_handler()
     if args.profile_dir:
         if device.start_profile(args.profile_dir,
                                 cuda=args.platform == "gpu"):
@@ -187,9 +304,15 @@ def main(argv: Optional[list[str]] = None) -> int:
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(f"error: {e}") from None
 
-    # Checkpoint restart: boot from a snapshot, continuing at the turn in
-    # its filename.
+    # Checkpoint restart (local or --serve): boot from a snapshot,
+    # continuing at the turn in its filename. A controller holds no
+    # board state, so --connect cannot resume.
     resume_path = args.resume
+    if resume_path is not None and args.connect is not None:
+        raise SystemExit(
+            "error: --resume applies to the engine (local or --serve), "
+            "not to a --connect controller"
+        )
     if resume_path == "latest":
         from gol_tpu_torch.checkpoint import latest_snapshot
 
@@ -198,10 +321,9 @@ def main(argv: Optional[list[str]] = None) -> int:
             raise SystemExit(
                 f"error: no {args.w}x{args.h} snapshot found in {args.out}/"
             )
-    engine_kwargs = {}
+    resume_turn = 0
     if resume_path is not None:
-        from gol_tpu_torch.checkpoint import record_resume_turn, snapshot_turn
-        from gol_tpu_torch.io.pgm import read_pgm
+        from gol_tpu_torch.checkpoint import snapshot_turn
 
         try:
             resume_turn = snapshot_turn(resume_path)
@@ -214,26 +336,25 @@ def main(argv: Optional[list[str]] = None) -> int:
                 f"error: snapshot is at turn {resume_turn}, beyond "
                 f"-turns {args.turns}"
             )
-        engine_kwargs = {"initial_world": read_pgm(resume_path),
-                         "start_turn": resume_turn}
-        record_resume_turn(resume_turn)
-    if params.cycle_detect and not args.novis:
-        print("warning: --cycle-detect only engages on headless "
-              "fused runs; pass -noVis for it to fire", file=sys.stderr)
 
-    keypresses: queue.Queue = queue.Queue()
     try:
-        # The built-in visualiser applies flips vectorized, so the local
-        # watched run uses per-turn FlipBatch arrays (library consumers
-        # of gol_tpu_torch.run() keep the per-cell reference contract).
-        engine = Engine(params, keypresses=keypresses,
-                        emit_flips=not args.novis,
-                        emit_flip_batches=not args.novis,
-                        device=PLATFORMS[args.platform], **engine_kwargs)
-    except (ValueError, RuntimeError, NotImplementedError) as e:
-        device.stop_profile()
-        raise SystemExit(f"error: {e}") from None
+        if args.serve is not None:
+            return _serve(args, params, resume_path)
+        return _interactive(args, params, resume_path, resume_turn,
+                            vis_levels)
+    finally:
+        # Exported here, while the CUDA context is up; the atexit hook
+        # would find an empty capture after teardown.
+        trace = device.stop_profile()
+        if trace is not None:
+            print(f"torch profiler trace written to {trace}")
 
+
+def _interactive(args, params: Params, resume_path: Optional[str],
+                 resume_turn: int, vis_levels: bool) -> int:
+    """A local engine run, or a --connect controller: both take verbs
+    from a raw-mode stdin when stdin is a terminal."""
+    keypresses: queue.Queue = queue.Queue()
     stop_keys = threading.Event()
     saved_termios = None
     if sys.stdin.isatty():
@@ -246,6 +367,52 @@ def main(argv: Optional[list[str]] = None) -> int:
             target=_stdin_keys, args=(keypresses, stop_keys),
             name="gol-keys", daemon=True,
         ).start()
+    try:
+        if args.connect is not None:
+            return _control(args, params, keypresses)
+        return _local(args, params, keypresses, resume_path, resume_turn,
+                      vis_levels)
+    finally:
+        stop_keys.set()
+        if saved_termios is not None:
+            import termios
+
+            termios.tcsetattr(sys.stdin.fileno(), termios.TCSADRAIN,
+                              saved_termios)
+
+
+def _local(args, params: Params, keypresses: queue.Queue,
+           resume_path: Optional[str], resume_turn: int,
+           vis_levels: bool) -> int:
+    from gol_tpu_torch.engine.distributor import Engine
+    from gol_tpu_torch.events import FinalTurnComplete
+    from gol_tpu_torch.obs import device, flight
+
+    engine_kwargs = {}
+    if resume_path is not None:
+        from gol_tpu_torch.checkpoint import record_resume_turn
+        from gol_tpu_torch.io.pgm import read_pgm
+
+        engine_kwargs = {"initial_world": read_pgm(resume_path),
+                         "start_turn": resume_turn}
+        record_resume_turn(resume_turn)
+    if params.cycle_detect and not args.novis:
+        print("warning: --cycle-detect only engages on headless "
+              "fused runs; pass -noVis for it to fire", file=sys.stderr)
+    try:
+        # The built-in visualiser applies flips vectorized, so the local
+        # watched run uses per-turn FlipBatch arrays (library consumers
+        # of gol_tpu_torch.run() keep the per-cell reference contract).
+        engine = Engine(params, keypresses=keypresses,
+                        emit_flips=not args.novis,
+                        emit_flip_batches=not args.novis,
+                        device=PLATFORMS[args.platform], **engine_kwargs)
+    except (ValueError, RuntimeError, NotImplementedError) as e:
+        raise SystemExit(f"error: {e}") from None
+    # Sidecar BEFORE the engine thread: a failed port bind aborts a run
+    # that hasn't started anything needing cleanup yet.
+    metrics = _start_metrics(args, health=engine.health)
+    flight.set_state_provider(engine.health)
     try:
         # The profile's window, run() -> FinalTurnComplete.
         with device.profile_window("gol_tpu_torch.run"):
@@ -264,17 +431,8 @@ def main(argv: Optional[list[str]] = None) -> int:
         keypresses.put("q")
     finally:
         engine.join(timeout=60)
-        stop_keys.set()
-        if saved_termios is not None:
-            import termios
-
-            termios.tcsetattr(sys.stdin.fileno(), termios.TCSADRAIN,
-                              saved_termios)
-        # Exported here, while the CUDA context is up; the atexit hook
-        # would find an empty capture after teardown.
-        trace = device.stop_profile()
-        if trace is not None:
-            print(f"torch profiler trace written to {trace}")
+        if metrics is not None:
+            metrics.close()
 
     if engine.error is not None:
         print(f"engine error: {engine.error!r}", file=sys.stderr)
@@ -283,3 +441,178 @@ def main(argv: Optional[list[str]] = None) -> int:
         print(f"cycle fast-forward: skipped {engine.skipped_turns} "
               "turns (proven state revisit; result is bit-exact)")
     return 0
+
+
+def _start_metrics(args, health=None):
+    """Opt-in observability sidecar (gol_tpu_torch.obs.http): serve the
+    process registry and a health probe whenever --metrics-port is
+    given. Returns the MetricsServer (the caller closes it) or None."""
+    if args.metrics_port is None:
+        return None
+    from gol_tpu_torch.obs.http import MetricsServer
+
+    srv = MetricsServer(args.metrics_host, args.metrics_port,
+                        health=health).start()
+    print(f"metrics serving on http://{srv.address[0]}:{srv.address[1]}"
+          "/metrics")
+    return srv
+
+
+def _addr(spec: str, default_host: str = "127.0.0.1") -> tuple[str, int]:
+    host, _, port = spec.rpartition(":")
+    try:
+        return (host or default_host, int(port))
+    except ValueError:
+        raise SystemExit(
+            f"error: bad address {spec!r} — expected [HOST:]PORT"
+        ) from None
+
+
+def _serve(args, params: Params, resume_path: Optional[str] = None) -> int:
+    """Headless engine server (the reference's AWS-side node,
+    ref: README.md:157-175), its engine on the card unless
+    --platform cpu.
+
+    Binds loopback unless an explicit HOST is given, and --secret (or
+    $GOL_SECRET) authenticates attaches — without it any peer that can
+    connect may pull board state or send the 'k' kill verb, so non-
+    loopback exposure should pair `--serve 0.0.0.0:8030` with a
+    secret."""
+    from gol_tpu_torch.distributed import EngineServer
+    from gol_tpu_torch.obs import flight
+
+    host, port = _addr(args.serve, default_host="127.0.0.1")
+    try:
+        server = EngineServer(
+            params, host, port, resume_from=resume_path,
+            secret=args.secret,
+            heartbeat_secs=args.hb_secs,
+            evict_secs=args.evict_secs,
+            max_peers=args.max_peers,
+            high_water=args.high_water,
+            drain_secs=args.drain_secs,
+            batch_turns=(args.batch_turns
+                         if args.batch_turns is not None else 1024),
+            writer_pool_threads=args.writer_pool_threads,
+            device=PLATFORMS[args.platform],
+        )
+    except (ValueError, RuntimeError, NotImplementedError) as e:
+        raise SystemExit(f"error: {e}") from None
+    print(f"engine serving on {server.address[0]}:{server.address[1]}",
+          flush=True)
+    # Sidecar BEFORE the engine/broadcast threads: a failed port bind
+    # aborts while nothing needing teardown is running.
+    try:
+        metrics = _start_metrics(args, health=server.health)
+    except OSError:
+        server.shutdown()
+        raise
+    flight.set_state_provider(server.health)
+    server.start()
+    try:
+        while not server.wait(timeout=1.0):
+            pass
+    except KeyboardInterrupt:
+        server.shutdown()
+    finally:
+        if metrics is not None:
+            metrics.close()
+    if server.engine.error is not None:
+        print(f"engine error: {server.engine.error!r}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _control(args, params: Params, keypresses: queue.Queue) -> int:
+    """Controller attached to a remote engine (ref: README.md:177-183).
+    Host-side only: it steps nothing, so it needs no card."""
+    from gol_tpu_torch.distributed import Controller
+    from gol_tpu_torch.models.rules import GenRule
+    from gol_tpu_torch.obs import flight
+
+    host, port = _addr(args.connect)
+    vis_levels = isinstance(params.rule, GenRule)
+    # batch=True: the visualiser applies each turn's flips as one
+    # vectorized XOR (events.FlipBatch) instead of per-cell objects;
+    # levels follows the rule family (gray-level Generations batches).
+    ctl = Controller(host, port, want_flips=not args.novis,
+                     secret=args.secret, batch=not args.novis,
+                     batch_turns=args.batch_turns,
+                     levels=vis_levels and not args.novis,
+                     observe=args.observe,
+                     reconnect=not args.no_reconnect,
+                     reconnect_window=args.reconnect_secs)
+
+    def _ctl_health() -> dict:
+        return {
+            "status": "ok" if not ctl.events.closed else "detached",
+            "state": ctl.state,
+            "synced": ctl.synced.is_set(),
+            "sync_turn": ctl.sync_turn,
+            "reconnects": ctl.reconnects,
+            "detached": ctl.detached.is_set(),
+        }
+
+    metrics = None
+
+    class _WireKeys:
+        """queue.Queue-shaped sink that forwards verbs over the wire —
+        lets the visualiser loop and the stdin pump share one path."""
+
+        def put(self, key):
+            try:
+                ctl.send_key(key)
+            except (OSError, ConnectionError):
+                pass
+
+    wire_keys = _WireKeys()
+
+    def pump():  # local stdin verbs → remote engine
+        while True:
+            try:
+                wire_keys.put(keypresses.get(timeout=0.2))
+            except queue.Empty:
+                if ctl.detached.is_set() or ctl.events.closed:
+                    return  # detached, lost, or run over
+
+    threading.Thread(target=pump, name="gol-ctl-keys", daemon=True).start()
+    try:
+        # Inside the try: a failed sidecar bind must still detach the
+        # controller (ctl.close() in the finally frees the driver slot).
+        metrics = _start_metrics(args, health=_ctl_health)
+        flight.set_state_provider(_ctl_health)
+        if args.novis:
+            for ev in ctl.events:
+                s = str(ev)
+                if s:
+                    print(f"Completed Turns {ev.completed_turns:<8}{s}")
+            if ctl.lost.is_set():
+                print("error: connection to the engine lost "
+                      "(reconnect budget exhausted)", file=sys.stderr)
+                return 1
+            if ctl.board is None and not ctl.detached.is_set():
+                print("engine run ended before the attach completed",
+                      file=sys.stderr)
+        else:
+            from gol_tpu_torch.visual import run_loop
+
+            # The engine's board size wins over local -w/-h flags: the
+            # attach sync carries the authoritative dimensions.
+            if not (ctl.wait_sync() and ctl.board is not None):
+                print("error: no board sync from the engine (attach "
+                      "failed or run already over)", file=sys.stderr)
+                return 1
+            h, w = ctl.board.shape
+            params = dataclasses.replace(
+                params, image_width=w, image_height=h
+            )
+            run_loop(params, ctl.events, wire_keys, levels=vis_levels)
+            if ctl.lost.is_set():
+                print("error: connection to the engine lost "
+                      "(reconnect budget exhausted)", file=sys.stderr)
+                return 1
+        return 0
+    finally:
+        ctl.close()
+        if metrics is not None:
+            metrics.close()

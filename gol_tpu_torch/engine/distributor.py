@@ -39,8 +39,13 @@ one span per dispatch; with a Timeline attached each fused chunk's
 count is realized, so its span measures device time — the observer tax
 is opt-in, and a run without one adds no synchronisation.
 
-Not ported yet: BoardSync for attached controllers
-(`request_board_sync`) and the sharded steppers' redo entries.
+Serving hooks (`gol_tpu_torch.distributed.server`): `health()` reads
+host state only, and `request_board_sync` asks the engine thread for a
+`BoardSync` of the committed world at the next dispatch boundary —
+never while a diff chunk's rows are being emitted — optionally turning
+per-turn flips on at that same boundary.
+
+Not ported yet: the sharded steppers' redo entries.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from gol_tpu_torch.analysis.concurrency import lockcheck
 from gol_tpu_torch.engine.cycles import CycleDetector
 from gol_tpu_torch.events import (
     AliveCellsCount,
+    BoardSync,
     CellFlipped,
     Event,
     FinalTurnComplete,
@@ -433,7 +439,8 @@ class Engine:
         self._ticker_stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._req_lock = lockcheck.make_lock("Engine._req_lock")
-        # Pending cross-thread count requests, each (event, box).
+        # Pending cross-thread requests, each (kind, event, box): "count"
+        # (the ticker, alive_count_now) or "sync" (request_board_sync).
         self._requests: list = []
         # Last (turn, count) pair actually realised together — the
         # always-consistent fallback for timed-out requests.
@@ -534,6 +541,23 @@ class Engine:
     def completed_turns(self) -> int:
         return self._committed[0]
 
+    def health(self) -> dict:
+        """Liveness snapshot for /healthz (`obs.http`): host-side
+        committed state only — safe from any thread, never touches the
+        device, cheap enough for a probe to hammer."""
+        turn, count = self._last_pair
+        return {
+            "status": "error" if self.error is not None else "ok",
+            "completed_turns": self.completed_turns,
+            "target_turns": self.p.turns,
+            "alive_cells": count,
+            "alive_cells_turn": turn,
+            "paused": self._paused,
+            "finished": self._finished.is_set(),
+            "effective_chunk": self.effective_chunk,
+            "error": repr(self.error) if self.error is not None else None,
+        }
+
     def alive_count_now(self, timeout: float = 5.0) -> tuple[int, int]:
         """(completed_turns, alive_count) of the last committed world —
         safe from any thread: the engine thread services the request
@@ -542,10 +566,23 @@ class Engine:
             ev = threading.Event()
             box: dict = {}
             with self._req_lock:
-                self._requests.append((ev, box))
+                self._requests.append(("count", ev, box))
             if ev.wait(timeout):
                 return box["turn"], box["count"]
         return self._last_pair
+
+    def request_board_sync(self, enable_flips: bool = False,
+                           token: int = 0) -> None:
+        """Ask the engine thread to publish a BoardSync event at the next
+        dispatch boundary, optionally turning on per-turn flips *at that
+        same boundary* — so a subscriber that applies the sync then the
+        flips never misses or double-applies a turn. `token` is echoed
+        on the BoardSync so the consumer can match the sync to the
+        subscriber that asked for it."""
+        with self._req_lock:
+            self._requests.append(
+                ("sync", None, {"enable_flips": enable_flips, "token": token})
+            )
 
     # --- engine thread ---
 
@@ -792,6 +829,9 @@ class Engine:
         self._ticker_stop.set()
         self._last_pair = (turn, _realize(self._committed[2]))
         _METRICS.alive_cells.set(self._last_pair[1])
+        # Serve a sync request that arrived during the last dispatch
+        # BEFORE the tail events are queued, so a just-attached
+        # subscriber gets its BoardSync and then the final events.
         self._service_requests()
 
         if self._stop_reason == "stop":
@@ -1361,7 +1401,9 @@ class Engine:
                           cap=self._sparse_cap, peak=max_words)
 
     def _seed_gens_states(self, host_levels) -> None:
-        """(Re)anchor the level-mode state grid to a known gray board."""
+        """(Re)anchor the level-mode state grid to a known gray board —
+        at load/resume and on every serviced BoardSync, so a stale grid
+        from a detached stretch can never leak into a fresh attach."""
         if self._gens_levels is not None:
             self._gens_levels["states"] = generations.states_from_levels(
                 np.asarray(host_levels), self._gens_levels["rule"]
@@ -1414,20 +1456,37 @@ class Engine:
         flight.note("engine.commit", turn=turn)
 
     def _service_requests(self) -> None:
-        """Engine thread: answer all pending count requests by realising
-        the committed count (a copy of a result the step already
-        computed — no new device work)."""
+        """Engine thread: answer all pending cross-thread requests from
+        the COMMITTED world (never the in-flight diff chunk's): a count
+        realises the committed count, a sync copies the committed board
+        off the device. Syncs wait while a diff chunk's rows are being
+        emitted: the committed world is already turn+k, and a BoardSync
+        between rows for older turns would make a consumer apply them
+        twice (and reseed the level grid that the rows then re-age)."""
         with self._req_lock:
-            reqs, self._requests = self._requests, []
+            if self._emitting:
+                reqs = [r for r in self._requests if r[0] != "sync"]
+                self._requests = [r for r in self._requests if r[0] == "sync"]
+            else:
+                reqs, self._requests = self._requests, []
         if not reqs:
             return
-        turn, _, count = self._committed
+        turn, world, count = self._committed
         if count is not None:
             self._last_pair = (turn, _realize(count))
             _METRICS.alive_cells.set(self._last_pair[1])
-        for ev, box in reqs:
-            box["turn"], box["count"] = self._last_pair
-            ev.set()
+        for kind, ev, box in reqs:
+            if kind == "sync":
+                if world is not None and not self._finished.is_set():
+                    host = self.stepper.fetch(world)
+                    self._seed_gens_states(host)
+                    self.events.put(BoardSync(turn, host, box["token"]))
+                    if box["enable_flips"]:
+                        self.emit_flips = True
+            else:
+                box["turn"], box["count"] = self._last_pair
+            if ev is not None:
+                ev.set()
 
     def _ticker(self) -> None:
         """AliveCellsCount every tick (ref: gol/distributor.go:283-302) —

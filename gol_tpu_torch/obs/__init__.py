@@ -1,7 +1,8 @@
 """gol_tpu_torch.obs — host-side observability for the port: metrics
-(`registry`), spans (`tracing`), the black box (`flight`), usage
-accounting (`accounting`), and the dispatch split, memory census and
-`torch.profiler` driver (`device`).
+(`registry`, served live by `http.MetricsServer`), spans (`tracing`),
+the black box (`flight`), usage accounting (`accounting`), the
+freshness plane (`freshness`), and the dispatch split, memory census
+and `torch.profiler` driver (`device`).
 
 Ground rules, as in `gol_tpu.obs`: metrics, spans and flight notes are
 host-side and dispatch-granular — never inside a kernel, never per
@@ -19,26 +20,47 @@ from gol_tpu_torch.obs.registry import (
     atomic_write_text,
     counter,
     enabled,
+    evict_entity,
     exponential_buckets,
     gauge,
     histogram,
+    merge_cumulative_buckets,
+    quantile_from_buckets,
     registry,
+    remove,
     set_enabled,
+    track_entity_series,
 )
 
 __all__ = [
     "Counter",
     "Gauge",
     "Histogram",
+    "MetricsServer",
     "REGISTRY",
     "Registry",
     "TopKGauge",
     "atomic_write_text",
     "counter",
     "enabled",
+    "evict_entity",
     "exponential_buckets",
     "gauge",
     "histogram",
+    "merge_cumulative_buckets",
+    "quantile_from_buckets",
     "registry",
+    "remove",
     "set_enabled",
+    "track_entity_series",
 ]
+
+
+def __getattr__(name):
+    # MetricsServer lazily, so importing the package never pulls in the
+    # http.server machinery a run without --metrics-port does not use.
+    if name == "MetricsServer":
+        from gol_tpu_torch.obs.http import MetricsServer
+
+        return MetricsServer
+    raise AttributeError(name)

@@ -1,6 +1,7 @@
 """Usage accounting — the part of `gol_tpu.obs.accounting` the engine
-calls: a process-global `Meter` that attributes each dispatch's
-resources to a principal (the singleton engine's tenant is `LEGACY`).
+and the server call: a process-global `Meter` that attributes each
+dispatch's resources, and each peer's wire bytes, to a principal (the
+singleton engine's tenant is `LEGACY`, a peer's `peer:<token>`).
 
 Host-side and stdlib-only. `GOL_TPU_ACCOUNTING=0` turns the plane off:
 `meter()` then answers None and every call site skips metering.
@@ -47,6 +48,11 @@ class Meter:
         every price is 0 — no modeled FLOPs, never a guess."""
         del program
         return 0.0
+
+    def forget(self, principal: str) -> None:
+        """Drop one principal's totals (a peer detached)."""
+        with self._lock:
+            self._totals.pop(principal, None)
 
     def totals(self, principal: str) -> Dict[str, float]:
         with self._lock:

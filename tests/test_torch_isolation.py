@@ -46,7 +46,9 @@ def test_ast_scan_finds_no_jax_or_gol_tpu_import():
 def test_scan_covers_every_port_module():
     """The scan reads every module of the package, the Generations and
     dense-kernel modules, the invariant checker, the visualiser, the
-    checkpoint and trace utilities and chip_smoke.py among them; the
+    checkpoint and trace utilities, the serving core (wire, server,
+    client, writer pool, freshness, the metrics sidecar, the fault
+    injector, lockcheck) and chip_smoke.py among them; the
     native core's directory holds its sources only (it builds under
     build/gol_tpu_torch/)."""
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
@@ -65,6 +67,15 @@ def test_scan_covers_every_port_module():
                  "gol_tpu_torch/parallel/tiled.py",
                  "gol_tpu_torch/obs/registry.py",
                  "gol_tpu_torch/obs/device.py",
+                 "gol_tpu_torch/obs/freshness.py",
+                 "gol_tpu_torch/obs/http.py",
+                 "gol_tpu_torch/distributed/wire.py",
+                 "gol_tpu_torch/distributed/server.py",
+                 "gol_tpu_torch/distributed/client.py",
+                 "gol_tpu_torch/relay/writerpool.py",
+                 "gol_tpu_torch/testing/faults.py",
+                 "gol_tpu_torch/testing/leaks.py",
+                 "gol_tpu_torch/analysis/concurrency/lockcheck.py",
                  "chip_smoke.py"):
         assert want in names
     native = sorted(p.name for p in (REPO / "gol_tpu_torch" / "native")
@@ -163,3 +174,69 @@ def test_unported_requests_raise():
                {"rule": "B2/S/C3", "backend": "cuda-dense"}):
         with pytest.raises(ValueError, match="backend"):
             make_stepper(height=64, width=64, device="cpu", **kw)
+
+
+def test_cpu_serve_connect_round_loads_no_jax(golden_root, tmp_path):
+    """A full serving round on the CPU — EngineServer, a batching driver
+    and an observer, the metrics sidecar, 'k' — loads no JAX and nothing
+    of gol_tpu."""
+    code = f"""
+import sys, urllib.request
+sys.path.insert(0, {str(REPO)!r})
+from gol_tpu_torch.distributed import Controller, EngineServer
+from gol_tpu_torch.obs.http import MetricsServer
+from gol_tpu_torch.params import Params
+from gol_tpu_torch.testing import faults
+p = Params(turns=10**9, image_width=64, image_height=64,
+           image_dir={str(golden_root / 'images')!r}, out_dir={str(tmp_path)!r},
+           tick_seconds=0.05)
+srv = EngineServer(p, port=0, device="cpu").start()
+side = MetricsServer(port=0, health=srv.health).start()
+drv = Controller(*srv.address, want_flips=True, batch=True, batch_turns=8,
+                 timeout=10)
+ob = Controller(*srv.address, want_flips=True, observe=True, timeout=10)
+assert drv.wait_sync(10) and ob.wait_sync(10)
+url = "http://%s:%d/healthz" % tuple(side.address)
+assert urllib.request.urlopen(url, timeout=10).status == 200
+drv.send_key("k")
+assert srv.wait(10)
+for c in (drv, ob):
+    c.close()
+side.close()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0].startswith("jax") or m == "gol_tpu"
+             or m.startswith("gol_tpu."))
+print("FORBIDDEN", bad)
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=tmp_path, env=ENV)
+    assert r.returncode == 0, r.stderr
+    assert "FORBIDDEN []" in r.stdout, r.stdout
+    assert any(f.suffix == ".pgm" for f in tmp_path.iterdir())
+
+
+def test_engine_server_without_gpu_raises(no_cuda, golden_root, tmp_path):
+    """No card and no CPU request: the server refuses at construction,
+    before it binds a port or starts a thread."""
+    import threading
+
+    from gol_tpu_torch.distributed import EngineServer
+    from gol_tpu_torch.params import Params
+
+    before = {t.ident for t in threading.enumerate()}
+    p = Params(turns=1, image_width=64, image_height=64,
+               image_dir=str(golden_root / "images"), out_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        EngineServer(p, port=0)
+    assert {t.ident for t in threading.enumerate()} <= before
+    assert not list(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("flag", ["--sessions", "--relay", "--record",
+                                  "--replay"])
+def test_unported_serving_flags_refused(flag):
+    from gol_tpu_torch import cli
+
+    argv = [flag] if flag in ("--sessions", "--record") else [flag, "x:1"]
+    with pytest.raises(SystemExit, match="not yet ported"):
+        cli.main(argv + ["--serve", "0", "--platform", "cpu"])
