@@ -33,7 +33,18 @@ headless, watched, headless and observed legs of one run;
 `main-serve-16384`: a BoardSync's bytes and seconds by leg, the 'k'
 snapshot and the final frame; `main-serve-gens`: gray levels;
 `cli-serve`: `--serve` and `--connect` processes, 'k' typed on the
-connect's terminal), every board against the plain version — and prints
+connect's terminal), runs the session plane (phase `kernels`: kernel
+A's batched entry at the session-bucket shapes, kernel B and E per
+slot; `main-sessions`: SessionManager + SessionEngine on the card, 64 x
+256², 2 x 4096² and 4 x 100² buckets, watchers through plain diffs,
+compact chunks and a forced redo, park and rehydrate, one kernel A
+launch a 256² bucket's fused chunk and one a watched turn;
+`sessions-lane`: bench.py's 64 x 256² lane, one bucket against 64
+sequential steppers; `main-sessions-serve`: a recording SessionServer
+with a driver behind the byte-counting proxy, beside the same server
+on the host CPU, a live seek and a ReplayServer's cold seek;
+`cli-sessions`: `--serve --sessions --record`, `--connect --session`,
+`--replay` processes), every board against the plain version — and prints
 the `kernels` JSON line, the card's name and power limit, and a last
 line `{"ok": true, "device": {...}}`. Any failed phase raises, so the
 script exits nonzero and prints no result. Without a CUDA device, or
@@ -101,6 +112,14 @@ KERNELS = {
     "bitlife_resident_batch": {
         "source": "gol_tpu_torch/csrc/bitlife.cu",
         "replaces": "gol_tpu/parallel/tiled.py:292",
+        "kernel": "bitlife_resident",
+    },
+    # Kernel A's batched entry again: a session bucket's chunk, one
+    # cluster a board, in place of gol_tpu's jax.vmap of the plain packed
+    # step over the bucket (no Pallas kernel).
+    "bitlife_resident_sessions": {
+        "source": "gol_tpu_torch/csrc/bitlife.cu",
+        "replaces": "gol_tpu/parallel/stepper.py:600",
         "kernel": "bitlife_resident",
     },
 }
@@ -2891,6 +2910,785 @@ def serving(tmp: pathlib.Path, card: str) -> dict:
             "bitgens_resident": {"main-serve-gens": c}}
 
 
+#: The session lane (bench.py's `sessions_64x256`): boards, side, turns
+#: per chunk, rounds.
+LANE_SESSIONS, LANE_SIDE, LANE_K, LANE_ROUNDS = 64, 256, 16, 4
+#: Phase `kernels`' bucket stacks of kernel A's batched entry: (boards,
+#: height, width), and the turns of each launch.
+BUCKET_STACKS = ((1, 256, 256), (16, 256, 256), (64, 256, 256),
+                 (16, 64, 64), (16, 32, 512))
+BUCKET_TURNS = (0, 1, 16, 256)
+
+
+def bucket_soups(n: int, h: int, w: int, seed: int, zero_every: int = 0):
+    """n seeded soups as an (n, h, w) {0,255} uint8 host stack; every
+    `zero_every`-th slot an all-zero padding board."""
+    import numpy as np
+
+    from gol_tpu_torch.sessions.manager import seeded_board
+
+    out = np.stack([seeded_board(h, w, seed + i) for i in range(n)])
+    if zero_every:
+        out[::zero_every] = 0
+    return out
+
+
+def check_session_kernels(errs: dict) -> None:
+    """Phase `kernels`, the session buckets: kernel A's batched entry
+    at the bucket shapes — 1, 16 and 64 boards of 256², 16 of 64², 16 of
+    32 x 512, n = 0, 1, 16 and 256, every fourth slot a zero padding
+    board — bit-exact against the batched plain step, one launch a
+    stack; then the two per-slot routes of `make_batch_stepper` (kernel
+    B on 2 x 4096², kernel E on 4 x 100²) against the plain steps, a
+    launch per slot per pass; the padding slots stay zero."""
+    import numpy as np
+    import torch
+
+    from gol_tpu_torch.ops import bitlife, life
+    from gol_tpu_torch.ops import cuda_bitlife as cb
+    from gol_tpu_torch.ops import cuda_life as cl
+    from gol_tpu_torch.parallel.stepper import bucket_route, make_batch_stepper
+
+    checked = 0
+    for s, h, w in BUCKET_STACKS:
+        if bucket_route(h, w) != "resident":
+            raise AssertionError(f"{h}x{w}: no kernel-A cluster plan")
+        host = bucket_soups(s, h, w, seed=s + h, zero_every=4)
+        stack = torch.from_numpy(np.stack(
+            [bitlife.pack_np(b) for b in host]).view(np.int32)).cuda()
+        want = plain_turns(lambda x, k: bitlife.step_n_packed_raw(x, k),
+                           stack, BUCKET_TURNS)
+        for n in BUCKET_TURNS:
+            before = cb.LAUNCHES["bitlife_resident"]
+            got = cb.step_n_packed_batch_cuda_raw(stack, n)
+            torch.cuda.synchronize()
+            if cb.LAUNCHES["bitlife_resident"] - before != 1:
+                raise AssertionError("a bucket step is not one launch")
+            err = max_abs_err(got, want[n])
+            errs["bitlife_resident_sessions"] = max(
+                errs["bitlife_resident_sessions"], err)
+            if err or got[::4].any():
+                raise AssertionError(f"bucket {s} x {h}x{w} n={n}: mismatch "
+                                     "or a padding slot woke")
+            checked += 1
+    for (s, h, w, route, kernel, table, ns) in (
+            (2, 4096, 4096, "tiled2d", "bitlife_tiled", cb.LAUNCHES, (1, 64)),
+            (4, 100, 100, "dense", "life_dense", cl.LAUNCHES, (1, 16))):
+        if bucket_route(h, w) != route:
+            raise AssertionError(f"{h}x{w} is not a {route} bucket")
+        bs = make_batch_stepper(s, h, w)
+        host = bucket_soups(s, h, w, seed=h, zero_every=2)
+        stack = bs.put_all(list(host))
+        for n in ns:
+            before = table[kernel]
+            got, counts = bs.step_n(stack, n)
+            torch.cuda.synchronize()
+            if table[kernel] - before < s:
+                raise AssertionError(f"{route}: under a launch a slot")
+            if bs.packed:
+                want = bitlife.step_n_packed_raw(stack, n)
+                wc = bitlife.popcount(want).sum(dim=(1, 2))
+            else:
+                want = torch.stack([life.step_n(b, n) for b in stack])
+                wc = (want != 0).sum(dim=(1, 2))
+            err = max_abs_err(got, want)
+            errs[kernel] = max(errs[kernel], err)
+            if err or got[::2].any() or not torch.equal(counts.long(),
+                                                        wc.long()):
+                raise AssertionError(f"{route} bucket {s} x {h}x{w} n={n}: "
+                                     "mismatch")
+            checked += 1
+    phase("kernels", f"{checked} session-bucket runs bit-exact against the "
+                     f"plain steps: kernel A batched on {BUCKET_STACKS} "
+                     f"(boards, H, W), n = {BUCKET_TURNS}, one launch a "
+                     f"stack; kernel B per slot on 2 x 4096², kernel E per "
+                     f"slot on 4 x 100²; padding slots stay zero")
+
+
+class ShadowSink:
+    """A session sink applying the flip stream to a shadow board, as a
+    watching client does: its final board and turn are checked against
+    the manager's and the plain version."""
+
+    want_flips = True
+    ephemeral = False
+    batch_turns = 0
+
+    def __init__(self):
+        self.board, self.turn, self.turns = None, None, 0
+
+    def on_sync(self, sid, turn, board):
+        import numpy as np
+
+        self.board, self.turn = np.array(board), turn
+
+    def on_flips(self, sid, turn, coords):
+        import numpy as np
+
+        xy = np.asarray(coords).reshape(-1, 2)
+        self.board[xy[:, 1], xy[:, 0]] ^= np.uint8(255)
+
+    def on_flip_chunk(self, sid, first_turn, counts, bitmaps, words):
+        raise AssertionError("a per-turn sink got a chunk")
+
+    def on_turn(self, sid, turn):
+        self.turn = turn
+        self.turns += 1
+
+    def on_close(self, sid, reason):
+        pass
+
+
+def plain_stack(boards, turns):
+    """The plain packed step on the card: each (H, W) host board of
+    `boards` (one shape) `turns` turns on, as host {0,255} boards."""
+    import numpy as np
+    import torch
+
+    from gol_tpu_torch.ops import bitlife
+
+    h = boards[0].shape[0]
+    p = torch.from_numpy(np.stack([bitlife.pack_np(b) for b in boards])
+                         .view(np.int32)).cuda()
+    p = bitlife.step_n_packed_raw(p, turns)
+    return [bitlife.unpack_np(q.view(np.uint32), h)
+            for q in p.cpu().numpy()]
+
+
+def session_metrics() -> dict:
+    from gol_tpu_torch import obs
+
+    out = {}
+    for path in ("fused", "diffs", "compact"):
+        out[f"dispatches[{path}]"] = obs.counter(
+            "gol_tpu_session_dispatches_total",
+            labels={"path": path}).value
+        out[f"seconds[{path}]"] = obs.histogram(
+            "gol_tpu_session_dispatch_seconds",
+            labels={"path": path}).snapshot_value()["sum"]
+    out["compact_redos"] = obs.counter(
+        "gol_tpu_session_compact_redos_total").value
+    out["bucket_grows"] = obs.counter(
+        "gol_tpu_session_bucket_grows_total").value
+    return out
+
+
+def session_moved(before: dict) -> dict:
+    after = session_metrics()
+    return {k: round(after[k] - before[k], 6) for k in after
+            if after[k] != before[k]}
+
+
+def main_sessions(tmp: pathlib.Path, card: str) -> dict:
+    """Phase `main-sessions`: SessionManager + SessionEngine on the card,
+    bucket capacity 16. Inline first (no engine thread): 64 sessions of
+    256² from `seeded_board` (the bucket grows 16 -> 32 -> 64), 2 of
+    4096² (kernel B) and 4 of 100² (kernel E); one unwatched 256-turn
+    chunk (one kernel A launch for the 64 boards) and one watched
+    16-turn chunk (16 launches); every board against the plain version
+    from its birth. Then the engine thread free-runs: 1024 more turns,
+    8 sinks watching 128 turns (plain diffs, then compact, then a dense
+    soup swapped into a slot forcing a redo), one park and rehydrate.
+    The card steps a 256² bucket far faster than the plain version can
+    follow from birth, so under the engine each board is held against
+    the plain version over a window: from a snapshot to the next one,
+    and for each watcher from its attach to its detach, its shadow
+    equal to the board. Returns the launches by kernel."""
+    import numpy as np
+    import torch
+
+    from gol_tpu_torch.io.pgm import read_pgm
+    from gol_tpu_torch.ops import life
+    from gol_tpu_torch.sessions import SessionEngine, SessionManager
+    from gol_tpu_torch.sessions.manager import seeded_board
+
+    m = SessionManager(out_dir=str(tmp / "main-sessions"),
+                       bucket_capacity=16)
+    side, big_side = LANE_SIDE, 4096
+    ids = [f"s{i:02d}" for i in range(LANE_SESSIONS)]
+    # Sparse soups (gol_tpu's own session tests take 0.04): they settle
+    # within a few chunks, so the watchers' bucket rides the compact
+    # path once its cap is set.
+    boards0 = {sid: seeded_board(side, side, 1000 + i, density=0.04)
+               for i, sid in enumerate(ids)}
+    big = {f"b{i}": seeded_board(big_side, big_side, 2000 + i)
+           for i in range(2)}
+    small = {f"e{i}": seeded_board(100, 100, 3000 + i) for i in range(4)}
+    boards0.update(big)
+    boards0.update(small)
+    every = list(boards0)
+    reset_launches()
+    before = session_metrics()
+    t0 = time.perf_counter()
+    for sid, b in boards0.items():
+        m.create(sid, width=b.shape[1], height=b.shape[0], board=b)
+    bucket = m.get(ids[0]).bucket
+    if bucket.bs.capacity != LANE_SESSIONS:
+        raise AssertionError(f"bucket grew to {bucket.bs.capacity}")
+    # Inline, no engine yet: one fused chunk and one watched chunk.
+    a0 = read_launches()["bitlife_resident"]
+    m._exec(lambda: m._dispatch_bucket(bucket, 256))
+    fused_launches = read_launches()["bitlife_resident"] - a0
+    probe = ShadowSink()
+    m.attach(ids[0], probe)
+    a0 = read_launches()["bitlife_resident"]
+    m._exec(lambda: m._dispatch_bucket(bucket, 16))
+    watched_launches = read_launches()["bitlife_resident"] - a0
+    m.detach(ids[0], probe)
+    if (fused_launches, watched_launches) != (1, 16):
+        raise AssertionError(f"64 x 256² bucket: {fused_launches} launches "
+                             f"a fused chunk, {watched_launches} a watched "
+                             "16-turn chunk (want 1 and 16)")
+    # The 4096² and 100² buckets catch up. Their routes launch once per
+    # slot per pass, padding slots included: kernel B's 2-D entry runs
+    # 32 turns a pass, kernel E `_dense_plan`'s depth; each bucket's
+    # launches are held to capacity x passes.
+    from gol_tpu_torch.ops import cuda_bitlife as cb, cuda_life
+
+    per_slot = {}
+    for b in (b for b in m._buckets.values() if b is not bucket):
+        h, w = b.bs.height, b.bs.width
+        kernel, per_pass = (
+            ("bitlife_tiled", cb._tiled2d_geometry(h // 32, w, None).turns)
+            if b.bs.packed else
+            ("life_dense", cuda_life._dense_plan(h, w)[4]))
+        n0 = read_launches()[kernel]
+        stepped = m._exec(lambda b=b: [m._dispatch_bucket(b, k)
+                                       for k in (256, 16)])
+        got = read_launches()[kernel] - n0
+        want = b.bs.capacity * sum(-(-k // per_pass) for k in stepped)
+        if got != want:
+            raise AssertionError(
+                f"{b.live} x {h}x{w} bucket of capacity {b.bs.capacity}: "
+                f"{got} {kernel} launches over chunks {stepped}, want "
+                f"capacity x passes = {want}")
+        per_slot[f"{h}x{w}"] = {
+            "kernel": kernel, "live": b.live, "capacity": b.bs.capacity,
+            "turns": stepped, "launches": got,
+            "padding_factor": round(b.bs.capacity / b.live, 2)}
+
+    def snapshot(sids):
+        return m._exec(lambda: {
+            sid: (m._by_id[sid].turn, m._fetch_board(sid)) for sid in sids})
+
+    def plain_of(board, turns):
+        if board.shape[0] % 32:
+            return life.step_n(torch.from_numpy(board).cuda(),
+                               turns).cpu().numpy()
+        return plain_stack([board], turns)[0]
+
+    def hold(s1, s2, what):
+        """Every board of snapshot s2 is the plain version of s1's."""
+        lanes = [sid for sid in s2 if boards0[sid].shape == (side, side)]
+        for dt in {s2[sid][0] - s1[sid][0] for sid in lanes}:
+            group = [sid for sid in lanes if s2[sid][0] - s1[sid][0] == dt]
+            want = plain_stack([s1[sid][1] for sid in group], dt)
+            for sid, w in zip(group, want):
+                if not np.array_equal(s2[sid][1], w):
+                    raise AssertionError(f"main-sessions ({what}): {sid} "
+                                         "differs from the plain version")
+        for sid in s2:
+            if sid not in lanes and not np.array_equal(
+                    s2[sid][1], plain_of(s1[sid][1],
+                                         s2[sid][0] - s1[sid][0])):
+                raise AssertionError(f"main-sessions ({what}): {sid} differs "
+                                     f"from the plain version")
+
+    birth = {sid: (0, b) for sid, b in boards0.items()}
+    snap = snapshot(every)
+    turns = {t for t, _ in snap.values()}
+    if turns != {272}:
+        raise AssertionError(f"main-sessions: boards at turns {turns}")
+    hold(birth, snap, "inline, from birth")
+    eng = SessionEngine(m).start()
+    try:
+        t_run = m.peek_turn(ids[0])
+        wait_until(lambda: m.peek_turn(ids[0]) >= t_run + 1024,
+                   "1024 turns")
+        s1 = snapshot(every)
+        wait_until(lambda: min(m.peek_turn(s) for s in every)
+                   >= max(t for t, _ in s1.values()) + 256, "256 turns")
+        hold(s1, snapshot(every), "engine, over a window")
+        t_fused = time.perf_counter()
+        # 8 watchers: plain diffs first, the compact path once the
+        # bucket's cap is set, then a dense soup swapped into one slot.
+        watched = ids[:8]
+        sinks = {sid: ShadowSink() for sid in watched}
+
+        def attach_all():
+            for sid in watched:
+                m._attach(sid, sinks[sid])
+            return {sid: (m._by_id[sid].turn, m._fetch_board(sid))
+                    for sid in watched}
+
+        at_attach = m._exec(attach_all)
+        t_attach = at_attach[watched[0]][0]
+        wait_until(lambda: m.peek_turn(ids[0]) >= t_attach + 64,
+                   "64 watched turns")
+        burst = (np.random.default_rng(5).random((side, side)) < 0.45
+                 ).astype(np.uint8) * np.uint8(255)
+
+        def swap():
+            s = m._by_id[watched[0]]
+            b = s.bucket
+            b.stack = b.bs.set_one(b.stack, s.slot, burst)
+            # The watcher resyncs to the swapped board, as the
+            # manager's own sync would hand it.
+            sinks[watched[0]].on_sync(watched[0], s.turn, burst)
+            return s.turn
+
+        t_swap = m._exec(swap)
+        wait_until(lambda: m.peek_turn(ids[0]) >= t_attach + 128,
+                   "128 watched turns")
+
+        def detach_all():
+            out = {}
+            for sid in watched:
+                m._detach(sid, sinks[sid])
+                out[sid] = (m._by_id[sid].turn, m._fetch_board(sid))
+            return out
+
+        done = m._exec(detach_all)
+        t_watched = time.perf_counter()
+        for sid in watched:
+            t_s, board = done[sid]
+            sk = sinks[sid]
+            if sk.turn != t_s or not np.array_equal(sk.board, board):
+                raise AssertionError(f"main-sessions: {sid}'s shadow at "
+                                     f"turn {sk.turn} differs from the "
+                                     f"board at {t_s}")
+        hold({**at_attach, watched[0]: (t_swap, burst)}, done, "watched")
+        # Park one unwatched session (its snapshot and the park in one
+        # verb) and rehydrate it by attaching.
+        sid = ids[40]
+
+        def park():
+            turn, board = m._by_id[sid].turn, m._fetch_board(sid)
+            return turn, board, m._park(sid)
+
+        turn_p, board_p, parked = m._exec(park)
+        probe = ShadowSink()
+        m.attach(sid, probe)
+        if (parked["turn"] != turn_p or probe.turn != turn_p
+                or not np.array_equal(read_pgm(parked["path"]), board_p)
+                or not np.array_equal(probe.board, board_p)):
+            raise AssertionError("main-sessions: the parked or rehydrated "
+                                 "board differs from the live one")
+        m.detach(sid, probe)
+    finally:
+        eng.stop()
+        eng.join(60)
+        m.close()
+    if eng.error is not None:
+        raise AssertionError(f"main-sessions: engine error {eng.error!r}")
+    launches = read_launches()
+    series = session_moved(before)
+    for k in ("bitlife_resident", "bitlife_tiled", "life_dense"):
+        if launches[k] <= 0:
+            raise AssertionError(f"main-sessions never launched {k}")
+    if series.get("compact_redos", 0) < 1 or series.get(
+            "dispatches[compact]", 0) < 1:
+        raise AssertionError(f"main-sessions: no compact chunk or no "
+                             f"redo: {series}")
+    dispatches = sum(v for k, v in series.items()
+                     if k.startswith("dispatches["))
+    per = {k: round(v / max(dispatches, 1), 2)
+           for k, v in launches.items() if v}
+    phase("main-sessions", f"64 x 256² soups at 0.04 (bucket 16 -> 32 -> "
+          f"64), 2 x "
+          f"{big_side}², 4 x 100²: 1 kernel A launch a fused 256-turn chunk "
+          f"of the 64, {watched_launches} a watched 16-turn chunk; every "
+          f"board = plain version at turn 272; per-slot buckets "
+          f"(capacity x passes, padding included) {per_slot}; engine: "
+          f"1024+ turns, a "
+          f"window of 256+ turns = plain version, 8 watchers x 128 turns "
+          f"with a forced compact redo ({t_watched - t_fused:.3f} s), "
+          f"shadows = boards = plain version, park/rehydrate at turn "
+          f"{turn_p} bit-exact; launches "
+          f"{ {k: v for k, v in launches.items() if v} } over "
+          f"{dispatches:.0f} dispatches ({per} a dispatch); dispatch series "
+          f"{series}; {time.perf_counter() - t0:.1f} s; {card}")
+    return {k: v for k, v in launches.items() if v}
+
+
+def sessions_lane(card: str) -> dict:
+    """Phase `sessions-lane`: bench.py's `sessions_64x256` on the card.
+    64 boards of 256² stepped 4 rounds of 16 turns as ONE bucket (one
+    kernel A launch and one count read a round) against 64 sequential
+    single-board steppers (64 launches and reads a round), best of 2;
+    aggregate turns/s, launches per round, and the device's busy share
+    over the bucket's rounds (a torch.profiler capture)."""
+    import numpy as np
+    import torch
+
+    from gol_tpu_torch.parallel.stepper import make_batch_stepper, make_stepper
+
+    n, side, k, rounds = LANE_SESSIONS, LANE_SIDE, LANE_K, LANE_ROUNDS
+    rng = np.random.default_rng(1234)
+    boards = [((rng.random((side, side)) < 0.25) * 255).astype(np.uint8)
+              for _ in range(n)]
+    bs = make_batch_stepper(n, side, side)
+    stack0 = bs.put_all(boards)
+    bs.step_n(stack0, k)[1].cpu()  # warm
+
+    def bucket_rounds():
+        stack = stack0
+        for _ in range(rounds):
+            stack, c = bs.step_n(stack, k)
+            c.cpu()
+        return stack
+
+    st = make_stepper(height=side, width=side)
+    worlds0 = [st.put(b) for b in boards]
+    int(st.step_n(worlds0[0], k)[1])  # warm
+
+    def sequential_rounds():
+        worlds = list(worlds0)
+        for _ in range(rounds):
+            for i in range(n):
+                worlds[i], c = st.step_n(worlds[i], k)
+                int(c)
+        return worlds
+
+    def best(fn):
+        out = float("inf")
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn()
+            out = min(out, time.perf_counter() - t0)
+        return out
+
+    reset_launches()
+    t_b = best(bucket_rounds)
+    per_round_b = read_launches()["bitlife_resident"] / (2 * rounds)
+    reset_launches()
+    t_s = best(sequential_rounds)
+    per_round_s = read_launches()["bitlife_resident"] / (2 * rounds)
+    if (per_round_b, per_round_s) != (1, n):
+        raise AssertionError(f"sessions-lane: {per_round_b} and "
+                             f"{per_round_s} launches a round")
+    final = bucket_rounds()
+    want = plain_stack(boards, k * rounds)
+    for i in (0, n // 2, n - 1):
+        if not np.array_equal(bs.fetch_one(final, i), want[i]):
+            raise AssertionError(f"sessions-lane: board {i} differs")
+    trace = pathlib.Path(tempfile.mkdtemp(dir=REPO / "build")) / "lane.json"
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("gol_tpu_torch.run"):
+            bucket_rounds()
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace))
+    busy = busy_share(trace, "bitlife_resident")
+    agg, seq = n * k * rounds / t_b, n * k * rounds / t_s
+    phase("sessions-lane", f"{n} x {side}², k = {k}, {rounds} rounds, best "
+          f"of 2: bucket {agg:.1f} aggregate turns/s ({t_b * 1e3:.3f} ms), "
+          f"{n} sequential steppers {seq:.1f} ({t_s * 1e3:.3f} ms), "
+          f"x{agg / seq:.2f}; kernel A launches a round {per_round_b:.0f} "
+          f"against {per_round_s:.0f}; the bucket's rounds busy the card "
+          f"{busy}; {card}")
+    return {"bitlife_resident": int(per_round_b * 2 * rounds)}
+
+
+class SessionWatch:
+    """A session client's consumed stream on a thread: the shadow board
+    (flip batches applied as they are consumed, the sync a burst against
+    zeros) and the last completed turn, with (turns, seconds, link bytes)
+    of the first `stop_after` turns past the sync."""
+
+    def __init__(self, ctl, side, stats=None, stop_after=0):
+        import threading
+
+        import numpy as np
+
+        self.ctl, self.stats, self.stop_after = ctl, stats, stop_after
+        self.board = np.zeros((side, side), bool)
+        self.last, self.turns, self.window = None, 0, None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        import numpy as np
+
+        t0 = b0 = None
+        for ev in self.ctl.events:
+            kind = type(ev).__name__
+            if kind == "FlipBatch" and len(ev.cells):
+                xy = np.asarray(ev.cells).reshape(-1, 2)
+                self.board[xy[:, 1], xy[:, 0]] ^= True
+            elif kind == "TurnComplete":
+                self.last = ev.completed_turns
+                if ev.completed_turns <= self.ctl.sync_turn:
+                    continue
+                if t0 is None:
+                    t0 = time.perf_counter()
+                    b0 = self.stats["down"] if self.stats else 0
+                self.turns += 1
+                if self.stop_after and self.turns == self.stop_after + 1:
+                    self.window = (
+                        self.stop_after, time.perf_counter() - t0,
+                        (self.stats["down"] if self.stats else 0) - b0)
+
+
+def serve_sessions(tmp: pathlib.Path, card: str, device=None,
+                   watch: int = 2000) -> dict:
+    """One leg of `main-sessions-serve`: a SessionServer with record=True
+    (on the card, or with `device="cpu"` on the host CPU), 16 x 256²
+    sessions created over SessionControl, a batching binary delta driver
+    (through the byte-counting proxy) and an observer on one session,
+    `watch` delivered turns; the driver's consumed shadow against the
+    recording's board at its last turn; a live seek to turn 64 against
+    the plain version. Returns the leg's numbers and its out tree."""
+    import numpy as np
+
+    from gol_tpu_torch.distributed import (Controller, SessionControl,
+                                           SessionServer)
+    from gol_tpu_torch.replay.log import board_at
+    from gol_tpu_torch.sessions.manager import seeded_board
+
+    side = LANE_SIDE
+    out = tmp / f"serve-sessions-{device or 'card'}"
+    srv = SessionServer(serve_params(out, image_width=side,
+                                     image_height=side),
+                        port=0, record=True, keyframe_turns=256,
+                        device=device)
+    reset_launches()
+    before = session_metrics()
+    srv.start()
+    ctls, close_proxy = [], None
+    try:
+        with SessionControl(*srv.address, timeout=60) as sc:
+            for i in range(16):
+                sc.create(f"w{i:02d}", width=side, height=side, seed=500 + i)
+        addr, stats, close_proxy = counting_proxy(srv.address)
+        drv = Controller(*addr, session="w00", want_flips=True, batch=True,
+                         binary=True, delta=True, timeout=60,
+                         reconnect=False)
+        obs_ = Controller(*srv.address, session="w00", want_flips=True,
+                          batch=True, observe=True, timeout=60,
+                          reconnect=False)
+        ctls = [drv, obs_]
+        for c in ctls:
+            if not c.wait_sync(60):
+                raise AssertionError("main-sessions-serve: no sync")
+        w = SessionWatch(drv, side, stats, stop_after=watch)
+        ob = SessionWatch(obs_, side)
+        wait_until(lambda: w.window is not None, f"{watch} watched turns",
+                   300)
+        r = drv.seek(64, timeout=60)
+        if not r.get("ok") or not r["keyframe"] <= 64 <= r["turn"]:
+            raise AssertionError(f"main-sessions-serve: seek reply {r}")
+        landed = r["turn"]
+        seek_plain = plain_stack([seeded_board(side, side, 500)], landed)[0]
+        wait_until(lambda: np.array_equal(drv.board != 0, seek_plain != 0),
+                   "the seek's board", 60)
+        if not drv.seek("live", timeout=60).get("ok"):
+            raise AssertionError("main-sessions-serve: live rejoin failed")
+        for c in ctls:
+            c.detach(60)
+        for x in (w, ob):
+            x.thread.join(60)
+    finally:
+        for c in ctls:
+            c.close()
+        srv.shutdown()
+        if close_proxy is not None:
+            close_proxy()
+    # After the detach the streams have ended: each client's board, and
+    # the observer's consumed shadow, are the plain version's board at
+    # the last turn each consumed (the served bucket path: kernel, compact
+    # encoding, demux), and the recording's there (the recorder).
+    rdir = out / "sessions" / "w00" / "replay"
+    for name, c, x in (("driver", drv, w), ("observer", obs_, ob)):
+        plain = plain_stack([seeded_board(side, side, 500)], x.last)[0]
+        if not np.array_equal(c.board != 0, plain != 0):
+            raise AssertionError(f"main-sessions-serve: the {name}'s board "
+                                 f"at turn {x.last} differs from the "
+                                 "plain version")
+        t_rec, rec = board_at(rdir, x.last)
+        if t_rec != x.last or not np.array_equal(c.board != 0, rec != 0):
+            raise AssertionError(f"main-sessions-serve: the {name}'s board "
+                                 f"at turn {x.last} differs from the "
+                                 "recording's")
+    if not np.array_equal(ob.board, board_at(rdir, ob.last)[1] != 0):
+        raise AssertionError("main-sessions-serve: the observer's consumed "
+                             "shadow differs from the recording")
+    launches = read_launches()
+    turns, secs, nbytes = w.window
+    return {"turns_per_sec": turns / secs, "turns": turns, "secs": secs,
+            "bytes_per_turn": nbytes / turns, "seek": r, "out": out,
+            "launches": {k: v for k, v in launches.items() if v},
+            "series": session_moved(before)}
+
+
+def main_sessions_serve(tmp: pathlib.Path, card: str) -> dict:
+    """Phase `main-sessions-serve`: the session server on the card and
+    on the host CPU (`serve_sessions`), then a ReplayServer over the
+    card leg's recorded tree: a cold observer seeks to turn 512 and its
+    board is the plain version's there. Returns the card leg's launches
+    by kernel."""
+    import numpy as np
+
+    from gol_tpu_torch.distributed import Controller
+    from gol_tpu_torch.replay import ReplayServer
+    from gol_tpu_torch.sessions.manager import seeded_board
+
+    t0 = time.perf_counter()
+    card_leg = serve_sessions(tmp, card)
+    cpu_leg = serve_sessions(tmp, card, device="cpu")
+    rs = ReplayServer(str(card_leg["out"] / "sessions"), port=0,
+                      replay_rate=0).start()
+    try:
+        ctl = Controller(*rs.address, session="w03", want_flips=True,
+                         batch=True, batch_turns=1024,
+                         batch_flip_events=False, observe=True, timeout=60,
+                         reconnect=False)
+        try:
+            if not ctl.wait_sync(60):
+                raise AssertionError("main-sessions-serve: no replay sync")
+            r = ctl.seek(512, timeout=60)
+            want = plain_stack([seeded_board(LANE_SIDE, LANE_SIDE, 503)],
+                               r["turn"])[0]
+            wait_until(lambda: np.array_equal(ctl.board != 0, want != 0),
+                       "the replayed board at the seek", 60)
+        finally:
+            ctl.close()
+    finally:
+        rs.shutdown()
+    if card_leg["launches"].get("bitlife_resident", 0) <= 0:
+        raise AssertionError("main-sessions-serve never launched kernel A")
+    phase("main-sessions-serve", f"SessionServer --record, 16 x 256², a "
+          f"batching binary delta driver through the proxy and an observer "
+          f"on one session: on the card {card_leg['turns_per_sec']:.1f} "
+          f"delivered turns/s over {card_leg['turns']} turns "
+          f"({card_leg['secs']:.3f} s), {card_leg['bytes_per_turn']:.1f} "
+          f"link bytes/turn; with the buckets on the host CPU "
+          f"{cpu_leg['turns_per_sec']:.1f} turns/s "
+          f"({cpu_leg['secs']:.3f} s), {cpu_leg['bytes_per_turn']:.1f} "
+          f"bytes/turn; live seek to 64 landed at {card_leg['seek']['turn']} "
+          f"= plain version; a cold replay client's seek to 512 landed at "
+          f"{r['turn']} = plain version; card launches "
+          f"{card_leg['launches']}, session series {card_leg['series']}; "
+          f"{time.perf_counter() - t0:.1f} s; {card}")
+    return card_leg["launches"]
+
+
+def cli_sessions(tmp: pathlib.Path, card: str) -> dict:
+    """Phase `cli-sessions`: `python -m gol_tpu_torch --serve 0 --sessions
+    --record` (on the card) with a session created over SessionControl
+    and a `--connect --session ID -noVis` process attached to it (the
+    server counts its watcher); then `--replay out/sessions --serve 0
+    --replay-rate 0` and a `--connect --session ID --observe` process on
+    it. ^C (SIGINT) ends each process; the servers exit 0."""
+    import os
+    import queue
+    import re
+    import signal
+    import threading
+
+    from gol_tpu_torch.distributed import SessionControl
+    from gol_tpu_torch.replay.log import scan_segments
+
+    out = tmp / "cli-sessions"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    procs = []
+
+    def spawn(*args):
+        p = subprocess.Popen(
+            [sys.executable, "-m", "gol_tpu_torch", *args],
+            stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, env=env, cwd=str(REPO))
+        p.lines = queue.Queue()
+        p.log = []
+
+        def pump():
+            for line in p.stdout:
+                p.log.append(line)
+                p.lines.put(line)
+
+        threading.Thread(target=pump, daemon=True).start()
+        procs.append(p)
+        return p
+
+    def address(p, prefix):
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            try:
+                line = p.lines.get(timeout=0.1)
+            except queue.Empty:
+                if p.poll() is not None:
+                    break
+                continue
+            m = re.match(prefix + r" on ([\d.]+):(\d+)", line)
+            if m:
+                return m.group(1), int(m.group(2))
+        raise AssertionError(f"cli-sessions: no {prefix!r} line: "
+                             f"{''.join(p.log)[-2000:]}")
+
+    def stop(p):
+        if p.poll() is None:
+            p.send_signal(signal.SIGINT)
+        return p.wait(60)
+
+    walls = {}
+    try:
+        t0 = time.perf_counter()
+        srv = spawn("--serve", "0", "--sessions", "--record", "--out",
+                    str(out))
+        addr = address(srv, "session engine serving")
+        walls["session server listening"] = time.perf_counter() - t0
+        with SessionControl(*addr, timeout=60) as sc:
+            sc.create("c1", width=256, height=256, seed=3)
+            t1 = time.perf_counter()
+            con = spawn("--connect", f"{addr[0]}:{addr[1]}", "--session",
+                        "c1", "-noVis")
+            wait_until(lambda: sc.list()[0]["watchers"] == 1,
+                       "the --connect attach", 120)
+            walls["connect attached"] = time.perf_counter() - t1
+            turn = sc.list()[0]["turn"]
+            wait_until(lambda: sc.list()[0]["turn"] > turn + 256,
+                       "256 watched turns", 120)
+            stop(con)
+            wait_until(lambda: sc.list()[0]["watchers"] == 0,
+                       "the --connect detach", 60)
+        t2 = time.perf_counter()
+        if stop(srv) != 0:
+            raise AssertionError("cli-sessions: the session server exited "
+                                 f"{srv.returncode}: "
+                                 f"{''.join(srv.log)[-2000:]}")
+        walls["session server exit after ^C"] = time.perf_counter() - t2
+        segs = scan_segments(out / "sessions" / "c1" / "replay")
+        if not segs:
+            raise AssertionError("cli-sessions: nothing recorded")
+        t3 = time.perf_counter()
+        rep = spawn("--replay", str(out / "sessions"), "--serve", "0",
+                    "--replay-rate", "0")
+        addr = address(rep, "replay serving")
+        walls["replay server listening"] = time.perf_counter() - t3
+        con = spawn("--connect", f"{addr[0]}:{addr[1]}", "--session", "c1",
+                    "-noVis", "--observe")
+        time.sleep(2.0)
+        if con.poll() is not None:
+            raise AssertionError("cli-sessions: the replay --connect ended: "
+                                 f"{''.join(con.log)[-2000:]}")
+        stop(con)
+        if stop(rep) != 0:
+            raise AssertionError("cli-sessions: the replay server exited "
+                                 f"{rep.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+    phase("cli-sessions", f"--serve 0 --sessions --record and --connect "
+          f"--session -noVis processes, then --replay --serve 0 "
+          f"--replay-rate 0 and a --connect --observe: {len(segs)} "
+          f"recorded segments; walls (s) "
+          f"{ {k: round(v, 3) for k, v in walls.items()} }; {card}")
+    return walls
+
+
 def measure(errs: dict, launches: dict, int_ops_per_s: float,
             slab: int) -> list:
     """Phase 7: ms per launch of each kernel at its main-path shape, the
@@ -3001,6 +3799,17 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float,
          lambda x: cb.step_n_packed_batch_cuda_raw(x, 32),
          lambda x: bitlife.step_n_packed_raw(x, 32),
          lambda x: 2 * 4 * x.numel(), lambda x: x.numel() * 32 * life_ops),
+        ("bitlife_resident_sessions",
+         f"a bucket of {LANE_SESSIONS} boards of {LANE_SIDE}², "
+         f"{LANE_K} turns per launch", f"{LANE_K}-turn launch",
+         lambda: torch.from_numpy(np.stack([
+             bitlife.pack_np(b) for b in bucket_soups(
+                 LANE_SESSIONS, LANE_SIDE, LANE_SIDE, seed=1)]
+         ).view(np.int32)).cuda(),
+         lambda x: cb.step_n_packed_batch_cuda_raw(x, LANE_K),
+         lambda x: bitlife.step_n_packed_raw(x, LANE_K),
+         lambda x: 2 * 4 * x.numel(),
+         lambda x: x.numel() * LANE_K * life_ops),
     ]
     # The single-turn launch the watched path makes, on the same input.
     single = {
@@ -3013,6 +3822,8 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float,
         "life_dense": lambda x: cl.step_n_cuda_dense(x, 1),
         "bitlife_resident_batch": lambda x: cb.step_n_packed_batch_cuda_raw(
             x, 1),
+        "bitlife_resident_sessions":
+            lambda x: cb.step_n_packed_batch_cuda_raw(x, 1),
     }
     rows = []
     for name, shape, per, make, kernel, plain, nbytes, ops in specs:
@@ -3416,6 +4227,7 @@ def main() -> int:
     check_gens_kernels(errs)
     check_dense_kernel(errs)
     check_batch_kernel(errs)
+    check_session_kernels(errs)
     diffs_launches = check_diffs()
     (REPO / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as d:
@@ -3434,11 +4246,22 @@ def main() -> int:
         watched["bitlife_resident_batch"] = main_watched_tiled(tmp, card)
         cli_wall = cli(tmp)
         cli_tiled(tmp, card)
+        # The session bucket's main path: its kernel A launches are the
+        # row's; kernels B and E step the buckets with no cluster plan.
+        sessions = {"main-sessions": main_sessions(tmp, card)}
+        launches["bitlife_resident_sessions"] = (
+            sessions["main-sessions"]["bitlife_resident"])
         kernels = measure(errs, launches, int_ops_per_s, slab)
         # After `measure`, whose torch.profiler sessions then run as they
         # did before this phase's captures existed.
         cli_full = main_cli_full(tmp, cli_wall)
         served = serving(tmp, card)
+        t_sessions = time.perf_counter()
+        sessions["sessions-lane"] = sessions_lane(card)
+        sessions["main-sessions-serve"] = main_sessions_serve(tmp, card)
+        cli_sessions(tmp, card)
+        phase("sessions", f"{time.perf_counter() - t_sessions:.1f} s for "
+              "sessions-lane, main-sessions-serve and cli-sessions")
     for row in kernels:
         # Launches of the watched phases (one a turn), of `diffs` and of
         # the visualised CLI runs.
@@ -3447,6 +4270,15 @@ def main() -> int:
         row["cli_launches"] = cli_full.get(row["name"])
         # Launches on each serving path, the counts set to 0 before it.
         row["serve_launches"] = served.get(row["name"])
+        # Launches on each session path (the counts set to 0 before it),
+        # by the kernel the row launches.
+        # Kernel A's session launches stand on row 1c only, so that
+        # row A does not count them a second time.
+        kernel = {"bitlife_resident_sessions": "bitlife_resident",
+                  "bitlife_resident": None}.get(row["name"], row["name"])
+        row["sessions_launches"] = {
+            ph: got.get(kernel) for ph, got in sessions.items()
+            if isinstance(got.get(kernel), (int, float))} or None
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

@@ -29,9 +29,18 @@ with `--observe`; `--secret` / `$GOL_SECRET`, the liveness, overload and
 batching knobs and `--no-reconnect` / `--reconnect-secs` keep gol_tpu's
 names and defaults. `--metrics-port` serves `/metrics`, `/healthz`,
 `/vars`, `/trace` and `/flightrecorder` for local, `--serve` and
-`--connect` runs. `--sessions`, `--relay`, `--record` and `--replay`
-exit with "not yet ported"; gol_tpu's control, collector, alerting and
-multi-host flags are absent.
+`--connect` runs.
+
+Sessions and the replay plane, as in gol_tpu: `--serve --sessions`
+serves many named boards (`SessionServer`; same-shape boards share one
+bucket, a packable bucket's chunk one launch of kernel A), with
+`--bucket-capacity`, `--park-idle-secs`, `--max-sessions` and `--resume
+latest`; `--record` tapes every session under out/sessions/<id>/replay/
+(`--keyframe-turns`, `--record-max-bytes`); `--connect --session ID`
+watches or drives one session; `--replay LOG-DIR --serve PORT` serves
+recordings with no engine (`--replay-rate`). `--relay` and the session
+budgets exit with "not yet ported"; gol_tpu's control, collector,
+alerting and multi-host flags are absent.
 """
 
 from __future__ import annotations
@@ -145,6 +154,70 @@ def build_parser() -> argparse.ArgumentParser:
     # Serving (gol_tpu_torch.distributed).
     ap.add_argument("--serve", default=None, metavar="[HOST:]PORT",
                     help="run as a headless engine server on this address")
+    ap.add_argument("--sessions", action="store_true",
+                    help="with --serve: multi-tenant session mode "
+                         "(gol_tpu_torch.sessions) — no singleton board; "
+                         "peers create/destroy/checkpoint named "
+                         "sessions over the wire and attach with "
+                         "hello.session; same-shape sessions share one "
+                         "bucket dispatch. -w/-h set the geometry "
+                         "CAP for wire-driven creates' sanity bound "
+                         "only; see docs/SESSIONS.md")
+    ap.add_argument("--bucket-capacity", type=int, default=16,
+                    dest="bucket_capacity", metavar="S",
+                    help="with --sessions: initial slots per "
+                         "shape/rule bucket (a full bucket doubles; "
+                         "churn within capacity never reallocates; "
+                         "default 16)")
+    ap.add_argument("--park-idle-secs", type=float, default=None,
+                    dest="park_idle_secs", metavar="SEC",
+                    help="with --serve --sessions: HIBERNATE sessions "
+                         "idle (no watcher, no driver) this long — "
+                         "checkpoint via the session manifest, free "
+                         "the device slot, rehydrate bit-exactly on "
+                         "the next attach; 0 parks at the first idle "
+                         "sweep (default: never park; see "
+                         "docs/SESSIONS.md 'Hibernation')")
+    ap.add_argument("--max-sessions", type=int, default=None,
+                    dest="max_sessions", metavar="N",
+                    help="with --serve --sessions: creates past N "
+                         "live sessions are rejected 'max-sessions' "
+                         "with a retry_after hint (default: "
+                         "unbounded)")
+    ap.add_argument("--record", action="store_true",
+                    help="with --serve --sessions: tape every "
+                         "session's encoded wire stream (FBATCH "
+                         "frames + periodic BoardSync keyframes, "
+                         "verbatim bytes) into an append-only segment "
+                         "log under out/sessions/<id>/replay/ — the "
+                         "seekable recording the seek verb and "
+                         "--replay serve from (docs/REPLAY.md)")
+    ap.add_argument("--keyframe-turns", type=int, default=None,
+                    dest="keyframe_turns", metavar="N",
+                    help="with --record: turns between BoardSync "
+                         "keyframes = seek granularity and per-attach "
+                         "catch-up cost (default 256)")
+    ap.add_argument("--record-max-bytes", type=int, default=None,
+                    dest="record_max_bytes", metavar="BYTES",
+                    help="with --record: per-session recording size "
+                         "bound — oldest segments are evicted past it "
+                         "(default: unbounded)")
+    ap.add_argument("--replay", default=None, metavar="LOG-DIR",
+                    dest="replay",
+                    help="run as a STATIC REPLAY SERVER "
+                         "(gol_tpu_torch.replay): serve the recordings "
+                         "under LOG-DIR (a --record run's "
+                         "out/sessions tree, one session's dir, or a "
+                         "bare replay/ dir) on --serve [HOST:]PORT to "
+                         "any number of observers with ZERO engine "
+                         "dispatches — recorded bytes forwarded "
+                         "verbatim, paced by the recorded timestamps "
+                         "or --replay-rate (docs/REPLAY.md)")
+    ap.add_argument("--replay-rate", type=float, default=None,
+                    dest="replay_rate", metavar="TURNS/S",
+                    help="with --replay: playback pacing in turns/s "
+                         "(0 = as fast as the observers drain; "
+                         "default: the recorded wall-clock timing)")
     ap.add_argument("--writer-pool-threads", type=int, default=2,
                     dest="writer_pool_threads", metavar="N",
                     help="with --serve: selector event-loop "
@@ -153,6 +226,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "connection)")
     ap.add_argument("--connect", default=None, metavar="HOST:PORT",
                     help="run as a controller attached to a remote engine")
+    ap.add_argument("--session", default=None, metavar="ID",
+                    help="with --connect: watch/drive the named session "
+                         "on a --serve --sessions server instead of the "
+                         "singleton board (docs/SESSIONS.md)")
     ap.add_argument("--observe", action="store_true",
                     help="with --connect: attach read-only (board sync "
                          "+ events; steering verbs rejected) — any "
@@ -211,22 +288,27 @@ def build_parser() -> argparse.ArgumentParser:
                          "link failure — long enough to ride out a "
                          "server crash-restart with --resume "
                          "(default 60)")
-    # gol_tpu's session, relay and replay modes: accepted by name and
+    # gol_tpu's relay mode and session budgets: accepted by name and
     # refused, so a command line moved between the packages gets a
     # clear error.
     for flag, what in UNPORTED_FLAGS.items():
         ap.add_argument(flag, default=None, nargs="?", const=True,
-                        dest=flag.strip("-"), help=f"{what}: not yet ported")
+                        dest=_dest(flag), help=f"{what}: not yet ported")
     return ap
 
 
 #: gol_tpu flags of later slices -> what they would run.
 UNPORTED_FLAGS = {
-    "--sessions": "multi-tenant session serving (--sessions)",
     "--relay": "the relay node (--relay)",
-    "--record": "the session replay recorder (--record)",
-    "--replay": "the replay server (--replay)",
+    "--session-budget-flops": "per-tenant FLOPs budgets "
+                              "(--session-budget-flops)",
+    "--session-budget-bytes": "per-tenant wire-bytes budgets "
+                              "(--session-budget-bytes)",
 }
+
+
+def _dest(flag: str) -> str:
+    return flag.strip("-").replace("-", "_")
 
 
 def _stdin_keys(keypresses: queue.Queue, stop: threading.Event) -> None:
@@ -242,7 +324,7 @@ def _stdin_keys(keypresses: queue.Queue, stop: threading.Event) -> None:
 def main(argv: Optional[list[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     for flag, what in UNPORTED_FLAGS.items():
-        if getattr(args, flag.strip("-")) is not None:
+        if getattr(args, _dest(flag)) is not None:
             raise SystemExit(f"error: {not_yet_ported(what)}")
 
     if args.check_invariants:
@@ -266,7 +348,8 @@ def main(argv: Optional[list[str]] = None) -> int:
     # dump the black box when SIGTERM lands (the handler then raises
     # KeyboardInterrupt, so every mode's graceful shutdown still runs).
     tracing.set_process_label(
-        "serve" if args.serve is not None
+        "replay" if args.replay is not None
+        else "serve" if args.serve is not None
         else "connect" if args.connect is not None else "local"
     )
     flight.configure(args.out)
@@ -313,6 +396,72 @@ def main(argv: Optional[list[str]] = None) -> int:
             "error: --resume applies to the engine (local or --serve), "
             "not to a --connect controller"
         )
+    if args.session is not None and args.connect is None:
+        raise SystemExit("error: --session requires --connect "
+                         "(or --relay, to fan a named session out)")
+    if args.park_idle_secs is not None and not args.sessions:
+        raise SystemExit(
+            "error: --park-idle-secs applies to --serve --sessions "
+            "(hibernation is a session-plane policy)"
+        )
+    if args.record and not args.sessions:
+        raise SystemExit(
+            "error: --record applies to --serve --sessions (the "
+            "replay log is a session-plane recording; docs/REPLAY.md)"
+        )
+    if not args.record and (args.keyframe_turns is not None
+                            or args.record_max_bytes is not None):
+        # A silently ignored recording knob would leave an operator
+        # believing a cadence/bound is in force.
+        raise SystemExit(
+            "error: --keyframe-turns/--record-max-bytes require "
+            "--record"
+        )
+    if args.replay_rate is not None and args.replay is None:
+        raise SystemExit("error: --replay-rate requires --replay")
+    if args.replay is not None:
+        if args.sessions or args.connect is not None:
+            raise SystemExit(
+                "error: --replay is its own serving mode — it cannot "
+                "combine with --sessions/--relay/--connect"
+            )
+        if args.tile:
+            # A replay server owns no board to tile.
+            raise SystemExit(
+                "error: --tile applies to single-board engines, not "
+                "a replay server"
+            )
+        if args.serve is None:
+            raise SystemExit(
+                "error: --replay needs --serve [HOST:]PORT for its "
+                "listener"
+            )
+        if resume_path is not None:
+            raise SystemExit(
+                "error: --resume applies to an engine, not a replay "
+                "server"
+            )
+        return _replay_serve(args)
+    if args.tile and args.sessions:
+        # Buckets step whole stacks: a silently ignored --tile would
+        # leave an operator believing a large geometry runs
+        # activity-driven when it would run dense.
+        raise SystemExit(
+            "error: --tile applies to single-board engines (local or "
+            "--serve), not --sessions buckets or relays"
+        )
+    if args.sessions:
+        # Multi-tenant serve mode: state lives per session under
+        # out/sessions/, so the singleton snapshot discovery below
+        # does not apply — resume means "restore every session".
+        if args.serve is None:
+            raise SystemExit("error: --sessions requires --serve")
+        if resume_path not in (None, "latest"):
+            raise SystemExit(
+                "error: --sessions resumes per-session checkpoints; "
+                "use --resume latest (or none)"
+            )
+        return _serve_sessions(args, params, resume_path == "latest")
     if resume_path == "latest":
         from gol_tpu_torch.checkpoint import latest_snapshot
 
@@ -523,6 +672,115 @@ def _serve(args, params: Params, resume_path: Optional[str] = None) -> int:
     return 0
 
 
+def _serve_sessions(args, params: Params, resume: bool) -> int:
+    """Multi-tenant session server (gol_tpu_torch.sessions; the
+    `--serve --sessions` mode), its buckets on the card unless
+    --platform cpu. Same exposure rules as --serve: loopback unless an
+    explicit HOST, --secret gates every attach AND every session
+    verb."""
+    from gol_tpu_torch.distributed import SessionServer
+    from gol_tpu_torch.obs import flight
+
+    host, port = _addr(args.serve, default_host="127.0.0.1")
+    try:
+        server = SessionServer(
+            params, host, port, secret=args.secret,
+            heartbeat_secs=args.hb_secs,
+            evict_secs=args.evict_secs,
+            resume=resume,
+            bucket_capacity=args.bucket_capacity,
+            max_peers=args.max_peers,
+            max_sessions=args.max_sessions,
+            high_water=args.high_water,
+            drain_secs=args.drain_secs,
+            batch_turns=(args.batch_turns
+                         if args.batch_turns is not None else 1024),
+            writer_pool_threads=args.writer_pool_threads,
+            park_idle_secs=args.park_idle_secs,
+            record=args.record,
+            keyframe_turns=(args.keyframe_turns
+                            if args.keyframe_turns is not None else 256),
+            record_max_bytes=args.record_max_bytes,
+            device=PLATFORMS[args.platform],
+        )
+    except (ValueError, RuntimeError) as e:
+        raise SystemExit(f"error: {e}") from None
+    print(f"session engine serving on "
+          f"{server.address[0]}:{server.address[1]}", flush=True)
+    if resume:
+        print(f"resumed {server.resumed} session(s) from "
+              f"{params.out_dir}/sessions/", flush=True)
+    try:
+        metrics = _start_metrics(args, health=server.health)
+    except OSError:
+        server.shutdown()
+        raise
+    flight.set_state_provider(server.health)
+    server.start()
+    try:
+        while not server.wait(timeout=1.0):
+            if not server.engine.running():
+                # A fatal dispatch-loop error takes the server down with
+                # it, so the listener never accepts onto a dead engine.
+                server.shutdown()
+    except KeyboardInterrupt:
+        server.shutdown()
+    finally:
+        if metrics is not None:
+            metrics.close()
+    if server.engine.error is not None:
+        print(f"session engine error: {server.engine.error!r}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+def _replay_serve(args) -> int:
+    """Static replay server (gol_tpu_torch.replay): serve the recordings
+    under --replay LOG-DIR with zero engine dispatches. Same exposure rules as --serve: loopback unless an
+    explicit HOST, --secret authenticates every attach."""
+    from gol_tpu_torch.obs import flight
+    from gol_tpu_torch.parallel.stepper import resolve_device
+    from gol_tpu_torch.replay import ReplayServer
+
+    host, port = _addr(args.serve, default_host="127.0.0.1")
+    try:
+        # The decode is host work, but a gpu run still needs the card
+        # (the CLI's rule for every mode that serves boards).
+        resolve_device(PLATFORMS[args.platform])
+        server = ReplayServer(
+            args.replay, host, port,
+            secret=args.secret,
+            replay_rate=args.replay_rate,
+            heartbeat_secs=args.hb_secs,
+            evict_secs=args.evict_secs,
+            max_peers=args.max_peers,
+            high_water=args.high_water,
+            drain_secs=args.drain_secs,
+            batch_turns=(args.batch_turns
+                         if args.batch_turns is not None else 1024),
+            writer_pool_threads=args.writer_pool_threads,
+        )
+    except (ValueError, RuntimeError) as e:
+        raise SystemExit(f"error: {e}") from None
+    n = len(server._recordings)
+    print(f"replay serving on {server.address[0]}:{server.address[1]} "
+          f"({n} recording{'s' if n != 1 else ''} from {args.replay})",
+          flush=True)
+    metrics = _start_metrics(args, health=server.health)
+    flight.set_state_provider(server.health)
+    server.start()
+    try:
+        while not server.wait(timeout=1.0):
+            pass
+    except KeyboardInterrupt:
+        server.shutdown()
+    finally:
+        if metrics is not None:
+            metrics.close()
+    return 0
+
+
 def _control(args, params: Params, keypresses: queue.Queue) -> int:
     """Controller attached to a remote engine (ref: README.md:177-183).
     Host-side only: it steps nothing, so it needs no card."""
@@ -540,6 +798,7 @@ def _control(args, params: Params, keypresses: queue.Queue) -> int:
                      batch_turns=args.batch_turns,
                      levels=vis_levels and not args.novis,
                      observe=args.observe,
+                     session=args.session,
                      reconnect=not args.no_reconnect,
                      reconnect_window=args.reconnect_secs)
 

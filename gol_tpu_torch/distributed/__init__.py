@@ -1,18 +1,21 @@
 """Distributed split: engine server ⇄ controller client over TCP — the
-one-engine serving modes of `gol_tpu.distributed` (`--serve`,
-`--connect`, `--observe`) with the same wire. `SessionServer` and
-`SessionControl` are not ported yet."""
+serving modes of `gol_tpu.distributed` with the same wire: one engine
+(`EngineServer`, `Controller`; `--serve`, `--connect`, `--observe`) and
+many named sessions (`SessionServer`, `SessionControl`; `--serve
+--sessions`, `--connect --session ID`)."""
 
 from gol_tpu_torch.distributed.client import (
     ConnectionLost,
     Controller,
     EngineClient,
     ServerBusyError,
+    SessionControl,
     UnauthorizedError,
     UnknownSessionError,
 )
 from gol_tpu_torch.distributed.server import (
     EngineServer,
+    SessionServer,
     snapshot_turn,
 )
 
@@ -22,6 +25,8 @@ __all__ = [
     "EngineClient",
     "EngineServer",
     "ServerBusyError",
+    "SessionControl",
+    "SessionServer",
     "UnauthorizedError",
     "UnknownSessionError",
     "snapshot_turn",

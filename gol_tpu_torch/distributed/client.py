@@ -1059,3 +1059,237 @@ def apply_fbatch_raster(board: np.ndarray, msg: dict,
 
 #: The name the coursework spec uses for this half of the split.
 EngineClient = Controller
+
+
+class SessionControl:
+    """Blocking verb client for a `--serve --sessions` server
+    (gol_tpu_torch.sessions): create / destroy / list / checkpoint over the
+    session wire protocol. One control connection, synchronous RPCs —
+    the management half; watching a session is `Controller(session=id)`.
+
+    Verbs are IDEMPOTENT and supervised (docs/SESSIONS.md "Idempotent
+    verbs"): every create/destroy/checkpoint is stamped with a
+    client-generated request id (`rid`) and retried with
+    deadline+backoff across link failures — the control link is
+    re-dialed and re-handshaken, and the SAME rid rides every retry,
+    so the server's replay window (plus its state-based fallbacks)
+    makes an at-least-once verb exactly-once in effect: a retried
+    create never double-creates, a retried destroy never errors. Load
+    rejections (`busy`, `max-sessions`) carry a `retry_after` hint the
+    retry loop honors instead of blind exponential backoff. `list` is
+    read-only and simply re-executed. `retry_window=0` restores
+    one-shot fail-fast semantics.
+
+    Not thread-safe by design (one outstanding RPC at a time). The
+    control link deliberately does NOT negotiate heartbeats: with no
+    reader between verbs, answering beacons can't be guaranteed, and an
+    hb peer silent past the eviction window would be dropped mid-idle
+    — as a legacy peer (the heartbeat-less scheme) it is never evicted, so arbitrary
+    idle gaps between verbs are safe. Beacons the server sends anyway
+    are answered inline mid-RPC and drained at the next verb."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 8030, *,
+                 secret: "str | None" = None, timeout: float = 30.0,
+                 retry_window: float = 30.0,
+                 retry_seed: "int | None" = None):
+        self._host, self._port = host, port
+        self._secret = secret
+        self._timeout = timeout
+        self._window = max(0.0, retry_window)
+        #: Seeded jitter: a chaos scenario replays its retry schedule.
+        self._rng = random.Random(retry_seed)
+        #: rid prefix unique across processes AND restarts — a client
+        #: that crashed mid-verb and restarted must never collide with
+        #: its previous incarnation's window entries.
+        self._rid_prefix = uuid.uuid4().hex[:12]
+        self._rid_n = 0
+        self._sock: "socket.socket | None" = None
+        self._connect()
+
+    def _connect(self) -> None:
+        from gol_tpu_torch.testing import faults
+
+        self._sock = faults.wrap("client", socket.create_connection(
+            (self._host, self._port), timeout=self._timeout
+        ))
+        self._sock.settimeout(self._timeout)
+        hello = {"t": "hello", "sessions": True}
+        if self._secret is not None:
+            hello["secret"] = self._secret
+        try:
+            wire.send_msg(self._sock, hello)
+            first = wire.recv_msg(self._sock, allow_binary=False)
+        except (TimeoutError, wire.WireError, OSError) as e:
+            self.close()
+            raise ConnectionError(
+                f"session-control handshake with {self._host}:"
+                f"{self._port} failed: {e}"
+            ) from None
+        if first is None or first.get("t") == "error":
+            reason = (first or {}).get("reason", "rejected")
+            self.close()
+            if reason == "unauthorized":
+                raise UnauthorizedError(reason)
+            if reason in ("busy", "at-capacity"):
+                raise ServerBusyError(
+                    reason,
+                    sanitize_retry_after(first.get("retry_after")),
+                )
+            raise ConnectionError(reason)
+        if not first.get("sessions"):
+            self.close()
+            raise ConnectionError(
+                "server does not speak the session protocol "
+                "(start it with --serve --sessions)"
+            )
+
+    def _next_rid(self) -> str:
+        self._rid_n += 1
+        return f"{self._rid_prefix}-{self._rid_n}"
+
+    def _rpc(self, msg: dict) -> dict:
+        wire.send_msg(self._sock, msg)
+        deadline = time.monotonic() + self._timeout
+        while True:
+            if time.monotonic() > deadline:
+                raise TimeoutError("session verb timed out")
+            reply = wire.recv_msg(self._sock, allow_binary=False)
+            if reply is None:
+                raise ConnectionError("server closed the control link")
+            t = reply.get("t")
+            if t == "hb":
+                with contextlib.suppress(OSError, wire.WireError):
+                    wire.send_msg(self._sock, {"t": "hb"})
+                continue
+            if t == "session-r" and reply.get("op") == msg.get("op"):
+                if ("rid" in msg and reply.get("rid") is not None
+                        and reply["rid"] != msg["rid"]):
+                    continue  # a predecessor's late reply, not ours
+                return reply
+            # clk echoes / future kinds: ignorable (forward compat).
+
+    #: Transient reply reasons the retry loop waits out (everything
+    #: else — unknown-session, bad-rule, exists — is a real answer).
+    _TRANSIENT = ("busy", "max-sessions", "at-capacity")
+
+    def _checked(self, msg: dict, idempotent: bool = False) -> dict:
+        """One verb, supervised: re-dial + resend (same rid) on link
+        failures, wait out transient rejections honoring retry_after,
+        raise the first durable error. With `idempotent=False` (list)
+        the verb is still retried — re-executing a read is safe."""
+        from gol_tpu_torch.sessions.manager import SessionError
+
+        if idempotent and self._window > 0:
+            msg = {**msg, "rid": self._next_rid()}
+        deadline = time.monotonic() + self._window
+        attempt = 0
+        hint: "float | None" = None
+        while True:
+            try:
+                if self._sock is None:
+                    self._connect()
+                reply = self._rpc(msg)
+            except UnauthorizedError:
+                raise
+            except (TimeoutError, ConnectionError, wire.WireError,
+                    OSError) as e:
+                # Link-level failure: the verb may or may not have
+                # landed — exactly what the rid exists for. Tear the
+                # link down and retry the SAME message.
+                if isinstance(e, ServerBusyError):
+                    hint = e.retry_after
+                self.close()
+                self._sock = None
+                if time.monotonic() >= deadline:
+                    raise ConnectionError(
+                        f"session verb {msg.get('op')!r} failed after "
+                        f"{self._window:.0f}s of retries: {e}"
+                    ) from None
+            else:
+                if reply.get("ok"):
+                    return reply
+                reason = reply.get("reason", "rejected")
+                if (reason not in self._TRANSIENT
+                        or time.monotonic() >= deadline):
+                    raise SessionError(reason)
+                hint = sanitize_retry_after(reply.get("retry_after"))
+            if hint is not None:
+                delay = hint * (0.9 + 0.2 * self._rng.random())
+                hint = None
+            else:
+                delay = min(1.0, 0.05 * (2 ** min(attempt, 10)))
+                delay *= 0.5 + self._rng.random()
+            attempt += 1
+            time.sleep(min(delay, max(0.0,
+                                      deadline - time.monotonic())))
+
+    def create(self, sid: str, *, width: int, height: int,
+               rule: "str | None" = None, seed: "int | None" = None,
+               density: float = 0.25) -> dict:
+        msg = {"t": "session", "op": "create", "id": sid,
+               "width": width, "height": height, "density": density}
+        if rule is not None:
+            msg["rule"] = rule
+        if seed is not None:
+            msg["seed"] = seed
+        return self._checked(msg, idempotent=True)["session"]
+
+    def destroy(self, sid: str) -> None:
+        self._checked({"t": "session", "op": "destroy", "id": sid},
+                      idempotent=True)
+
+    def list(self) -> list:
+        return self._checked({"t": "session", "op": "list"})["sessions"]
+
+    def checkpoint(self, sid: str) -> dict:
+        r = self._checked({"t": "session", "op": "checkpoint", "id": sid},
+                          idempotent=True)
+        return {"path": r.get("path"), "turn": r.get("turn")}
+
+    def park(self, sid: str) -> dict:
+        """Hibernate a session (docs/SESSIONS.md "Hibernation"):
+        checkpoint + free its device slot; the next attach (a
+        Controller with session=sid) rehydrates it bit-exactly.
+        Idempotent under retry — a rid-retried park whose first
+        attempt landed answers ok."""
+        r = self._checked({"t": "session", "op": "park", "id": sid},
+                          idempotent=True)
+        return {"id": r.get("id"), "turn": r.get("turn")}
+
+    def adopt(self, sid: str, source: str) -> dict:
+        """Materialize a session hibernated under ANOTHER engine's
+        out tree (control-plane migration): the server reads
+        `source`'s sidecar + latest snapshot, creates the session
+        resident at the snapshot turn, and re-checkpoints into its
+        OWN tree before acking. Idempotent under retry: an adopt
+        whose first attempt landed answers ok on the rid re-send."""
+        r = self._checked(
+            {"t": "session", "op": "adopt", "id": sid,
+             "source": source},
+            idempotent=True,
+        )
+        return r["session"]
+
+    def drain(self) -> dict:
+        """Checkpoint every resident session and stop admitting new
+        session attaches — the safe prelude to a rolling restart with
+        `--resume latest` (control plane). Idempotent: a
+        retried drain re-checkpoints and stays draining."""
+        r = self._checked({"t": "session", "op": "drain"},
+                          idempotent=True)
+        return {"checkpointed": r.get("checkpointed"),
+                "draining": bool(r.get("draining"))}
+
+    def close(self) -> None:
+        if self._sock is None:
+            return
+        with contextlib.suppress(OSError):
+            self._sock.shutdown(socket.SHUT_RDWR)
+        with contextlib.suppress(OSError):
+            self._sock.close()
+
+    def __enter__(self) -> "SessionControl":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -38,7 +38,12 @@ The engine steps on the CUDA card unless the caller asks for the CPU
 raises. Only the engine thread touches the device: the accept, reader,
 heartbeat and broadcaster threads read host state (`Engine.health`,
 queue depths) and the host boards that `BoardSync` events carry.
-`SessionServer` (the `--sessions` mode) is not ported yet.
+
+`SessionServer` (the `--sessions` mode) serves many named sessions the
+same way: a `SessionManager` whose buckets live on the card (one launch
+of kernel A a packable bucket's chunk) and the `SessionEngine` thread
+that alone touches them; `--record` tapes each session for the seek verb
+and the replay server (`gol_tpu_torch.replay`).
 """
 
 from __future__ import annotations
@@ -75,7 +80,8 @@ from gol_tpu_torch.io.pgm import read_pgm
 from gol_tpu_torch.params import Params
 from gol_tpu_torch.analysis.concurrency import lockcheck
 
-__all__ = ["EngineServer", "encode_batch_frames", "snapshot_turn"]
+__all__ = ["EngineServer", "SessionServer", "encode_batch_frames",
+           "snapshot_turn"]
 
 log = logging.getLogger(__name__)
 
@@ -418,6 +424,16 @@ class _Conn:
         #: A coalescing BoardSync has been requested/enqueued for this
         #: peer and has not arrived yet — don't request another.
         self.resync_pending = False
+        #: Replay-plane scrub state (gol_tpu_torch.replay, docs/REPLAY.md):
+        #: a peer parked at a seek position. While set, the live /
+        #: broadcast stream is withheld (frames past the seeked board
+        #: would XOR garbage onto it); {"t":"seek","turn":"live"}
+        #: resyncs and clears it. `seek_gate` orders the toggle + the
+        #: served historical frames against concurrent stream sends
+        #: (RLock: the drain-recovery path resyncs from inside a gated
+        #: callback).
+        self.scrub = False
+        self.seek_gate = lockcheck.make_rlock("_Conn.seek_gate")
         #: Per-peer lag gauge (label evicted at detach) — installed by
         #: the server once the peer is attached.
         self.lag_metric = None
@@ -1704,3 +1720,1111 @@ def encode_batch_frames(counts, bitmaps, words, first_turn: int,
         ))
         _METRICS.batch_turns.observe(b - a)
     return frames
+
+
+class _SessionSink:
+    """gol_tpu_torch.sessions.Sink feeding one attached connection: board
+    syncs, per-turn flips in the connection's negotiated encoding, and
+    ts-stamped TurnComplete messages — the per-session twin of the
+    singleton broadcaster. Callbacks run on the SessionEngine thread
+    and only ever ENQUEUE to the connection's writer (never block);
+    a dead peer raises out of the callback, which detaches this sink
+    from the manager, and the server drops the connection."""
+
+    def __init__(self, server: "SessionServer", conn: _Conn, sid: str,
+                 width: int, height: int):
+        self._server = server
+        self._conn = conn
+        self.sid = sid
+        self._width = width
+        self._height = height
+
+    @property
+    def want_flips(self) -> bool:
+        return self._conn.want_flips
+
+    @property
+    def batch_turns(self) -> int:
+        """Negotiated k-turn chunk consumption (hello "batch"): a
+        positive value makes the manager hand this sink whole chunks
+        via on_flip_chunk and scale the bucket's dispatch chunk."""
+        return self._conn.batch if self._conn.want_flips else 0
+
+    def on_flip_chunk(self, sid: str, first_turn: int, counts,
+                      bitmaps, words) -> None:
+        """One dispatched chunk for this session as _TAG_FBATCH
+        frame(s) — the per-session twin of the singleton broadcaster's
+        chunk fan-out: per-chunk housekeeping, shedding at batch
+        granularity, encode gated after offer_stream. Stream sends run
+        under the peer's seek_gate: a peer parked at a seek position
+        (conn.scrub — gol_tpu_torch.replay) is withheld the live stream, and
+        the gate orders that decision against a concurrent seek's
+        historical frames."""
+        conn = self._conn
+        if conn.lag_metric is not None:
+            conn.lag_metric.set(conn.queued())
+        k = len(counts)
+        last = first_turn + k - 1
+        self._server.freshness.note_commit(last, key=sid)
+        with conn.seek_gate:
+            if conn.scrub:
+                return
+            if conn.drained():
+                conn.resync_pending = True
+                mgr = self._server.manager
+                self.on_sync(sid, mgr.peek_turn(sid),
+                             mgr._fetch_board(sid))
+                return
+            if not conn.synced or last <= conn.synced_turn:
+                return
+            try:
+                if not conn.offer_stream():
+                    return
+                tracing.event("turn.emit", "wire", turn=last,
+                              session=sid, batch=k)
+                m = accounting.meter()
+                t0 = time.perf_counter() if m is not None else 0.0
+                with tracing.span("wire.encode_batch", "wire", turn=last,
+                                  session=sid, turns=k):
+                    frames = encode_batch_frames(
+                        counts, bitmaps, words, first_turn,
+                        self._width, self._height, conn.batch,
+                        time.time(),
+                    )
+                if m is not None:
+                    # Host encode tax, attributed to the session this
+                    # sink serves (conn.principal == sid here).
+                    m.charge(conn.principal,
+                             host_seconds=time.perf_counter() - t0)
+                for f in frames:
+                    conn.send_raw(f)
+                conn.note_written(last)
+            except (wire.WireError, OSError):
+                self._server._drop_conn(conn, detach_sink=False)
+                raise
+
+    def on_sync(self, sid: str, turn: int, board) -> None:
+        conn = self._conn
+        with conn.seek_gate:
+            if conn.scrub:
+                return  # parked at a seek: no live resyncs either
+            try:
+                if conn.binary:
+                    conn.send_raw(
+                        wire.board_to_frame(turn, board, conn.token)
+                    )
+                else:
+                    conn.send(wire.board_to_msg(turn, board, conn.token))
+            except (wire.WireError, OSError):
+                self._server._drop_conn(conn, detach_sink=False)
+                raise
+            conn.synced = True
+            conn.synced_turn = turn
+            conn.note_written(turn)
+            conn.delta_prev = None
+            # A degradation-coalesced resync makes the peer whole:
+            # every frame it shed is inside this raster, and
+            # synced_turn now gates anything still buffered.
+            conn.mark_recovered()
+
+    def on_flips(self, sid: str, turn: int, coords) -> None:
+        conn = self._conn
+        with conn.seek_gate:
+            if conn.scrub:
+                return
+            if not conn.synced or turn <= conn.synced_turn:
+                return
+            try:
+                # Sheddable stream plane: gate BEFORE encoding so a
+                # shed frame never advances this peer's delta chain.
+                if not conn.offer_stream():
+                    return
+                m = accounting.meter()
+                t0 = time.perf_counter() if m is not None else 0.0
+                with tracing.span("wire.encode_flips", "wire", turn=turn,
+                                  session=sid):
+                    _encode_and_send_flips(conn, turn, coords, None,
+                                           self._width, self._height)
+                if m is not None:
+                    m.charge(conn.principal,
+                             host_seconds=time.perf_counter() - t0)
+            except (wire.WireError, OSError):
+                self._server._drop_conn(conn, detach_sink=False)
+                raise
+
+    def on_turn(self, sid: str, turn: int) -> None:
+        conn = self._conn
+        if conn.lag_metric is not None:
+            conn.lag_metric.set(conn.queued())
+        self._server.freshness.note_commit(turn, key=sid)
+        with conn.seek_gate:
+            if conn.scrub:
+                return
+            if conn.drained():
+                # Degraded peer drained inside the deadline: coalesce
+                # the missed backlog into ONE fresh BoardSync. We are
+                # on the engine thread (the device owner), after this
+                # chunk's commit — the stack and `peek_turn` agree,
+                # and stamping the sync with the POST-chunk turn gates
+                # off the rest of this chunk's already-decoded
+                # callbacks (they are inside the raster being sent;
+                # re-applying would XOR-corrupt).
+                conn.resync_pending = True
+                mgr = self._server.manager
+                self.on_sync(sid, mgr.peek_turn(sid),
+                             mgr._fetch_board(sid))
+                return
+            if not conn.synced or turn <= conn.synced_turn:
+                return
+            try:
+                if not conn.offer_stream():
+                    return
+                tracing.event("turn.emit", "wire", turn=turn, session=sid)
+                conn.send({"t": "ev", "k": "turn", "turn": turn,
+                           "ts": time.time()})
+                conn.note_written(turn)
+            except (wire.WireError, OSError):
+                self._server._drop_conn(conn, detach_sink=False)
+                raise
+
+    def on_close(self, sid: str, reason: str) -> None:
+        conn = self._conn
+        with contextlib.suppress(Exception):
+            conn.send({"t": "bye"})
+        # Drain (bounded) BEFORE closing the socket: the bye must reach
+        # the peer so a destroy-while-attached ends its stream cleanly
+        # instead of looking like a crashed server and triggering the
+        # client's reconnect storm against a session that is gone.
+        conn.finish(timeout=2.0)
+        self._server._drop_conn(conn, detach_sink=False)
+
+
+class _SeekTarget:
+    """Session-plane adapter for gol_tpu_torch.replay.serve_seek: the
+    recording's log dir, the peer's own seek_gate as the ordering
+    lock (historical frames vs the live sink's sends), and the
+    engine-thread live rejoin."""
+
+    def __init__(self, server: "SessionServer", sid: str,
+                 sink: _SessionSink, conn: _Conn, root: str):
+        self._server = server
+        self.sid = sid
+        self._sink = sink
+        self._conn = conn
+        self.root = root
+        self.lock = conn.seek_gate
+
+    def resync_live(self, conn: _Conn) -> None:
+        def _prepare():
+            with conn.seek_gate:
+                conn.scrub = False
+
+        # Engine-thread verb: scrub clears and the fresh BoardSync
+        # lands between dispatches, so the next chunk is contiguous
+        # with the synced raster.
+        self._server.manager.resync(self.sid, self._sink,
+                                    prepare=_prepare)
+
+
+class SessionServer:
+    """The multi-tenant serving surface (gol_tpu_torch.sessions; CLI
+    `--serve --sessions`): a SessionManager + SessionEngine behind the
+    same wire protocol as EngineServer, with the one-board singleton
+    replaced by session multiplexing —
+
+    - hello gains a `session` field: peers attach to a NAMED session
+      (driver slot exclusive per session, observers fan out); a hello
+      without one is a CONTROL peer that only speaks session verbs;
+    - `{"t":"session","op":...}` verbs (create / destroy / list /
+      checkpoint) from any authenticated peer, answered with
+      `{"t":"session-r", ...}`;
+    - per-session checkpoints under out/sessions/<id>/ compose with
+      `--resume latest` (resume=True restores every session);
+    - heartbeats/eviction, the clock probe, binary/delta flip frames
+      and the shared-secret gate work exactly as on EngineServer —
+      the peer-side protocol is unchanged above the hello.
+
+    `device` is the buckets' device: None for the CUDA card (the
+    constructor raises without one, leaving no thread), "cpu" for the
+    plain versions."""
+
+    HELLO_TIMEOUT = EngineServer.HELLO_TIMEOUT
+    DRAIN_TIMEOUT = EngineServer.DRAIN_TIMEOUT
+    HB_MISS_LIMIT = EngineServer.HB_MISS_LIMIT
+
+    def __init__(
+        self,
+        params: Params,
+        host: str = "127.0.0.1",
+        port: int = 8030,
+        *,
+        secret: Optional[str] = None,
+        heartbeat_secs: float = 2.0,
+        evict_secs: Optional[float] = None,
+        resume: bool = False,
+        bucket_capacity: int = 16,
+        watched_chunk: Optional[int] = None,
+        idle_chunk: Optional[int] = None,
+        max_peers: Optional[int] = None,
+        max_sessions: Optional[int] = None,
+        high_water: Optional[int] = None,
+        drain_secs: Optional[float] = None,
+        retry_after_secs: float = 1.0,
+        batch_turns: int = 1024,
+        writer_pool_threads: int = 2,
+        park_idle_secs: Optional[float] = None,
+        record: bool = False,
+        keyframe_turns: int = 256,
+        record_max_bytes: Optional[int] = None,
+        device=None,
+    ):
+        from gol_tpu_torch.sessions import SessionEngine, SessionManager
+
+        self.params = params
+        self.batch_turns = max(0, batch_turns)
+        self.heartbeat_secs = max(0.0, heartbeat_secs)
+        self.evict_secs = (
+            evict_secs if evict_secs is not None
+            else 3.0 * self.heartbeat_secs
+        )
+        self._secret = secret
+        #: Admission budgets + rejection hint — the EngineServer
+        #: contract (docs/RESILIENCE.md "Overload & degradation"),
+        #: plus a session-count budget the manager enforces at create.
+        self.max_peers = max_peers
+        self.high_water = high_water
+        self.drain_secs = drain_secs
+        self.retry_after_secs = max(0.0, retry_after_secs)
+        self.manager = SessionManager(
+            out_dir=params.out_dir,
+            default_rule=params.rule,
+            bucket_capacity=bucket_capacity,
+            autosave_turns=params.autosave_turns,
+            max_sessions=max_sessions,
+            park_idle_secs=park_idle_secs,
+            device=device,
+        )
+        #: Idempotency replay window (docs/SESSIONS.md "Idempotent
+        #: verbs"): request-id -> the successful session-r reply it
+        #: produced, bounded FIFO. A retried verb whose first attempt
+        #: DID land (the reply was lost to a reconnect) replays the
+        #: recorded answer instead of re-executing — a retried create
+        #: never double-creates, a retried destroy never errors.
+        self._replay: "dict[str, dict]" = {}  # insertion-ordered FIFO
+        self._replay_lock = lockcheck.make_lock("SessionServer._replay_lock")
+        #: Replay-plane recording (gol_tpu_torch.replay, docs/REPLAY.md):
+        #: with `record`, every live session gets an ephemeral
+        #: RecorderSink taping its encoded wire stream into
+        #: out/sessions/<sid>/replay/, and the `seek` verb serves
+        #: time-travel from those logs.
+        self.record = bool(record)
+        self.keyframe_turns = max(1, int(keyframe_turns))
+        self.record_max_bytes = record_max_bytes
+        self._recorders: "dict[str, object]" = {}
+        self._recorder_lock = lockcheck.make_lock(
+            "SessionServer._recorder_lock")
+        if self.record:
+            # Recording state rides the session.json sidecar (the
+            # checkpoint crash-consistency story covers it), and the
+            # recorder factory makes EVERY create — wire verb, resume,
+            # rehydration — tape from its first turn (a resumed
+            # session's fresh keyframe also CUTS any stale future
+            # segments a dead incarnation recorded past its last
+            # checkpoint: SegmentLog.start_segment). Import the plane
+            # now so the first create doesn't pay module-import
+            # latency inside an engine verb.
+            import gol_tpu_torch.replay.recorder  # noqa: F401
+
+            self.manager.record_meta = {
+                "keyframe_turns": self.keyframe_turns,
+            }
+            self.manager.recorder_factory = self._make_recorder
+        #: Sessions restored from out/sessions/ at boot (
+        #: `--resume latest`, composed per session).
+        self.resumed = self.manager.resume_all() if resume else 0
+        self.engine = SessionEngine(self.manager,
+                                    watched_chunk=watched_chunk,
+                                    idle_chunk=idle_chunk)
+        self._listener = socket.create_server((host, port))
+        self.address = self._listener.getsockname()
+        publish_listen_addr(self.address)
+        #: The same writer event loop EngineServer rides: session peers'
+        #: frames drain through a few selector threads, not one thread
+        #: per connection. Built after the manager (which raises
+        #: without a card) and the listener, so a constructor that
+        #: raises leaves no thread.
+        self.pool = (WriterPool(writer_pool_threads, "gol-sess-writer")
+                     if writer_pool_threads > 0 else None)
+        #: Freshness plane: per-peer turn age against each SESSION's
+        #: own committed turn (clocks keyed by sid — one stalled
+        #: session can never age another session's watchers).
+        self.freshness = ServerFreshness("session")
+        self._conn_lock = lockcheck.make_lock("SessionServer._conn_lock")
+        self._conns: "list[_Conn]" = []
+        #: sid -> driving connection (one driver per session).
+        self._drivers: "dict[str, _Conn]" = {}
+        #: conn -> (sid, sink) for session-attached peers.
+        self._sinks: "dict[_Conn, tuple[str, _SessionSink]]" = {}
+        self._shutdown = threading.Event()
+        self.done = threading.Event()
+        self._threads: "list[threading.Thread]" = []
+        #: Drain verb (control plane): once set, every live
+        #: session has a fresh checkpoint on disk and NEW session
+        #: attaches are refused — the safe prelude to a rolling
+        #: restart with `--resume latest`. Plain bool, GIL-atomic:
+        #: read on the accept path, written by the verb.
+        self.draining = False
+
+    # --- lifecycle ---
+
+    def start(self) -> "SessionServer":
+        self.engine.start()
+        loops = [(self._accept_loop, "gol-sess-accept")]
+        if self.heartbeat_secs > 0:
+            loops.append((self._heartbeat_loop, "gol-sess-heartbeat"))
+        for fn, name in loops:
+            t = threading.Thread(target=fn, name=name, daemon=True)
+            t.start()
+            self._threads.append(t)
+        return self
+
+    def shutdown(self) -> None:
+        if self._shutdown.is_set():
+            self.done.wait(timeout=1.0)
+            return
+        self._shutdown.set()
+        with contextlib.suppress(OSError):
+            # SHUT_RDWR first: on Linux, close() alone does NOT wake a
+            # thread parked in accept() — the zombie accept holds the
+            # LISTEN socket alive and the port stays bound, so an
+            # in-process restart on the same address gets EADDRINUSE.
+            self._listener.shutdown(socket.SHUT_RDWR)
+        with contextlib.suppress(OSError):
+            self._listener.close()
+        # Close sinks through the manager first (each attached peer
+        # gets its bye in-stream), then stop the dispatch loop.
+        with contextlib.suppress(Exception):
+            self.manager.close()
+        self.engine.stop()
+        self.engine.join(timeout=30)
+        with self._conn_lock:
+            conns, self._conns = list(self._conns), []
+            self._drivers.clear()
+            self._sinks.clear()
+        for conn in conns:
+            with contextlib.suppress(Exception):
+                conn.send({"t": "bye"})
+            conn.request_finish()
+        deadline = time.monotonic() + self.DRAIN_TIMEOUT
+        for conn in conns:
+            conn.join_writer(max(0.1, deadline - time.monotonic()))
+            conn.close()
+        if self.pool is not None:
+            self.pool.close()
+        self.freshness.close()
+        self.done.set()
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        return self.done.wait(timeout)
+
+    def health(self) -> dict:
+        info = self.engine.health()
+        with self._conn_lock:
+            info["peers"] = len(self._conns)
+        info["address"] = list(self.address)
+        if self.draining:
+            info["draining"] = True
+        if self._shutdown.is_set() and info.get("status") == "ok":
+            info["status"] = "shutting-down"
+        return info
+
+    # --- accept path ---
+
+    def _accept_loop(self) -> None:
+        from gol_tpu_torch.testing import faults
+
+        while not self._shutdown.is_set():
+            try:
+                sock, addr = self._listener.accept()
+            except OSError:
+                return  # listener closed
+            sock = faults.wrap("server", sock)
+            _METRICS.accepts.inc()
+            try:
+                sock.settimeout(self.HELLO_TIMEOUT)
+                hello = wire.recv_msg(sock, allow_binary=False)
+                if not hello or hello.get("t") != "hello":
+                    raise wire.WireError(f"bad hello: {hello!r}")
+            except (wire.WireError, OSError, ValueError) as e:
+                log.warning("rejecting connection from %s: %s", addr, e)
+                _METRICS.rejects["bad-hello"].inc()
+                sock.close()
+                continue
+            if self._secret is not None and not hmac.compare_digest(
+                str(hello.get("secret", "")).encode("utf-8", "replace"),
+                self._secret.encode("utf-8", "replace"),
+            ):
+                log.warning("rejecting unauthenticated attach from %s",
+                            addr)
+                _METRICS.rejects["unauthorized"].inc()
+                with contextlib.suppress(Exception):
+                    wire.send_msg(
+                        sock, {"t": "error", "reason": "unauthorized"}
+                    )
+                sock.close()
+                continue
+            self._admit(sock, hello)
+
+    def _admit(self, sock: socket.socket, hello: dict) -> None:
+        from gol_tpu_torch.sessions import SessionError, valid_session_id
+
+        if (self.max_peers is not None
+                and len(self._conns) >= self.max_peers):
+            # Admission control (docs/RESILIENCE.md): a full house
+            # sheds the attach at the door with a when-to-come-back
+            # hint the client backoff honors.
+            _METRICS.rejects["at-capacity"].inc()
+            with contextlib.suppress(Exception):
+                wire.send_msg(sock, {
+                    "t": "error", "reason": "at-capacity",
+                    "retry_after": self.retry_after_secs,
+                })
+            sock.close()
+            return
+        role = ("observe" if hello.get("role") == "observe" else "drive")
+        sid = hello.get("session")
+        if sid is not None and self.draining:
+            # A drained server is about to restart (control plane
+            # roll): session attaches bounce with a come-back hint —
+            # the client backoff rides the restart gap and resumes
+            # through BoardSync on the fresh incarnation. Bare control
+            # connections stay admitted (operators still list/verb).
+            _METRICS.rejects["draining"].inc()
+            with contextlib.suppress(Exception):
+                wire.send_msg(sock, {
+                    "t": "error", "reason": "draining",
+                    "retry_after": self.retry_after_secs,
+                })
+            sock.close()
+            return
+        if sid is not None and (
+            not valid_session_id(sid) or not self.manager.known(sid)
+        ):
+            with contextlib.suppress(Exception):
+                wire.send_msg(
+                    sock, {"t": "error", "reason": "unknown-session"}
+                )
+            sock.close()
+            return
+        hb = bool(hello.get("hb", False)) and self.heartbeat_secs > 0
+        conn = _Conn(sock, bool(hello.get("want_flips", False)),
+                     compact=bool(hello.get("compact", False)),
+                     binary=bool(hello.get("binary", False)),
+                     levels=bool(hello.get("levels", False)),
+                     role=role, hb=hb,
+                     delta=bool(hello.get("delta", False)),
+                     batch=_clamp_batch(hello, self.batch_turns),
+                     high_water=self.high_water,
+                     drain_secs=self.drain_secs,
+                     pool=self.pool)
+        if sid is not None:
+            # Session-attached peers bill to their TENANT, not the
+            # transient socket: everything this connection moves or
+            # occupies joins the session's usage record (the same
+            # principal the manager charges dispatch shares to).
+            conn.principal = sid
+        if sid is not None and role == "drive":
+            with self._conn_lock:
+                busy = sid in self._drivers
+                if not busy:
+                    self._drivers[sid] = conn
+            if busy:
+                _METRICS.rejects["busy"].inc()
+                with contextlib.suppress(Exception):
+                    wire.send_msg(sock, {
+                        "t": "error", "reason": "busy",
+                        "retry_after": self.retry_after_secs,
+                    })
+                sock.close()
+                return
+        with self._conn_lock:
+            self._conns.append(conn)
+            _METRICS.peers.set(len(self._conns))
+        _METRICS.attaches[role].inc()
+        install_lag_gauge(conn)
+        ack = {"t": "attach-ack", "clock": True, "sessions": True,
+               "depth": 0}
+        if conn.batch:
+            ack["batch"] = conn.batch
+        if sid is not None:
+            ack["session"] = sid
+        if hb:
+            ack["hb_secs"] = self.heartbeat_secs
+        try:
+            conn.send(ack)
+        except (wire.WireError, OSError):
+            self._drop_conn(conn)
+            return
+        try:
+            conn.start_writer(self._drop_conn)
+        except wire.WireError:
+            self._drop_conn(conn)
+            return
+        tracing.event("server.attach", "lifecycle", role=role,
+                      token=conn.token, session=sid)
+        flight.note("server.attach", role=role, token=conn.token,
+                    session=sid)
+        # Reader BEFORE the sink attach: manager.attach blocks on the
+        # engine thread (a cold bucket's first dispatch can hold it for tens of
+        # seconds), and heartbeat pongs arriving in that window must
+        # be READ or the liveness judge evicts a perfectly live peer —
+        # beacons were already flowing (the writer is up), so the
+        # pongs are already coming back.
+        threading.Thread(
+            target=self._reader_loop, args=(conn,),
+            name="gol-sess-reader", daemon=True,
+        ).start()
+        if sid is not None:
+            geom = self.manager.peek_geometry(sid) or (0, 0)
+            sink = _SessionSink(self, conn, sid, geom[0] or 0,
+                                geom[1] or 0)
+            # Register the sink BEFORE the (possibly slow) attach: a
+            # peer that sends a seek verb the instant its board sync
+            # lands must find its session mapping, not race the
+            # registration into a spurious "not-recorded". Every
+            # failure path below goes through _drop_conn, which pops
+            # the entry (and detaches the sink OUTSIDE _conn_lock —
+            # manager.detach blocks on the engine verb queue, and the
+            # engine thread may simultaneously be tearing a sink down
+            # through on_close -> _drop_conn, which needs _conn_lock:
+            # holding it across the verb deadlocks the serving plane,
+            # seen live as a ~60s stall).
+            with self._conn_lock:
+                gone = conn not in self._conns
+                if not gone:
+                    self._sinks[conn] = (sid, sink)
+            if gone:  # reader dropped the peer before we got here
+                return
+            try:
+                # A parked session rehydrates inside attach — the
+                # board sync below then carries the revived state
+                # (docs/SESSIONS.md "Hibernation").
+                self.manager.attach(sid, sink)
+            except (wire.WireError, OSError):
+                # The peer died during its own board sync: its slot is
+                # already released (on_sync drops the conn); the accept
+                # thread must survive.
+                self._drop_conn(conn)
+                return
+            except (SessionError, TimeoutError) as e:
+                # Destroyed between the hello check and the attach —
+                # or a rehydration the resident budget refused: the
+                # real reason (with a retry hint on transient ones)
+                # lets the client back off instead of giving up.
+                reason = (str(e) if isinstance(e, SessionError)
+                          else "busy")
+                err = {"t": "error", "reason": reason}
+                if reason in ("max-sessions", "busy"):
+                    err["retry_after"] = self.retry_after_secs
+                with contextlib.suppress(Exception):
+                    conn.send(err)
+                self._drop_conn(conn)
+                return
+            undo = False
+            with self._conn_lock:
+                if conn not in self._conns:
+                    # The reader dropped the peer ('q', death) while we
+                    # were attaching; _drop_conn already popped _sinks
+                    # — undo the manager-side attach it could not have
+                    # seen yet.
+                    undo = True
+            if undo:
+                with contextlib.suppress(Exception):
+                    self.manager.detach(sid, sink)
+
+    # --- replay-plane recording + seek (gol_tpu_torch.replay) ---
+
+    def _make_recorder(self, sid: str, width: int, height: int):
+        """The manager's recorder factory (called from inside _create,
+        on the owner thread): one RecorderSink per live session,
+        taping into out/sessions/<sid>/replay/. Returns None when the
+        session already has one (re-entrant resume paths)."""
+        import os
+
+        from gol_tpu_torch.checkpoint import session_checkpoint_dir
+        from gol_tpu_torch.replay.log import SegmentLog, replay_dir
+        from gol_tpu_torch.replay.recorder import RecorderSink
+
+        with self._recorder_lock:
+            if sid in self._recorders:
+                return None
+            d = replay_dir(os.path.join(
+                session_checkpoint_dir(self.manager.out_dir), sid
+            ))
+            try:
+                rec = RecorderSink(
+                    self.manager, sid, width, height,
+                    SegmentLog(d, keyframe_turns=self.keyframe_turns,
+                               max_bytes=self.record_max_bytes),
+                    on_closed=self._recorder_closed,
+                )
+            except OSError:
+                log.exception("recorder for session %r failed to open",
+                              sid)
+                return None
+            self._recorders[sid] = rec
+        return rec
+
+    def _recorder_closed(self, sid: str, reason: str) -> None:
+        with self._recorder_lock:
+            self._recorders.pop(sid, None)
+
+    def _handle_seek(self, conn: _Conn, msg: dict) -> None:
+        """One `{"t":"seek"}` verb on the session plane: time-travel
+        served from the session's recording under the idempotent-rid
+        rules (gol_tpu_torch.replay.serve_seek — the shared implementation;
+        the reply is sent AFTER the frames, as the completion
+        marker)."""
+        from gol_tpu_torch.replay.server import serve_seek
+
+        with self._conn_lock:
+            entry = self._sinks.get(conn)
+        target = None
+        if entry is not None:
+            sid, sink = entry
+            with self._recorder_lock:
+                rec = self._recorders.get(sid)
+            if rec is not None:
+                target = _SeekTarget(self, sid, sink, conn,
+                                     rec.log.root)
+        try:
+            reply = serve_seek(conn, msg, target,
+                               replay_lookup=self._replay_lookup,
+                               replay_record=self._replay_record)
+        except (wire.WireError, OSError):
+            self._drop_conn(conn)
+            return
+        with contextlib.suppress(wire.WireError, OSError):
+            conn.send(reply)
+
+    def _drop_conn(self, conn: _Conn, detach_sink: bool = True) -> None:
+        """Remove one peer everywhere (idempotent; any thread). With
+        `detach_sink` the manager-side sink is detached too — callbacks
+        already running inside the manager pass False (the manager is
+        removing the sink itself)."""
+        with self._conn_lock:
+            removed = conn in self._conns
+            if removed:
+                self._conns.remove(conn)
+            entry = self._sinks.pop(conn, None)
+            for sid, c in list(self._drivers.items()):
+                if c is conn:
+                    del self._drivers[sid]
+            _METRICS.peers.set(len(self._conns))
+        if removed:
+            _METRICS.detaches.inc()
+            remove_lag_gauge(conn)
+            self.freshness.forget(conn.token)
+            _forget_peer_usage(conn)
+            tracing.event("server.detach", "lifecycle", role=conn.role,
+                          token=conn.token)
+        if entry is not None and detach_sink and not self._shutdown.is_set():
+            sid, sink = entry
+            with contextlib.suppress(Exception):
+                self.manager.detach(sid, sink)
+        conn.close()
+
+    # --- peer → server ---
+
+    def _reader_loop(self, conn: _Conn) -> None:
+        while True:
+            try:
+                msg = wire.recv_msg(conn.sock, allow_binary=False)
+            except TimeoutError:
+                if conn._dead.is_set():
+                    self._drop_conn(conn)
+                    return
+                continue
+            except (wire.WireError, OSError):
+                msg = None
+            if msg is None:
+                self._drop_conn(conn)
+                return
+            conn.last_rx = time.monotonic()
+            conn.hb_unanswered = 0
+            t = msg.get("t")
+            if t == "clk":
+                with contextlib.suppress(wire.WireError, OSError):
+                    conn.send_direct({"t": "clk", "t0": msg.get("t0"),
+                                      "ts": time.time()})
+                continue
+            if t == "session":
+                self._handle_session_op(conn, msg)
+                continue
+            if t == "seek":
+                # Time-travel verb (gol_tpu_torch.replay): read-only, so
+                # observers may scrub too.
+                self._handle_seek(conn, msg)
+                continue
+            if t != "key":
+                continue
+            if not self._handle_key(conn, msg.get("key")):
+                return
+
+    def _handle_key(self, conn: _Conn, key) -> bool:
+        """Session-mode verb routing; False ends the reader loop."""
+        with self._conn_lock:
+            entry = self._sinks.get(conn)
+        if key == "q":
+            if entry is not None:
+                sid, sink = entry
+                with contextlib.suppress(Exception):
+                    self.manager.detach(sid, sink)
+            self._release_slot(conn)
+            with contextlib.suppress(Exception):
+                conn.send({"t": "detached"})
+            conn.finish()
+            self._drop_conn(conn, detach_sink=False)
+            return False
+        if key == "s" and entry is not None and conn.role == "drive":
+            # The snapshot verb, scoped to this peer's session.
+            from gol_tpu_torch.sessions import SessionError
+
+            with contextlib.suppress(SessionError, TimeoutError):
+                self.manager.checkpoint(entry[0])
+            return True
+        with contextlib.suppress(Exception):
+            conn.send({"t": "error",
+                       "reason": ("observer" if conn.role == "observe"
+                                  else "unsupported")})
+        return True
+
+    def _release_slot(self, conn: _Conn) -> None:
+        with self._conn_lock:
+            self._sinks.pop(conn, None)
+            for sid, c in list(self._drivers.items()):
+                if c is conn:
+                    del self._drivers[sid]
+
+    #: Bounded replay window for idempotent verbs: enough rids for
+    #: hundreds of in-flight retries across reconnects; old entries
+    #: age out FIFO (a retry arriving after 512 newer verbs falls back
+    #: to the state-based idempotency checks, which are still exact).
+    REPLAY_WINDOW = 512
+
+    def _replay_lookup(self, rid: str) -> Optional[dict]:
+        with self._replay_lock:
+            return self._replay.get(rid)
+
+    def _replay_record(self, rid: str, reply: dict) -> None:
+        with self._replay_lock:
+            self._replay[rid] = reply
+            while len(self._replay) > self.REPLAY_WINDOW:
+                del self._replay[next(iter(self._replay))]
+
+    def _idempotent_outcome(self, op, msg: dict, reason: str,
+                            reply: dict) -> bool:
+        """State-based idempotency for RETRIED verbs (rid present):
+        when the failure reason says the operation's effect is already
+        in place, answer ok instead of erroring the retry. This is the
+        layer that survives a server restart (the replay window does
+        not): a create that committed before a SIGKILL answers
+        `exists` after `--resume latest`, and an identical-recipe
+        retry must read that as success, not a duplicate."""
+        if op == "destroy" and reason == "unknown-session":
+            # Destroyed by the first attempt (or by anyone): the
+            # desired end state — absence — holds.
+            reply.update(ok=True, id=msg.get("id"), replayed=True)
+            return True
+        if op == "park" and reason == "parked":
+            # Parked by the first attempt (or the idle sweep): the
+            # desired end state — hibernated — holds.
+            reply.update(
+                ok=True, id=msg.get("id"),
+                turn=self.manager.peek_turn(msg.get("id")),
+                replayed=True,
+            )
+            return True
+        if op == "adopt" and reason == "exists":
+            # A retried adopt whose first attempt landed (or a
+            # controller resume re-issuing a committed migration leg):
+            # success iff the resident/parked session matches the
+            # SOURCE sidecar's geometry+rule — a pre-existing
+            # different session under the same id stays a real
+            # duplicate.
+            import os as _os
+
+            from gol_tpu_torch.checkpoint import session_checkpoint_dir
+
+            sid = msg.get("id")
+            info = next(
+                (i for i in self.manager.list_sessions()
+                 if i["id"] == sid), None)
+            if info is None:
+                return False
+            try:
+                with open(_os.path.join(
+                    session_checkpoint_dir(str(msg.get("source"))),
+                    sid, "session.json",
+                )) as f:
+                    side = json.load(f)
+                same = (
+                    info.get("width") == int(side["width"])
+                    and info.get("height") == int(side["height"])
+                    and str(info.get("rule")) == str(side.get("rule"))
+                )
+            except (OSError, ValueError, KeyError, TypeError):
+                return False
+            if not same:
+                return False
+            reply.update(ok=True, session=info, replayed=True)
+            return True
+        if op == "create" and reason == "exists":
+            from gol_tpu_torch.models.rules import get_rule
+
+            sid = msg.get("id")
+            s = self.manager.get(sid)
+            if s is None:
+                # The first attempt's create may have landed and been
+                # hibernated by the idle sweep before the retry
+                # arrived: an IDENTICAL recipe — seed/density
+                # included, exactly the live compare below — still
+                # reads as success; anything else is a real duplicate.
+                meta = self.manager.parked_meta(sid)
+                if meta is None:
+                    return False
+                try:
+                    want_rule = (self.manager.default_rule
+                                 if msg.get("rule") is None
+                                 else get_rule(msg["rule"]))
+                    same = (
+                        meta.get("width") == msg.get("width")
+                        and meta.get("height") == msg.get("height")
+                        and str(meta.get("rule")) == str(want_rule)
+                        and meta.get("seed") == msg.get("seed")
+                        and (meta.get("seed") is None
+                             or meta.get("density")
+                             == float(msg.get("density", 0.25)))
+                    )
+                except (ValueError, TypeError):
+                    return False
+                if not same:
+                    return False
+                info = next(
+                    (i for i in self.manager.list_sessions()
+                     if i["id"] == sid), None)
+                reply.update(ok=True, session=info, replayed=True)
+                return True
+            b = s.bucket
+            try:
+                want_rule = (self.manager.default_rule
+                             if msg.get("rule") is None
+                             else get_rule(msg["rule"]))
+                same = (
+                    b.width == msg.get("width")
+                    and b.height == msg.get("height")
+                    and str(b.rule) == str(want_rule)
+                    and s.seed == msg.get("seed")
+                    and (s.seed is None
+                         or s.density == float(msg.get("density", 0.25)))
+                )
+            except (ValueError, TypeError):
+                return False
+            if not same:
+                return False  # a REAL duplicate id, not a retry
+            reply.update(ok=True, session=s.info(), replayed=True)
+            return True
+        return False
+
+    def _handle_session_op(self, conn: _Conn, msg: dict) -> None:
+        """One `{"t":"session"}` verb; every outcome is an in-stream
+        `session-r` reply — a malformed request must never kill the
+        reader or wedge the peer waiting. Verbs stamped with a client
+        request id (`rid`) are idempotent: a completed verb's reply is
+        replayed from the bounded window, and state-based checks make
+        retried creates/destroys converge even when the window (or the
+        whole process) has been lost in between."""
+        from gol_tpu_torch.sessions import SessionError
+
+        op = msg.get("op")
+        rid = msg.get("rid")
+        if not (isinstance(rid, str) and 0 < len(rid) <= 128):
+            rid = None  # absent or hostile: plain one-shot semantics
+        if rid is not None:
+            cached = self._replay_lookup(rid)
+            if cached is not None:
+                with contextlib.suppress(wire.WireError, OSError):
+                    conn.send(cached)
+                return
+        reply = {"t": "session-r", "op": op}
+        if rid is not None:
+            reply["rid"] = rid
+        try:
+            if op == "create":
+                density = msg.get("density", 0.25)
+                info = self.manager.create(
+                    msg.get("id"),
+                    width=msg.get("width"), height=msg.get("height"),
+                    rule=msg.get("rule"), seed=msg.get("seed"),
+                    density=float(density),
+                )
+                reply.update(ok=True, session=info)
+            elif op == "destroy":
+                self.manager.destroy(msg.get("id"))
+                # Evict the destroyed session's freshness clock (the
+                # bounded-cardinality discipline: clocks key on sid
+                # and must not accumulate under create/destroy churn).
+                self.freshness.drop_key(msg.get("id"))
+                reply.update(ok=True, id=msg.get("id"))
+            elif op == "list":
+                reply.update(ok=True,
+                             sessions=self.manager.list_sessions())
+            elif op == "checkpoint":
+                r = self.manager.checkpoint(msg.get("id"))
+                reply.update(ok=True, id=msg.get("id"), **r)
+            elif op == "park":
+                r = self.manager.park(msg.get("id"))
+                reply.update(ok=True, **r)
+            elif op == "adopt":
+                # Control-plane migration : materialize a
+                # session parked under ANOTHER engine's out tree. The
+                # manager re-checkpoints locally before this acks.
+                info = self.manager.adopt(msg.get("id"),
+                                          msg.get("source"))
+                reply.update(ok=True, session=info)
+            elif op == "drain":
+                n = self._drain()
+                reply.update(ok=True, checkpointed=n, draining=True)
+            else:
+                reply.update(ok=False, reason="unknown-op")
+        except SessionError as e:
+            reason = str(e)
+            if not (rid is not None
+                    and self._idempotent_outcome(op, msg, reason, reply)):
+                reply.update(ok=False, reason=reason)
+                if reason == "max-sessions":
+                    # Over-budget is transient by design: tell the
+                    # storm when to come back instead of letting it
+                    # hammer a full house.
+                    reply["retry_after"] = self.retry_after_secs
+        except (TypeError, ValueError, KeyError):
+            reply.update(ok=False, reason="bad-request")
+        except TimeoutError:
+            reply.update(ok=False, reason="busy",
+                         retry_after=self.retry_after_secs)
+        except OSError:
+            # Manifest/tombstone/checkpoint writes hit the filesystem:
+            # a full or read-only disk must answer the verb (the
+            # effect may or may not have committed — the rid retry
+            # discipline handles that), never kill the reader thread
+            # and leak a conn that consumes an admission slot forever.
+            log.exception("session verb %r failed on I/O", op)
+            reply.update(ok=False, reason="io-error")
+        if rid is not None and reply.get("ok"):
+            self._replay_record(rid, reply)
+        with contextlib.suppress(wire.WireError, OSError):
+            conn.send(reply)
+
+    def _drain(self) -> int:
+        """The roll verb's first half (control plane):
+        checkpoint every RESIDENT session crash-atomically and flip
+        the draining flag so new session attaches bounce with a
+        retry hint. After this acks, a SIGTERM + `--resume latest`
+        restart loses nothing — parked sessions already sit on their
+        hibernation snapshots. Idempotent by construction: a retried
+        drain re-checkpoints (same turn, same bytes) and stays
+        draining. Returns the number checkpointed."""
+        from gol_tpu_torch.sessions import SessionError
+
+        self.draining = True
+        n = 0
+        for info in self.manager.list_sessions():
+            if info.get("parked"):
+                continue
+            with contextlib.suppress(SessionError, TimeoutError,
+                                     OSError):
+                self.manager.checkpoint(info["id"])
+                n += 1
+        tracing.event("server.drain", "lifecycle", checkpointed=n)
+        flight.note("server.drain", checkpointed=n)
+        return n
+
+    # --- liveness (the EngineServer discipline, per session) ---
+
+    def _heartbeat_loop(self) -> None:
+        interval = max(0.05, self.heartbeat_secs / 2.0)
+        while not self._shutdown.wait(interval):
+            now = time.monotonic()
+            with self._conn_lock:
+                conns = list(self._conns)
+                sids = dict((c, s[0]) for c, s in self._sinks.items())
+            # Freshness sweep: session-attached peers age against
+            # THEIR session's clock; control peers (no sink) are not
+            # stream consumers and are skipped.
+            self.freshness.sample(
+                (c, sids[c]) for c in conns if c in sids
+            )
+            # Accounting sweep (same rationale as the EngineServer's):
+            # writer-queue occupancy in frame-seconds per principal.
+            _meter = accounting.meter()
+            if _meter is not None:
+                for c in conns:
+                    q = c.queued()
+                    if q:
+                        _meter.charge(c.principal,
+                                      queue_frame_seconds=q * interval)
+            for conn in conns:
+                if not conn.writer_started:
+                    continue
+                if conn.degraded:
+                    # Degradation owns this peer's verdict (the
+                    # EngineServer discipline): no beacons into a
+                    # backlogged queue, no hb-eviction racing the
+                    # drain deadline. Drain-resync happens on the
+                    # engine thread (the sink's on_turn — it needs the
+                    # device); this loop only enforces the deadline.
+                    if (now - conn.degraded_since > conn.drain_secs
+                            and conn.queued() > conn.LOW_WATER):
+                        log.warning(
+                            "evicting session peer %d: wedged %.1fs "
+                            "past the drain deadline", conn.token,
+                            now - conn.degraded_since,
+                        )
+                        if conn.count_overflow():
+                            _METRICS.overflows.inc()
+                            flight.note("server.drain_evict",
+                                        token=conn.token)
+                        self._drop_conn(conn)
+                    continue
+                if (conn.hb and conn.hb_unanswered >= self.HB_MISS_LIMIT
+                        and now - conn.last_rx > self.evict_secs):
+                    log.warning(
+                        "evicting unresponsive session peer (silent "
+                        "%.1fs)", now - conn.last_rx,
+                    )
+                    _METRICS.evicted.inc()
+                    tracing.event("server.evict", "lifecycle",
+                                  role=conn.role, token=conn.token)
+                    flight.note("server.evict", role=conn.role,
+                                token=conn.token)
+                    self._drop_conn(conn)
+                    flight.dump("peer-eviction")
+                    continue
+                if now - conn.last_tx >= self.heartbeat_secs:
+                    # peek_turn, NOT manager.get: the manager lock is
+                    # held across whole bucket dispatches (cold
+                    # first dispatches included) and a beacon that waits on it
+                    # defeats its own purpose — liveness must stay
+                    # engine-loop independent (docs/RESILIENCE.md).
+                    turn = self.manager.peek_turn(sids.get(conn, ""))
+                    try:
+                        if conn.binary:
+                            conn.send_raw(wire.heartbeat_to_frame(turn))
+                        else:
+                            conn.send({"t": "hb", "turn": turn})
+                    except (wire.WireError, OSError):
+                        self._drop_conn(conn)
+                        continue
+                    _METRICS.heartbeats.inc()
+                    if conn.hb:
+                        conn.hb_unanswered += 1

@@ -41,6 +41,11 @@ backends; the tiled backend offers `fetch_diffs` (its diff stack is
 already on the host) and `tiled`, as gol_tpu's does. The sharded
 backends are not ported yet.
 
+`make_batch_stepper` builds the backend of one session bucket
+(`BatchStepper`): S boards of one shape stepped together, each k-turn
+chunk of a packable bucket one launch of kernel A's batched entry
+(`bucket_route`).
+
 `make_stepper` wraps the backend as gol_tpu's does: `instrument_stepper`
 (per-entry dispatch counters, host-blocking histograms and spans) unless
 metrics are off, then `analysis.invariants.checked_stepper` when the
@@ -49,6 +54,7 @@ invariant checker is on.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional
 
@@ -207,25 +213,30 @@ def _scan(step_fn, state, k: int, emit):
     return state
 
 
-def _stacked(rows: list, empty_row: Callable) -> torch.Tensor:
-    """The per-turn rows as one (k, ...) tensor; k = 0 gives an empty
-    stack shaped like `empty_row()`."""
+def _stacked(rows: list, empty_row: Callable, axis: int = 0) -> torch.Tensor:
+    """The per-turn rows as one tensor with the turn axis at `axis`
+    ((k, ...) for one board, (S, k, ...) for a bucket); k = 0 gives an
+    empty stack shaped like `empty_row()`."""
     if rows:
-        return torch.stack(rows)
+        return torch.stack(rows, dim=axis)
     row = empty_row()
-    return row.new_empty((0, *row.shape))
+    shape = list(row.shape)
+    shape.insert(axis, 0)
+    return row.new_empty(shape)
 
 
-def scan_diffs(step_fn, diff_fn, count_fn):
+def scan_diffs(step_fn, diff_fn, count_fn, lead: int = 0):
     """Build a `step_n_with_diffs`: k turns of `step_fn`, the per-turn
     output `diff_fn(old, new)` stacked on the device, and the alive
-    count once on the final state."""
+    count once on the final state. `lead` leading axes of the state
+    index independent boards (1 for a session bucket's (S, ...) stack,
+    gol_tpu's vmap): the turn axis goes after them."""
 
     def step_n_with_diffs(state, k):
         diffs = []
         new = _scan(step_fn, state, k,
                     lambda old, nxt: diffs.append(diff_fn(old, nxt)))
-        return (new, _stacked(diffs, lambda: diff_fn(state, state)),
+        return (new, _stacked(diffs, lambda: diff_fn(state, state), lead),
                 count_fn(new))
 
     return step_n_with_diffs
@@ -239,28 +250,33 @@ def sparse_bitmap_words(total_words: int) -> int:
 
 
 def _bitmap(changed: torch.Tensor) -> torch.Tensor:
-    """(total,) bool changed-word flags -> (nb,) int32 bitmap words, bit
-    i of word w set when word 32w + i changed. Built in int64 (a sum of
-    bit weights up to 2**32 - 1 needs no overflowing shift or sum), then
-    narrowed to the two's-complement int32 bit pattern explicitly."""
-    total = changed.shape[0]
+    """(..., total) bool changed-word flags -> (..., nb) int32 bitmap
+    words, bit i of word w set when word 32w + i changed (one bitmap per
+    leading index: a bucket's sessions each get their own). Built in
+    int64 (a sum of bit weights up to 2**32 - 1 needs no overflowing
+    shift or sum), then narrowed to the two's-complement int32 bit
+    pattern explicitly."""
+    total = changed.shape[-1]
+    lead = changed.shape[:-1]
     nb = sparse_bitmap_words(total)
-    bits = torch.zeros(nb * 32, dtype=torch.int64, device=changed.device)
-    bits[:total] = changed
+    bits = torch.zeros((*lead, nb * 32), dtype=torch.int64,
+                       device=changed.device)
+    bits[..., :total] = changed
     weights = torch.ones(32, dtype=torch.int64, device=changed.device) << (
         torch.arange(32, dtype=torch.int64, device=changed.device))
-    words = (bits.view(nb, 32) * weights).sum(dim=1)
+    words = (bits.view(*lead, nb, 32) * weights).sum(dim=-1)
     return torch.where(words >= 1 << 31, words - (1 << 32), words).to(
         torch.int32)
 
 
 def _ranked_targets(changed: torch.Tensor, base, cap: int) -> torch.Tensor:
-    """Scatter targets of a turn's changed words, without a
-    data-dependent shape: base + rank (rank = cumsum(changed) - 1) where
-    a word changed and the target is below `cap`, else the sink slot
-    `cap` (one past the end, sliced off by the caller) — jnp.nonzero's
-    first-`cap` truncation and `mode="drop"` in one form."""
-    pos = torch.cumsum(changed, 0) - 1 + base
+    """Scatter targets of a turn's changed words (along the last dim),
+    without a data-dependent shape: base + rank (rank = cumsum(changed)
+    - 1) where a word changed and the target is below `cap`, else the
+    sink slot `cap` (one past the end, sliced off by the caller) —
+    jnp.nonzero's first-`cap` truncation and `mode="drop"` in one form.
+    `base` is a scalar, or one offset per leading index."""
+    pos = torch.cumsum(changed, -1) - 1 + base
     return torch.where(changed & (pos < cap), pos, cap)
 
 
@@ -315,42 +331,54 @@ def sparse_scan_diffs(step_fn, diff_fn, count_fn):
     return step_n_with_diffs_sparse
 
 
-def compact_scan_diffs(step_fn, diff_fn, count_fn):
+def compact_scan_diffs(step_fn, diff_fn, count_fn, lead: int = 0):
     """Build a `step_n_with_diffs_compact`: per turn only the [count,
     bitmap] header, while the changed-word VALUES are stream-compacted
     into one shared (total_cap,) int32 buffer — each turn's words at
     offset sum(counts so far) + rank, ascending word index within a
-    turn. The offset stays a device scalar, so the host never waits.
+    turn. The offset stays a device tensor, so the host never waits.
     Targets at or past `total_cap` (an overflowing chunk) fall into a
     sink slot that is sliced off: the buffer then holds exactly what
     gol_tpu's `mode="drop"` keeps, and the host detects the overflow
-    from the summed counts."""
+    from the summed counts.
+
+    `lead` leading axes of the state index independent boards, as in
+    `scan_diffs`: each gets its own headers, buffer and offset
+    (gol_tpu's vmap of `_compact_scan`), so a bucket's (S, ...) stack
+    gives (S, k, 1 + nb) headers and (S, total_cap) values, and one
+    session overflowing leaves the others whole."""
 
     def step_n_with_diffs_compact(state, k, total_cap):
         total_cap = int(total_cap)
-        buf = torch.zeros(total_cap + 1, dtype=torch.int32,
+        shape = state.shape[:lead]
+        buf = torch.zeros((*shape, total_cap + 1), dtype=torch.int32,
                           device=state.device)
         headers = []
-        off = torch.zeros((), dtype=torch.int64, device=state.device)
+        off = torch.zeros((*shape, 1), dtype=torch.int64,
+                          device=state.device)
 
         def header(d):
             changed = d != 0
             return changed, torch.cat([
-                changed.sum(dtype=torch.int32).reshape(1), _bitmap(changed)])
+                changed.sum(dim=-1, dtype=torch.int32, keepdim=True),
+                _bitmap(changed)], dim=-1)
+
+        def flat(old, new):
+            return diff_fn(old, new).reshape(*shape, -1)
 
         def emit(old, new):
             nonlocal off
-            d = diff_fn(old, new).reshape(-1)
+            d = flat(old, new)
             changed, head = header(d)
-            buf.scatter_(0, _ranked_targets(changed, off, total_cap), d)
+            buf.scatter_(-1, _ranked_targets(changed, off, total_cap), d)
             headers.append(head)
-            off = off + changed.sum()
+            off = off + changed.sum(dim=-1, keepdim=True)
 
         new = _scan(step_fn, state, k, emit)
         return (new,
-                _stacked(headers,
-                         lambda: header(diff_fn(state, state).reshape(-1))[1]),
-                buf[:total_cap], count_fn(new))
+                _stacked(headers, lambda: header(flat(state, state))[1],
+                         lead),
+                buf[..., :total_cap], count_fn(new))
 
     return step_n_with_diffs_compact
 
@@ -437,6 +465,249 @@ def compact_value_prefix(values, total: int) -> np.ndarray:
     if isinstance(head, torch.Tensor):
         head = head.cpu().numpy()
     return np.ascontiguousarray(head).view(np.uint32)
+
+
+@dataclasses.dataclass
+class BatchStepper:
+    """Execution backend of one session BUCKET (gol_tpu_torch.sessions):
+    `capacity` boards of one shape and rule stacked on a leading axis —
+    int32 (S, H/32, W) packed words when the grid packs, uint8 (S, H, W)
+    otherwise — the fields, refusals and `offers()` of gol_tpu's vmapped
+    `BatchStepper`, so S tenants share one dispatch.
+
+    How a stack steps on the card is `bucket_route(H, W)`:
+    - "resident": packable, and two copies of one board fit a cluster
+      plan of kernel A (`cuda_bitlife._cluster_plan`; 256² up to about
+      2048²). A k-turn chunk is ONE launch of kernel A's batched entry
+      for the whole stack, padding slots included; each turn of the diff
+      scans is one launch of n = 1 over the stack, then the XOR with the
+      previous stack — k launches a watched chunk, whatever S is.
+    - "tiled2d": packable with no cluster plan (4096²: two copies need
+      589,824 bytes of shared memory for 8 slabs). Each slot steps through
+      kernel B's 2-D entry, one launch per slot per pass.
+    - "dense": not packable (H % 32 != 0). Each slot steps through kernel
+      E (`cuda_life.step_n_cuda_dense`); a board kernel E cannot plan
+      raises when the bucket is built.
+    On the CPU the same wrappers run their plain versions (the 3-D stack
+    through `bitlife.step_n_packed_raw`, `life.step_n` per slot). No
+    route steps a CUDA stack through plain PyTorch.
+
+    Every step writes a NEW stack (a cluster reads its ghost rows from
+    the input), so the pre-dispatch stack stays valid until the caller
+    drops it — the compact overflow redo restarts from it. `set_one` and
+    `clear_one` write the slot in place, on the stack's device and
+    current stream, ordered after the launches that read it; the slot
+    index is a plain int (nothing is compiled per slot).
+
+    Padding: free slots hold all-zero boards and are stepped like any
+    tenant. A zero board stays zero under any rule without birth-on-0,
+    which is why the factory rejects B0 rules."""
+
+    name: str
+    capacity: int
+    height: int
+    width: int
+    rule: Rule
+    packed: bool
+    #: packed words per board (0 on the dense route) — the decode space
+    #: `compact_decode_rows`/`sparse_decode_rows` need.
+    total_words: int
+    #: list of `capacity` host (H, W) uint8 boards -> device stack
+    put_all: Callable
+    #: (stack, slot) -> host (H, W) {0,255} uint8 board
+    fetch_one: Callable
+    #: (stack, slot, host (H, W) board) -> stack
+    set_one: Callable
+    #: (stack, slot) -> stack with that slot zeroed
+    clear_one: Callable
+    #: (stack, k) -> (stack, (S,) int32 per-session alive counts)
+    step_n: Callable
+    #: (stack, k) -> (stack, per-session diff stacks, counts): int32
+    #: (S, k, H/32, W) packed XOR rows when packed (gol_tpu's uint32
+    #: words, bitcast), bool (S, k, H, W) masks otherwise — row t of
+    #: session s is what the single-board `step_n_with_diffs` gives.
+    step_n_with_diffs: Callable
+    #: (stack, k, total_cap) -> (stack, (S, k, 1+nb) int32 headers,
+    #: (S, total_cap) int32 values, counts): `compact_scan_diffs` per
+    #: session — each session its own [count, bitmap] headers, its own
+    #: value buffer and offset. None on the dense route.
+    step_n_with_diffs_compact: Optional[Callable] = None
+    #: () -> census of the stacks stepped so far: {"stacks": [(S, *board
+    #: shape, route)]}. gol_tpu reports its jit cache here; this port
+    #: compiles nothing per shape, so a warm bucket's census stays put
+    #: across create / destroy / checkpoint / park.
+    cache_sizes: Optional[Callable] = None
+
+    def offers(self, entry: str) -> bool:
+        """Capability probe, sharing ENTRY_TABLE's entry names where a
+        bucket field mirrors a Stepper entry (same contract as
+        `Stepper.offers`)."""
+        entry_info(entry)  # unknown entry names are programming errors
+        value = getattr(self, entry, None)
+        return value is not None and value is not False
+
+
+def bucket_route(height: int, width: int) -> str:
+    """How the card steps a bucket of (height, width) boards:
+    "resident" (one batched launch of kernel A for the stack), "tiled2d"
+    (kernel B's 2-D entry per slot) or "dense" (kernel E per slot) — see
+    `BatchStepper`."""
+    from gol_tpu_torch.ops import cuda_bitlife as cb
+
+    if not bitlife.packable(height, width):
+        return "dense"
+    try:
+        cb._cluster_plan(height // bitlife.WORD, width, 2)
+    except ValueError:
+        return "tiled2d"
+    return "resident"
+
+
+def _bucket_step(route: str, rule: Rule):
+    """(stack, n) -> a new stack, every slot n turns on, through the
+    route's wrapper (kernel on a CUDA stack, plain version on a CPU one)."""
+    from gol_tpu_torch.ops import cuda_bitlife as cb, cuda_life
+
+    if route == "resident":
+        return lambda stack, n: cb.step_n_packed_batch_cuda_raw(
+            stack, int(n), rule)
+    one = (cb.step_n_packed_tiled2d_raw if route == "tiled2d"
+           else cuda_life.step_n_cuda_dense)
+    return lambda stack, n: torch.stack(
+        [one(stack[i], int(n), rule) for i in range(stack.shape[0])])
+
+
+def make_batch_stepper(capacity: int, height: int, width: int,
+                       rule: Rule | str = LIFE, device=None) -> BatchStepper:
+    """Build a session bucket's backend on `device` (None: the CUDA
+    card; "cpu" for the plain versions): packed SWAR per session when the
+    grid packs, dense otherwise, each step routed as `bucket_route`
+    says. Two-state rules only, as in gol_tpu."""
+    from gol_tpu_torch.ops import cuda_bitlife as cb
+
+    rule = get_rule(rule) if isinstance(rule, str) else rule
+    if isinstance(rule, GenRule):
+        raise ValueError(
+            "session buckets are two-state only (multi-state rules "
+            "need per-bucket plane stacks — not yet offered)"
+        )
+    if 0 in rule.birth:
+        raise ValueError(
+            f"rule {rule} births on 0 neighbours — empty padding slots "
+            "would seethe, so B0 rules cannot share a padded bucket"
+        )
+    if capacity < 1:
+        raise ValueError("bucket capacity must be >= 1")
+    if capacity > cb.MAX_BATCH:
+        raise ValueError(f"bucket capacity {capacity} is over the "
+                         f"{cb.MAX_BATCH} boards one launch takes "
+                         "(cuda_bitlife.MAX_BATCH)")
+    dev = resolve_device(device)
+    packed = bitlife.packable(height, width)
+    route = bucket_route(height, width)
+    if dev.type == "cuda":
+        # Plan the route's kernel now: a board it cannot take raises
+        # here, never at the first dispatch, and never falls back.
+        if route == "tiled2d":
+            cb._tiled2d_geometry(height // bitlife.WORD, width, None)
+        elif route == "dense":
+            from gol_tpu_torch.ops import cuda_life
+
+            cuda_life._dense_plan(height, width)
+    stack_step = _bucket_step(route, rule)
+    census: set = set()
+
+    def _seen(stack):
+        census.add((*stack.shape, route))
+        return stack
+
+    if packed:
+        def host_one(board):
+            return bitlife.pack_np(board).view(np.int32)
+
+        def to_host(one):
+            return bitlife.unpack_np(one.view(np.uint32), height)
+
+        def counts(stack):
+            return bitlife.popcount(stack).sum(dim=(1, 2), dtype=torch.int32)
+
+        diff1 = torch.bitwise_xor
+    else:
+        def host_one(board):
+            return np.asarray(board, np.uint8)
+
+        def to_host(one):
+            return one
+
+        def counts(stack):
+            return (stack != 0).sum(dim=(1, 2), dtype=torch.int32)
+
+        diff1 = torch.ne
+
+    def _on_device():
+        return (torch.cuda.device(dev) if dev.type == "cuda"
+                else contextlib.nullcontext())
+
+    def put_all(boards):
+        if len(boards) != capacity:
+            raise ValueError(
+                f"put_all needs {capacity} boards, got {len(boards)}"
+            )
+        host = np.stack([host_one(np.asarray(b)) for b in boards])
+        return _seen(torch.from_numpy(host).to(dev))
+
+    def fetch_one(stack, slot):
+        return to_host(stack[int(slot)].cpu().numpy())
+
+    def set_one(stack, slot, board):
+        b = np.asarray(board)
+        if b.shape != (height, width):
+            raise ValueError(f"board shape {b.shape} != {(height, width)}")
+        with _on_device():
+            stack[int(slot)].copy_(torch.from_numpy(host_one(b)).to(dev))
+        return stack
+
+    def clear_one(stack, slot):
+        with _on_device():
+            stack[int(slot)].zero_()
+        return stack
+
+    def step_n(stack, k):
+        out = _seen(stack_step(stack, max(int(k), 0)))
+        return out, counts(out)
+
+    def step1(stack):
+        return stack_step(stack, 1)
+
+    scan = (step1, diff1, counts)
+    scan_n = scan_diffs(*scan, lead=1)
+    compact_n = compact_scan_diffs(*scan, lead=1)
+
+    def step_n_with_diffs(stack, k):
+        return scan_n(_seen(stack), k)
+
+    def step_n_with_diffs_compact(stack, k, total_cap):
+        return compact_n(_seen(stack), k, total_cap)
+
+    return BatchStepper(
+        name=("bucket-packed" if packed else "bucket-dense")
+        + f"-{capacity}",
+        capacity=capacity,
+        height=height,
+        width=width,
+        rule=rule,
+        packed=packed,
+        total_words=(height // bitlife.WORD) * width if packed else 0,
+        put_all=put_all,
+        fetch_one=fetch_one,
+        set_one=set_one,
+        clear_one=clear_one,
+        step_n=step_n,
+        step_n_with_diffs=step_n_with_diffs,
+        step_n_with_diffs_compact=(step_n_with_diffs_compact if packed
+                                   else None),
+        cache_sizes=lambda: {"stacks": sorted(census)},
+    )
 
 
 def _planes_xor(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:

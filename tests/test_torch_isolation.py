@@ -48,7 +48,8 @@ def test_scan_covers_every_port_module():
     dense-kernel modules, the invariant checker, the visualiser, the
     checkpoint and trace utilities, the serving core (wire, server,
     client, writer pool, freshness, the metrics sidecar, the fault
-    injector, lockcheck) and chip_smoke.py among them; the
+    injector, lockcheck), the session plane (manager, engine) and the
+    replay plane (log, recorder, server) and chip_smoke.py among them; the
     native core's directory holds its sources only (it builds under
     build/gol_tpu_torch/)."""
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
@@ -76,6 +77,14 @@ def test_scan_covers_every_port_module():
                  "gol_tpu_torch/testing/faults.py",
                  "gol_tpu_torch/testing/leaks.py",
                  "gol_tpu_torch/analysis/concurrency/lockcheck.py",
+                 "gol_tpu_torch/obs/accounting.py",
+                 "gol_tpu_torch/sessions/__init__.py",
+                 "gol_tpu_torch/sessions/manager.py",
+                 "gol_tpu_torch/sessions/engine.py",
+                 "gol_tpu_torch/replay/__init__.py",
+                 "gol_tpu_torch/replay/log.py",
+                 "gol_tpu_torch/replay/recorder.py",
+                 "gol_tpu_torch/replay/server.py",
                  "chip_smoke.py"):
         assert want in names
     native = sorted(p.name for p in (REPO / "gol_tpu_torch" / "native")
@@ -232,11 +241,86 @@ def test_engine_server_without_gpu_raises(no_cuda, golden_root, tmp_path):
     assert not list(tmp_path.iterdir())
 
 
-@pytest.mark.parametrize("flag", ["--sessions", "--relay", "--record",
-                                  "--replay"])
-def test_unported_serving_flags_refused(flag):
+@pytest.mark.parametrize("argv,match", [
+    pytest.param(["--sessions", "--serve", "0"], "no CUDA GPU",
+                 id="--sessions"),
+    pytest.param(["--relay", "x:1", "--serve", "0", "--platform", "cpu"],
+                 "not yet ported", id="--relay"),
+    pytest.param(["--record", "--serve", "0", "--platform", "cpu"],
+                 "--record applies to --serve --sessions", id="--record"),
+    pytest.param(["--replay", "x:1", "--serve", "0"], "no CUDA GPU",
+                 id="--replay"),
+    pytest.param(["--sessions", "--serve", "0", "--platform", "cpu",
+                  "--session-budget-flops", "1e9"], "not yet ported",
+                 id="--session-budget-flops"),
+    pytest.param(["--sessions", "--serve", "0", "--platform", "cpu",
+                  "--session-budget-bytes", "1e6"], "not yet ported",
+                 id="--session-budget-bytes"),
+])
+def test_unported_serving_flags_refused(argv, match, no_cuda):
+    """The relay and the session budgets are still refused as not yet
+    ported; `--sessions`, `--record` and `--replay` are ported, so they
+    reach their own guards — and, without --platform cpu, the card."""
     from gol_tpu_torch import cli
 
-    argv = [flag] if flag in ("--sessions", "--record") else [flag, "x:1"]
-    with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(argv + ["--serve", "0", "--platform", "cpu"])
+    with pytest.raises(SystemExit, match=match):
+        cli.main(argv)
+
+
+def test_session_server_without_gpu_raises(no_cuda, tmp_path):
+    """No card and no CPU request: the session server (and its manager)
+    refuse at construction, before a port is bound or a thread starts."""
+    import threading
+
+    from gol_tpu_torch.distributed import SessionServer
+    from gol_tpu_torch.params import Params
+    from gol_tpu_torch.sessions import SessionManager
+
+    before = {t.ident for t in threading.enumerate()}
+    p = Params(turns=1, image_width=64, image_height=64,
+               out_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        SessionServer(p, port=0, record=True)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        SessionManager(out_dir=str(tmp_path))
+    assert {t.ident for t in threading.enumerate()} <= before
+    assert not list(tmp_path.iterdir())
+
+
+def test_cpu_session_round_loads_no_jax(tmp_path):
+    """A session round on the CPU — SessionServer with --record, a
+    SessionControl create, a session driver, a seek, a ReplayServer over
+    the recording — loads no JAX and nothing of gol_tpu."""
+    code = f"""
+import sys
+sys.path.insert(0, {str(REPO)!r})
+from gol_tpu_torch.distributed import Controller, SessionControl, SessionServer
+from gol_tpu_torch.params import Params
+from gol_tpu_torch.replay import ReplayServer
+p = Params(turns=10**9, image_width=64, image_height=64,
+           out_dir={str(tmp_path)!r})
+srv = SessionServer(p, port=0, device="cpu", record=True,
+                    keyframe_turns=16).start()
+with SessionControl(*srv.address, timeout=10) as sc:
+    sc.create("s1", width=64, height=64, seed=5)
+drv = Controller(*srv.address, session="s1", want_flips=True, batch=True,
+                 timeout=10)
+assert drv.wait_sync(10)
+for i, ev in enumerate(drv.events):
+    if i > 40:
+        break
+assert drv.seek(0, timeout=10)["ok"]
+drv.close()
+srv.shutdown()
+rs = ReplayServer({str(tmp_path / 'sessions')!r}, port=0).start()
+rs.shutdown()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0].startswith("jax") or m == "gol_tpu"
+             or m.startswith("gol_tpu."))
+print("FORBIDDEN", bad)
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=tmp_path, env=ENV)
+    assert r.returncode == 0, r.stderr
+    assert "FORBIDDEN []" in r.stdout, r.stdout
+    assert (tmp_path / "sessions" / "s1" / "replay").is_dir()
