@@ -44,7 +44,18 @@ sequential steppers; `main-sessions-serve`: a recording SessionServer
 with a driver behind the byte-counting proxy, beside the same server
 on the host CPU, a live seek and a ReplayServer's cold seek;
 `cli-sessions`: `--serve --sessions --record`, `--connect --session`,
-`--replay` processes), every board against the plain version — and prints
+`--replay` processes), runs the broadcast tier, the telemetry planes
+and the fleet (phase `relay-fanout`: the settled 512² fixture served to
+50 and 500 observers direct and through a 2-level relay chain, root
+bytes per observer-turn, one root encode a chunk, one kernel A launch a
+turn; `main-relay-16384`: a late BoardSync from a relay's shadow raster
+at 16384², by leg, and a WebSocket observer on its gateway;
+`main-telemetry`: a SessionServer with the turn-age alert fired by a
+wedged observer and resolved by its drain, the usage ledger and the
+cost price, remote-write into a collector, a WebSocket canary;
+`cli-fleet`: `--collector`, `--serve --sessions`, `--relay` and
+`--control` processes, a SIGKILLed relay healed), every board against
+the plain version — and prints
 the `kernels` JSON line, the card's name and power limit, and a last
 line `{"ok": true, "device": {...}}`. Any failed phase raises, so the
 script exits nonzero and prints no result. Without a CUDA device, or
@@ -2183,19 +2194,21 @@ def main_cli_full(tmp: pathlib.Path, cli_wall: float) -> dict:
 
 
 def counting_proxy(target) -> tuple:
-    """A loopback proxy in front of `target` that counts the bytes it
-    carries toward the client — the link cost of the watched wire,
-    measured outside both endpoints (bench.py's watched-wire lane counts
-    it the same way). Returns ((host, port), stats, close)."""
+    """A loopback proxy in front of `target` that accepts any number of
+    clients and counts the bytes it carries toward them — the link cost
+    of the watched wire, or the root's egress to N observers, measured
+    outside both endpoints (bench.py's watched-wire and fan-out lanes
+    count it the same way). Returns ((host, port), stats, close)."""
     import contextlib
     import socket
     import threading
 
-    lsock = socket.create_server(("127.0.0.1", 0))
+    lsock = socket.create_server(("127.0.0.1", 0), backlog=1024)
     stats = {"down": 0}
+    lock = threading.Lock()
     socks = []
 
-    def pump(src, dst, key=None):
+    def pump(src, dst, count):
         while True:
             try:
                 data = src.recv(1 << 16)
@@ -2203,8 +2216,9 @@ def counting_proxy(target) -> tuple:
                 break
             if not data:
                 break
-            if key is not None:
-                stats[key] += len(data)
+            if count:
+                with lock:
+                    stats["down"] += len(data)
             try:
                 dst.sendall(data)
             except OSError:
@@ -2214,12 +2228,20 @@ def counting_proxy(target) -> tuple:
                 s.shutdown(socket.SHUT_RDWR)
 
     def serve():
-        with contextlib.suppress(OSError):
-            c, _ = lsock.accept()
-            u = socket.create_connection(target)
+        while True:
+            try:
+                c, _ = lsock.accept()
+            except OSError:
+                return
+            try:
+                u = socket.create_connection(target)
+            except OSError:
+                c.close()
+                continue
             socks.extend((c, u))
-            threading.Thread(target=pump, args=(c, u), daemon=True).start()
-            threading.Thread(target=pump, args=(u, c, "down"),
+            threading.Thread(target=pump, args=(c, u, False),
+                             daemon=True).start()
+            threading.Thread(target=pump, args=(u, c, True),
                              daemon=True).start()
 
     threading.Thread(target=serve, daemon=True).start()
@@ -2227,7 +2249,8 @@ def counting_proxy(target) -> tuple:
     def close():
         lsock.close()
         for s in socks:
-            s.close()
+            with contextlib.suppress(OSError):
+                s.close()
 
     return lsock.getsockname(), stats, close
 
@@ -3689,6 +3712,700 @@ def cli_sessions(tmp: pathlib.Path, card: str) -> dict:
     return walls
 
 
+# --- the broadcast tier, the telemetry planes and the fleet ---------------
+
+#: Observers per fan-out point (direct off the root, then split across a
+#: 2-level relay chain), and the seconds each point is measured for.
+FANOUT_POINTS = (50, 500)
+FANOUT_SECS = 4.0
+#: Decoded observers per fan-out point (Controllers whose shadow rasters
+#: are held against the plain version); the rest drain raw bytes.
+FANOUT_CHECKED = 4
+
+
+class RasterWatch:
+    """Drain a Controller's events on a thread, keeping the turn of its
+    last TurnComplete: with the engine paused, (its board, that turn) is
+    a consistent pair."""
+
+    def __init__(self, ctl):
+        import threading
+
+        self.ctl, self.last = ctl, ctl.sync_turn
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        for ev in self.ctl.events:
+            if type(ev).__name__ == "TurnComplete":
+                self.last = ev.completed_turns
+
+
+def fanout_point(settled, plain_at, n: int, levels: int,
+                 out: pathlib.Path) -> dict:
+    """One point of `relay-fanout`: the settled board served by an
+    EngineServer on the card, paused at turn 0 while `n` raw binary
+    batching observers (hello batch 1024) and FANOUT_CHECKED decoded
+    ones attach — to the root through the counting proxy, or split
+    across a `levels`-deep relay chain hung off the proxy; the run is
+    resumed, the stream settles for 200 turns, and FANOUT_SECS are
+    measured (longer if fewer than two chunks committed in them); then
+    the engine is paused and every decoded observer's
+    raster is held against the plain version at its turn."""
+    import contextlib
+    import selectors
+    import socket
+
+    import numpy as np
+
+    from gol_tpu_torch.distributed import Controller, EngineServer, wire
+    from gol_tpu_torch.distributed.server import _METRICS as SRV
+    from gol_tpu_torch.relay import RelayNode
+
+    server = EngineServer(serve_params(out), port=0, initial_world=settled)
+    server._keys.put("p")
+    reset_launches()
+    server.start()
+    eng = server.engine
+    relays, socks, ctls, watches = [], [], [], []
+    sel = selectors.DefaultSelector()
+    proxy, stats, close_proxy = counting_proxy(server.address)
+
+    def drain(secs: float) -> None:
+        stop = time.monotonic() + secs
+        while time.monotonic() < stop:
+            for key, _ in sel.select(0.05):
+                try:
+                    while key.fileobj.recv(1 << 16):
+                        pass
+                except (BlockingIOError, InterruptedError):
+                    pass
+                except OSError:
+                    with contextlib.suppress(Exception):
+                        sel.unregister(key.fileobj)
+
+    try:
+        wait_until(lambda: eng._paused, "the engine to pause")
+        tiers = [proxy]
+        for _ in range(levels):
+            r = RelayNode(tiers[-1], port=0).start()
+            relays.append(r)
+            if not r.synced.wait(60):
+                raise AssertionError("relay-fanout: a relay never synced")
+            tiers.append(r.address)
+        targets = tiers[1:] if levels else [proxy]
+        for i in range(n):
+            s = socket.create_connection(targets[i % len(targets)],
+                                         timeout=60)
+            s.settimeout(60)
+            wire.send_msg(s, {"t": "hello", "want_flips": True,
+                              "binary": True, "role": "observe",
+                              "batch": 1024})
+            s.setblocking(False)
+            sel.register(s, selectors.EVENT_READ)
+            socks.append(s)
+        for i in range(FANOUT_CHECKED):
+            c = Controller(*targets[i % len(targets)], want_flips=True,
+                           batch=True, batch_turns=1024,
+                           batch_flip_events=False, observe=True,
+                           timeout=60, reconnect=False)
+            ctls.append(c)
+            if not c.wait_sync(60):
+                raise AssertionError("relay-fanout: no sync")
+            watches.append(RasterWatch(c))
+        server._keys.put("p")
+        mark = eng.completed_turns
+        deadline = time.monotonic() + 120
+        while eng.completed_turns < mark + 200:
+            if time.monotonic() > deadline:
+                raise AssertionError("relay-fanout: the stream never "
+                                     "settled")
+            drain(0.2)
+        b0 = stats["down"]
+        e0, c0 = SRV.chunk_encodes.value, SRV.chunks.value
+        s0, o0 = SRV.shed_frames.value, SRV.overflows.value
+        t0, w0 = eng.completed_turns, time.perf_counter()
+        drain(FANOUT_SECS)
+        # A chunk commits its turns at once: measure at least two.
+        while (SRV.chunks.value - c0 < 2
+               and time.perf_counter() - w0 < 60 * FANOUT_SECS):
+            drain(0.2)
+        turns = eng.completed_turns - t0
+        secs = time.perf_counter() - w0
+
+        root_bytes = stats["down"] - b0
+        encodes = SRV.chunk_encodes.value - e0
+        chunks = SRV.chunks.value - c0
+        shed = SRV.shed_frames.value - s0
+        overflows = SRV.overflows.value - o0
+        server._keys.put("p")
+        wait_until(lambda: eng._paused, "the engine to pause at the end")
+        end = eng.completed_turns
+        # The watched path dispatches one chunk ahead of its emission:
+        # the paused engine may hold that chunk, launched, uncommitted.
+        ahead = eng._pending_diffs["k"] if eng._pending_diffs else 0
+        launches = read_launches()["bitlife_resident"]
+        for w in watches:
+            wait_until(lambda w=w: w.last == end,
+                       f"a decoded observer to reach turn {end}", 120)
+            want = plain_at(end)
+            if not np.array_equal(w.ctl.board != 0, want != 0):
+                raise AssertionError(f"relay-fanout: an observer's raster "
+                                     f"at turn {end} differs from the "
+                                     "plain version")
+    finally:
+        for s in socks:
+            with contextlib.suppress(OSError):
+                s.close()
+        for c in ctls:
+            c.close()
+        for r in reversed(relays):
+            r.shutdown()
+        server.shutdown()
+        close_proxy()
+    if not turns or not chunks:
+        raise AssertionError(f"relay-fanout: no stream in {FANOUT_SECS} s "
+                             f"({turns} turns, {chunks} chunks)")
+    if encodes != chunks:
+        raise AssertionError(f"relay-fanout: {encodes} encodes for {chunks} "
+                             "chunks at the root (want one a chunk)")
+    if launches != end + ahead:
+        raise AssertionError(f"relay-fanout: {launches} kernel A launches "
+                             f"for {end} committed and {ahead} dispatched "
+                             "engine turns (want one a turn)")
+    return {"turns_per_sec": turns / secs, "turns": turns, "secs": secs,
+            "root_bytes_per_observer_turn": root_bytes / turns / n,
+            "root_encodes_per_chunk": encodes / chunks, "shed": shed,
+            "overflows": overflows, "launches": launches,
+            "engine_turns": end + ahead}
+
+
+def relay_fanout(tmp: pathlib.Path, card: str) -> int:
+    """Phase `relay-fanout`, gol_tpu's fan-out lane on the card: kernel A
+    settles the 512² fixture for 10,000 turns, and each point of
+    FANOUT_POINTS serves it to N observers direct and through a
+    2-level relay chain. Returns kernel A's launches over the points."""
+    import torch
+
+    from gol_tpu_torch.io.pgm import read_pgm
+    from gol_tpu_torch.ops import bitlife
+    from gol_tpu_torch.ops import cuda_bitlife as cb
+
+    t_phase = time.perf_counter()
+    world0 = read_pgm(FIXTURES / "images" / "512x512.pgm")
+    p = cb.step_n_packed_cuda_raw(packed_board(world0), 10_000)
+    settled = bitlife.unpack_np(p.cpu().numpy().view("uint32"), 512)
+    if not torch.equal(bitlife.step_n_packed_raw(p, 2), p):
+        raise AssertionError("relay-fanout: the settled board is not of "
+                             "period 2")
+    odd = bitlife.unpack_np(bitlife.step_n_packed_raw(p, 1).cpu().numpy()
+                            .view("uint32"), 512)
+
+    def plain_at(turn: int):
+        return settled if turn % 2 == 0 else odd
+
+    points, launches = {}, 0
+    for n in FANOUT_POINTS:
+        for levels, name in ((0, "direct"), (2, "relay2")):
+            r = fanout_point(settled, plain_at, n, levels,
+                             tmp / f"fanout-{name}-{n}")
+            points[f"{name}_{n}"] = r
+            launches += r["launches"]
+            phase("relay-fanout", f"{name} N={n}: "
+                  f"{r['turns_per_sec']:.1f} delivered turns/s "
+                  f"({r['turns']} turns in {r['secs']:.3f} s), "
+                  f"{r['root_bytes_per_observer_turn']:.3f} root bytes per "
+                  f"observer-turn, {r['root_encodes_per_chunk']:.3f} root "
+                  f"encodes per chunk, shed {r['shed']:.0f}, overflows "
+                  f"{r['overflows']:.0f}, kernel A launches "
+                  f"{r['launches']} / engine turns {r['engine_turns']}; "
+                  f"{FANOUT_CHECKED} decoded rasters = plain version; "
+                  f"{card}")
+    big = max(FANOUT_POINTS)
+    ratio = (points[f"direct_{big}"]["root_bytes_per_observer_turn"]
+             / points[f"relay2_{big}"]["root_bytes_per_observer_turn"])
+    phase("relay-fanout", f"root bytes per observer-turn at N={big}, direct "
+          f"over 2-level relay chain: {ratio:.1f}; "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    return launches
+
+
+def main_relay_16384(tmp: pathlib.Path, card: str, side: int = 16384) -> int:
+    """Phase `main-relay-16384`: a 16384² board of 1024 gliders served
+    on the card (kernel B's 2-D entry) through one relay with its
+    WebSocket gateway. Past turn 128 the engine pauses, a binary
+    observer attaches to the relay late and a WebSocket observer to its
+    gateway: both BoardSyncs, encoded from the relay's shadow raster,
+    are the plain version at the sync turn. Returns kernel B's
+    launches."""
+    import torch
+
+    from gol_tpu_torch.distributed import Controller, EngineServer, wire
+    from gol_tpu_torch.obs.canary import WSObserver
+    from gol_tpu_torch.ops import bitlife
+    from gol_tpu_torch.relay import RelayNode
+
+    t_phase = time.perf_counter()
+    world0 = glider_field(side, 1024, seed=5)
+    out = tmp / "relay16384"
+    server = EngineServer(serve_params(out, image_width=side,
+                                       image_height=side, chunk=64),
+                          port=0, initial_world=world0)
+    eng = server.engine
+    reset_launches()
+    server.start()
+    relay, ctls, legs = None, [], {}
+    real_frame = wire.board_to_frame
+
+    def board_to_frame(turn, w, token=0):
+        t = time.perf_counter()
+        frame = real_frame(turn, w, token)
+        legs.setdefault("encode", []).append((t, time.perf_counter(),
+                                              len(frame)))
+        return frame
+
+    try:
+        relay = RelayNode(server.address, port=0, ws_port=0).start()
+        if not relay.synced.wait(300):
+            raise AssertionError("main-relay-16384: the relay never synced")
+        wait_until(lambda: eng.completed_turns >= 128, "128 turns", 300)
+        server._keys.put("p")
+        wait_until(lambda: eng._paused, "the engine to pause", 300)
+        wait_until(lambda: relay.turn == eng.completed_turns,
+                   "the relay's shadow to reach the engine", 300)
+        wire.board_to_frame = board_to_frame
+        t_hello = time.perf_counter()
+        ob = Controller(*relay.address, want_flips=False, batch=True,
+                        observe=True, timeout=120, reconnect=False)
+        ctls.append(ob)
+        if not ob.wait_sync(300):
+            raise AssertionError("main-relay-16384: no sync")
+        t_sync = time.perf_counter()
+        ws = WSObserver(*relay.ws_address, batch_turns=64, timeout=120)
+        ctls.append(ws)
+        if not ws.wait_sync(300):
+            raise AssertionError("main-relay-16384: no WebSocket sync")
+        t_ws = time.perf_counter()
+        sync_turn = ob.sync_turn
+        ws_turn = ws.freshness.applied_turn
+    finally:
+        wire.board_to_frame = real_frame
+        for c in ctls:
+            c.close()
+        if relay is not None:
+            relay.shutdown()
+        server.shutdown()
+    launches = read_launches()["bitlife_tiled"]
+    want = bitlife.step_n_packed_raw(packed_board(world0), sync_turn)
+    for name, board, turn in (("binary", ob.board, sync_turn),
+                              ("WebSocket", ws.board, ws_turn)):
+        if turn != sync_turn or not torch.equal(packed_board(board), want):
+            raise AssertionError(f"main-relay-16384: the {name} observer's "
+                                 f"BoardSync at turn {turn} differs from "
+                                 "the plain version")
+    if launches <= 0:
+        raise AssertionError("main-relay-16384 never launched bitlife_tiled")
+    (e0, e1, nbytes), = legs["encode"][:1]
+    phase("main-relay-16384", f"relay BoardSync of {side}² at turn "
+          f"{sync_turn} from its shadow raster: {nbytes} frame bytes; "
+          f"hello -> sync {t_sync - t_hello:.3f} s = attach "
+          f"{e0 - t_hello:.3f} + encode from the raster {e1 - e0:.3f} + "
+          f"send and decode {t_sync - e1:.3f} s; the WebSocket observer "
+          f"synced {t_ws - t_sync:.3f} s later; both = plain version; "
+          f"{launches} bitlife_tiled launches; "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    return launches
+
+
+def main_telemetry(tmp: pathlib.Path, card: str) -> int:
+    """Phase `main-telemetry`: a SessionServer on the card, 16 x 256²
+    soups in one bucket (one batched launch of kernel A a chunk), with
+    the cost price published, the usage ledger on, an AlertEvaluator on
+    the worst peer turn age, a RemoteWriter into an in-process
+    CollectorServer and a relay with its WebSocket gateway on one
+    session. A wedged observer fires the rule and draining it resolves
+    it; `/usage` is conserved, `report usage` over the ledger equals the
+    live totals, the collector's rate agrees with the engine's counter
+    within 5%, a canary through the gateway reports a turn age, and the
+    bucket's FLOPs charge is price x turns. Returns kernel A's
+    launches."""
+    import contextlib
+    import io
+    import json as _json
+    import socket
+    import urllib.request
+
+    from gol_tpu_torch import obs
+    from gol_tpu_torch.analysis.invariants import violations_total
+    from gol_tpu_torch.distributed import SessionControl, SessionServer, wire
+    from gol_tpu_torch.obs import accounting, canary, device, report
+    from gol_tpu_torch.obs.collector import CollectorServer, RemoteWriter
+    from gol_tpu_torch.obs.freshness import AlertEvaluator, parse_rules
+    from gol_tpu_torch.obs.http import MetricsServer
+    from gol_tpu_torch.obs.tsdb import TSDB
+    from gol_tpu_torch.relay import RelayNode
+
+    t_phase = time.perf_counter()
+    side, n = LANE_SIDE, 16
+    out = tmp / "telemetry"
+    meter = accounting.meter()
+    meter.configure_ledger(str(out / "usage"), flush_secs=0.5)
+    device.enable_cost_probes()
+    inv0 = violations_total()
+    srv = SessionServer(serve_params(out, image_width=side,
+                                     image_height=side),
+                        port=0, heartbeat_secs=0.25, high_water=8,
+                        drain_secs=120.0)
+    reset_launches()
+    srv.start()
+    db = TSDB(str(out / "tsdb"))
+    col = CollectorServer("127.0.0.1", 0, db).start()
+    ev = AlertEvaluator(parse_rules(
+        "age: max(gol_tpu_server_peer_turn_age_seconds) > 1 for 1s"))
+    side_srv = MetricsServer(port=0, alerts=ev).start()
+    rw = RemoteWriter(f"127.0.0.1:{col.address[1]}", source="telemetry")
+    relay, wedged, states = None, None, []
+    try:
+        with SessionControl(*srv.address, timeout=60) as sc:
+            for i in range(n):
+                sc.create(f"t{i:02d}", width=side, height=side, seed=600 + i)
+        fam = "gol_tpu_session_turns_total"
+        local = []
+        for _ in range(8):
+            rw.push_once()
+            local.append((time.time(), sum(
+                m.value for m in obs.registry().metrics()
+                if m.name == fam)))
+            time.sleep(0.5)
+        # A wedged observer: attached, never reading, its socket buffer
+        # small — the server sheds its frames and its turn age grows.
+        wedged = socket.create_connection(srv.address, timeout=60)
+        wedged.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 4096)
+        wire.send_msg(wedged, {"t": "hello", "want_flips": True,
+                               "binary": True, "role": "observe",
+                               "session": "t00"})
+        t_wedge = time.perf_counter()
+        wait_until(lambda: ev.eval_once()["firing"] == 1,
+                   "the turn-age rule to fire", 120)
+        t_fire = time.perf_counter()
+        states.append("firing")
+        wedged.setblocking(False)
+
+        def drained():
+            with contextlib.suppress(BlockingIOError, InterruptedError):
+                while wedged.recv(1 << 20):
+                    pass
+            return ev.eval_once()["firing"] == 0
+
+        wait_until(drained, "the turn-age rule to resolve", 120)
+        t_resolve = time.perf_counter()
+        states.append("resolved")
+        relay = RelayNode(srv.address, port=0, session="t01",
+                          ws_port=0).start()
+        if not relay.synced.wait(60):
+            raise AssertionError("main-telemetry: the relay never synced")
+        cout = io.StringIO()
+        rc = canary.run_canary(
+            f"{relay.ws_address[0]}:{relay.ws_address[1]}", interval=0.2,
+            duration=2.0, use_ws=True, as_json=True, out=cout)
+        summary = _json.loads(cout.getvalue())
+        if rc != 0 or not summary["age"].get("samples"):
+            raise AssertionError(f"main-telemetry: the canary reported "
+                                 f"{summary}")
+        relay.shutdown()
+        relay = None
+        # The dispatch loop stopped (the sessions still held), so /usage
+        # and the ledger hold the same charges.
+        srv.engine.stop()
+        srv.engine.join(timeout=60)
+        bucket = next(iter(srv.manager._buckets.values()))
+        ticks = bucket.ticks
+        price = meter.price_flops(f"bucket.step:{bucket.key}")
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{side_srv.address[1]}/usage",
+                timeout=60) as r:
+            usage = _json.loads(r.read())
+    finally:
+        if wedged is not None:
+            wedged.close()
+        if relay is not None:
+            relay.shutdown()
+        srv.shutdown()
+        rw.close()
+        side_srv.close()
+        col.close()
+    launches = read_launches()["bitlife_resident"]
+    meter.close()
+    device.enable_cost_probes(False)
+    want_price = device.cost_of(side, side, "B3/S23", boards=16)["flops"]
+    sessions = {p: v for p, v in usage["principals"].items()
+                if p.startswith("t")}
+    flops = sum(v["flops"] for v in sessions.values())
+    if price != want_price or abs(flops - price * ticks) > 1e-9 * flops:
+        raise AssertionError(f"main-telemetry: bucket FLOPs {flops} != "
+                             f"price {price} x {ticks} turns")
+    if violations_total() != inv0:
+        raise AssertionError("main-telemetry: a bucket split was not "
+                             "conserved")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        report.main(["usage", str(out / "usage"), "--json"])
+    bill = _json.loads(buf.getvalue())["principals"]
+    for p, live in sessions.items():
+        for res in ("flops", "turns", "dispatch_seconds"):
+            if abs(bill[p].get(res, 0.0) - live[res]) > 1e-9 * max(
+                    1.0, live[res]):
+                raise AssertionError(f"main-telemetry: the ledger's {res} "
+                                     f"of {p} differs from /usage")
+    (t_a, v_a), (t_b, v_b) = local[1], local[-1]
+    own = (v_b - v_a) / (t_b - t_a)
+    # One step spanning the window: the collector's rate over it.
+    ((_, got),) = db.query(f"rate({fam})", t_a, t_b, t_b - t_a)[
+        "series"][0]["points"]
+    db.close()
+    if abs(got - own) > 0.05 * own:
+        raise AssertionError(f"main-telemetry: the collector's rate {got:.1f}"
+                             f" is not within 5% of the engine's {own:.1f}")
+    if launches <= 0:
+        raise AssertionError("main-telemetry never launched kernel A")
+    phase("main-telemetry", f"SessionServer 16 x {side}²: rule fired "
+          f"{t_fire - t_wedge:.3f} s after the wedge, resolved "
+          f"{t_resolve - t_fire:.3f} s after the drain began; bucket price "
+          f"{price:.0f} ops/turn x {ticks} turns = {flops:.0f} charged over "
+          f"{len(sessions)} tenants (conserved), report usage = /usage; "
+          f"collector rate({fam}) {got:.1f}/s vs the engine's {own:.1f}/s; "
+          f"WS canary age p95 {summary['age']['p95_s']:.4f} s over "
+          f"{summary['age']['samples']} samples; {launches} "
+          f"bitlife_resident launches; {time.perf_counter() - t_phase:.1f} "
+          f"s; {card}")
+    return launches
+
+
+def cli_fleet(tmp: pathlib.Path, card: str) -> dict:
+    """Phase `cli-fleet`: processes. `--collector`; `--serve --sessions`
+    on the card with `--remote-write` to it; relay A (`--relay ROOT
+    --session c1 --ws-port 0`) and relay B under A; `--control SPEC`
+    (relays.min 2, spawns `-m gol_tpu_torch --relay ... --session c1`).
+    A raw observer under B; SIGKILL relay A: the controller spawns its
+    replacement and re-points B, whose observer resumes by a BoardSync
+    equal to the plain version. The console renders the tree from the
+    scrapes. Returns the root process's kernel launches."""
+    import json as _json
+    import os
+    import queue
+    import re
+    import signal
+    import socket
+    import threading
+
+    import numpy as np
+
+    from gol_tpu_torch.distributed import Controller, SessionControl, wire
+    from gol_tpu_torch.obs import console
+    from gol_tpu_torch.sessions.manager import seeded_board
+
+    t_phase = time.perf_counter()
+    out = tmp / "cli-fleet"
+    env = dict(os.environ, PYTHONPATH=str(REPO), PYTHONUNBUFFERED="1")
+    procs = []
+
+    def spawn(*args):
+        p = subprocess.Popen(
+            [sys.executable, "-m", "gol_tpu_torch", *args],
+            stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, env=env, cwd=str(REPO))
+        p.lines, p.log = queue.Queue(), []
+
+        def pump():
+            for line in p.stdout:
+                p.log.append(line)
+                p.lines.put(line)
+
+        p.pump = threading.Thread(target=pump, daemon=True)
+        p.pump.start()
+        procs.append(p)
+        return p
+
+    def banner(p, pattern):
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            try:
+                line = p.lines.get(timeout=0.1)
+            except queue.Empty:
+                if p.poll() is not None:
+                    break
+                continue
+            m = re.search(pattern, line)
+            if m:
+                return m.group(1)
+        raise AssertionError(f"cli-fleet: no {pattern!r} line: "
+                             f"{''.join(p.log)[-2000:]}")
+
+    side = 256
+    boards, keepers = [], []
+    man = out / "ctl" / "controller.json"
+
+    def healed():
+        try:
+            return _json.loads(man.read_text())["spawned"]["relays"]
+        except (OSError, ValueError, KeyError):
+            return {}
+
+    try:
+        colp = spawn("--collector", "0", "--out", str(out / "col"),
+                     "--metrics-port", "0")
+        col = banner(colp, r"collector serving on ([\d.]+:\d+)")
+        col_m = banner(colp, r"metrics serving on http://([\d.]+:\d+)")
+        root = spawn("--serve", "0", "--sessions", "--out",
+                     str(out / "root"), "--metrics-port", "0",
+                     "--remote-write", col)
+        root_addr = banner(root, r"session engine serving on ([\d.]+:\d+)")
+        root_m = banner(root, r"metrics serving on http://([\d.]+:\d+)")
+        host, port = root_addr.split(":")
+        with SessionControl(host, int(port), timeout=60) as sc:
+            sc.create("c1", width=side, height=side, seed=9)
+        # A watcher of c1 at the root for the whole phase: a watched
+        # session steps turn by turn at the served rate, so its turn
+        # stays within the plain version's reach; unwatched it would
+        # free-run at the bucket's rate.
+        keeper = Controller(host, int(port), session="c1",
+                            want_flips=True, batch=True, batch_turns=16,
+                            batch_flip_events=False, observe=True,
+                            timeout=60, reconnect=False)
+        keepers.append(keeper)
+        if not keeper.wait_sync(60):
+            raise AssertionError("cli-fleet: the keeper got no sync")
+        RasterWatch(keeper)
+        phase("cli-fleet", f"collector, root and session c1 up "
+              f"{time.perf_counter() - t_phase:.1f} s; c1 at turn "
+              f"{keeper.sync_turn}")
+        a = spawn("--relay", root_addr, "--session", "c1", "--serve", "0",
+                  "--ws-port", "0", "--metrics-port", "0")
+        a_addr = banner(a, r"relay serving on ([\d.]+:\d+)")
+        a_m = banner(a, r"metrics serving on http://([\d.]+:\d+)")
+        b = spawn("--relay", a_addr, "--serve", "0", "--metrics-port", "0")
+        b_addr = banner(b, r"relay serving on ([\d.]+:\d+)")
+        b_m = banner(b, r"metrics serving on http://([\d.]+:\d+)")
+        spec = {"root": root_addr, "scrape": [root_m, a_m, b_m],
+                "relays": {"min": 2, "max": 4}, "interval_secs": 0.5,
+                "down_rounds": 2, "stale_secs": 10.0,
+                "spawn_args": ["--session", "c1"]}
+        (out / "spec.json").write_text(_json.dumps(spec))
+        ctl = spawn("--control", str(out / "spec.json"), "--out",
+                    str(out / "ctl"), "--metrics-port", "0")
+        ctl_m = banner(ctl, r"metrics serving on http://([\d.]+:\d+)")
+        ob = socket.create_connection(tuple(
+            (b_addr.split(":")[0], int(b_addr.split(":")[1]))), timeout=60)
+        wire.send_msg(ob, {"t": "hello", "want_flips": True,
+                           "binary": True, "role": "observe",
+                           "batch": 1024})
+
+        def read_boards():
+            try:
+                while True:
+                    m = wire.recv_msg(ob)
+                    if m is None:
+                        return
+                    if m.get("t") == "board":
+                        turn, bd = wire.msg_to_board(m)
+                        boards.append((time.perf_counter(), turn,
+                                       np.array(bd, np.uint8)))
+            except (OSError, wire.WireError):
+                return
+
+        reader = threading.Thread(target=read_boards, daemon=True)
+        reader.start()
+        wait_until(lambda: boards, "the observer's first BoardSync", 120)
+        phase("cli-fleet", f"relays A, B and the controller up, B's "
+              f"observer synced at turn {boards[0][1]}; "
+              f"{time.perf_counter() - t_phase:.1f} s")
+        time.sleep(2.0)
+        t_kill = time.perf_counter()
+        os.kill(a.pid, signal.SIGKILL)
+        wait_until(lambda: healed(), "the controller's replacement relay",
+                   120)
+        t_spawn = time.perf_counter()
+        phase("cli-fleet", f"replacement spawned {t_spawn - t_kill:.3f} s "
+              "after the SIGKILL")
+        wait_until(lambda: boards[-1][0] > t_kill,
+                   "the observer's BoardSync after the heal", 120)
+        t_resync = time.perf_counter()
+        # The heal, and any growth back to relays.min the controller
+        # planned beside it.
+        spawned = healed()
+        snap = console.fleet_snapshot([console.Endpoint(m) for m in (
+            root_m, b_m, ctl_m, col_m,
+            *(meta["metrics"] for meta in spawned.values()))])
+        text = io_render(console, snap)
+        tree_nodes = count_tree(snap["tree"])
+        ob.close()
+    except AssertionError as e:
+        tails = "\n".join(f"--- {' '.join(p.args[3:6])}: "
+                          f"{''.join(p.log)[-800:]}" for p in procs)
+        raise AssertionError(f"{e}\n{tails}") from None
+    finally:
+        for c in keepers:
+            c.close()
+        for p in reversed(procs):
+            if p.poll() is None:
+                p.send_signal(signal.SIGINT)
+        for p in reversed(procs):
+            try:
+                p.wait(30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(30)
+            p.pump.join(30)
+        # The controller leaves the relays it spawned running, by
+        # design: stop them here.
+        for meta in healed().values():
+            try:
+                os.kill(meta["pid"], signal.SIGKILL)
+            except (OSError, TypeError):
+                pass
+    turn = boards[-1][1]
+    want = plain_stack([seeded_board(side, side, 9)], turn)[0]
+    if not np.array_equal(boards[-1][2] != 0, want != 0):
+        raise AssertionError(f"cli-fleet: the resynced board at turn {turn} "
+                             "differs from the plain version")
+    first_turn, first = boards[0][1], boards[0][2]
+    if not np.array_equal(first != 0, plain_stack(
+            [seeded_board(side, side, 9)], first_turn)[0] != 0):
+        raise AssertionError("cli-fleet: the first BoardSync differs from "
+                             "the plain version")
+    if tree_nodes < 3 or not any(addr in text for addr in spawned):
+        raise AssertionError(f"cli-fleet: the console's tree lacks the "
+                             f"healed relay:\n{text}")
+    launches = {}
+    for line in root.log:
+        if line.startswith("kernel launches: "):
+            launches = _json.loads(line[len("kernel launches: "):])
+    if launches.get("bitlife_resident", 0) <= 0:
+        raise AssertionError("cli-fleet: the root launched no kernel A")
+    phase("cli-fleet", f"collector, --serve --sessions root, relays A and "
+          f"B, --control (relays.min 2): SIGKILL A -> {len(spawned)} "
+          f"relay(s) spawned, the first "
+          f"{t_spawn - t_kill:.3f} s, B's observer resynced "
+          f"{t_resync - t_kill:.3f} s after the kill at turn {turn} = plain "
+          f"version; console tree of {tree_nodes} nodes; root launches "
+          f"{ {k: v for k, v in launches.items() if v} }; "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    return launches
+
+
+def io_render(console, snap) -> str:
+    import io
+
+    buf = io.StringIO()
+    console.render(snap, out=buf)
+    return buf.getvalue()
+
+
+def count_tree(nodes) -> int:
+    return sum(1 + count_tree(n.get("children", [])) for n in nodes)
+
+
+
 def measure(errs: dict, launches: dict, int_ops_per_s: float,
             slab: int) -> list:
     """Phase 7: ms per launch of each kernel at its main-path shape, the
@@ -4262,6 +4979,21 @@ def main() -> int:
         cli_sessions(tmp, card)
         phase("sessions", f"{time.perf_counter() - t_sessions:.1f} s for "
               "sessions-lane, main-sessions-serve and cli-sessions")
+        # The broadcast tier, the telemetry planes and the fleet, each
+        # phase's launches counted from 0 (by the row that owns them).
+        t_fleet = time.perf_counter()
+        relay = {"relay-fanout": {"bitlife_resident": relay_fanout(tmp,
+                                                                   card)},
+                 "main-relay-16384": {"bitlife_tiled": main_relay_16384(
+                     tmp, card)},
+                 "main-telemetry": {"bitlife_resident_sessions":
+                                    main_telemetry(tmp, card)}}
+        root = cli_fleet(tmp, card)
+        fleet = {"bitlife_resident_sessions": root.pop("bitlife_resident"),
+                 **{k: v for k, v in root.items() if v}}
+        phase("fleet", f"{time.perf_counter() - t_fleet:.1f} s for "
+              "relay-fanout, main-relay-16384, main-telemetry and "
+              "cli-fleet")
     for row in kernels:
         # Launches of the watched phases (one a turn), of `diffs` and of
         # the visualised CLI runs.
@@ -4279,6 +5011,11 @@ def main() -> int:
         row["sessions_launches"] = {
             ph: got.get(kernel) for ph, got in sessions.items()
             if isinstance(got.get(kernel), (int, float))} or None
+        # Launches on the broadcast, telemetry and fleet paths.
+        row["relay_launches"] = {
+            ph: got[row["name"]] for ph, got in relay.items()
+            if row["name"] in got} or None
+        row["fleet_launches"] = fleet.get(row["name"])
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

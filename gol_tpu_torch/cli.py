@@ -28,8 +28,14 @@ controller (visualised, or printing events with `-noVis`), read-only
 with `--observe`; `--secret` / `$GOL_SECRET`, the liveness, overload and
 batching knobs and `--no-reconnect` / `--reconnect-secs` keep gol_tpu's
 names and defaults. `--metrics-port` serves `/metrics`, `/healthz`,
-`/vars`, `/trace` and `/flightrecorder` for local, `--serve` and
-`--connect` runs.
+`/vars`, `/trace`, `/flightrecorder`, `/alerts` and `/usage` for every
+mode; `--alert-rules FILE` arms the turn-age / SLO evaluator inside
+it and `--remote-write HOST:PORT` pushes its registry to a collector.
+Engines and serving tiers keep a usage ledger under <out>/usage
+(`GOL_TPU_ACCOUNTING=0` turns it off) and publish the port's cost
+price (`obs.device.cost_of`, its own operation count, not XLA's);
+`--session-budget-flops` / `--session-budget-bytes` set the soft
+per-tenant budgets of `--serve --sessions`.
 
 Sessions and the replay plane, as in gol_tpu: `--serve --sessions`
 serves many named boards (`SessionServer`; same-shape boards share one
@@ -38,9 +44,23 @@ bucket, a packable bucket's chunk one launch of kernel A), with
 latest`; `--record` tapes every session under out/sessions/<id>/replay/
 (`--keyframe-turns`, `--record-max-bytes`); `--connect --session ID`
 watches or drives one session; `--replay LOG-DIR --serve PORT` serves
-recordings with no engine (`--replay-rate`). `--relay` and the session
-budgets exit with "not yet ported"; gol_tpu's control, collector,
-alerting and multi-host flags are absent.
+recordings with no engine (`--replay-rate`).
+
+The broadcast tier, the history plane and the fleet controller, as in
+gol_tpu: `--relay HOST:PORT --serve PORT` re-serves an upstream's
+stream to any number of observers, forwarding its frame bytes with no
+re-encode (`--ws-port` adds the WebSocket gateway); `--collector PORT`
+stores remote-written telemetry under <out>/tsdb and answers `/query`
+and `/history`; `--control SPEC.json` reconciles a fleet toward its
+spec, spawning `python -m gol_tpu_torch --relay` processes.
+
+Which processes need the card: every mode that steps or serves boards —
+local runs, `--serve` (with or without `--sessions`), `--replay` and
+`--relay` — runs on the card unless `--platform cpu`, and fails without
+one instead of moving to the CPU. `--connect`, `--collector` and
+`--control` step nothing, on any device, and need no card (nor do
+`python -m gol_tpu_torch.obs.console`, `.obs.report` and
+`.obs.canary`). gol_tpu's multi-host flags are absent.
 """
 
 from __future__ import annotations
@@ -53,7 +73,7 @@ import sys
 import threading
 from typing import Optional
 
-from gol_tpu_torch.params import BACKENDS, Params, not_yet_ported
+from gol_tpu_torch.params import BACKENDS, Params
 
 #: --platform names -> torch device types.
 PLATFORMS = {"gpu": "cuda", "cpu": "cpu"}
@@ -146,11 +166,50 @@ def build_parser() -> argparse.ArgumentParser:
                          "127.0.0.1:PORT — /metrics (Prometheus text), "
                          "/vars (JSON snapshot), /healthz (liveness); "
                          "0 picks an ephemeral port (printed). Works "
-                         "for local engines, --serve and --connect")
+                         "for every mode")
     ap.add_argument("--metrics-host", default="127.0.0.1", metavar="HOST",
                     help="bind address for --metrics-port (default "
                          "loopback; non-loopback exposure should sit "
                          "behind the same controls as --serve)")
+    ap.add_argument("--alert-rules", default=None, dest="alert_rules",
+                    metavar="FILE",
+                    help="with --metrics-port: SLO alert rules evaluated "
+                         "inside the sidecar (gol_tpu_torch.obs."
+                         "freshness), one per line, e.g. 'age: "
+                         "p99(gol_tpu_server_turn_age_seconds) > 2 for "
+                         "30s'; state served at /alerts, transitions "
+                         "counted and noted in the flight recorder; a "
+                         "parse error is a STARTUP error, never a "
+                         "runtime crash")
+    ap.add_argument("--remote-write", default=None, dest="remote_write",
+                    metavar="HOST:PORT",
+                    help="with --metrics-port: push this sidecar's "
+                         "registry (plus alert transitions and span "
+                         "digests) to the history-plane collector at "
+                         "HOST:PORT; a slow or dead collector SHEDS "
+                         "samples, never wedges this process")
+    ap.add_argument("--collector", default=None, metavar="[HOST:]PORT",
+                    help="run as the HISTORY-PLANE COLLECTOR "
+                         "(gol_tpu_torch.obs.collector): ingest "
+                         "--remote-write telemetry into crash-atomic "
+                         "segment logs under <out>/tsdb and serve range "
+                         "queries (/query, /history) from its own "
+                         "--metrics-port sidecar; --resume latest "
+                         "replays the store; --alert-rules evaluate "
+                         "FLEET-WIDE over collected series. Needs no "
+                         "card")
+    ap.add_argument("--session-budget-flops", type=float, default=None,
+                    dest="session_budget_flops", metavar="FLOPS",
+                    help="with --serve --sessions: soft per-tenant "
+                         "modelled-operations budget (accounting plane) "
+                         "— over-budget tenants raise "
+                         "gol_tpu_usage_over_budget and show BUDG=OVER "
+                         "in obs.console; deliberately never enforced")
+    ap.add_argument("--session-budget-bytes", type=float, default=None,
+                    dest="session_budget_bytes", metavar="BYTES",
+                    help="with --serve --sessions: soft per-tenant "
+                         "wire-bytes budget — same advisory semantics "
+                         "as --session-budget-flops")
     # Serving (gol_tpu_torch.distributed).
     ap.add_argument("--serve", default=None, metavar="[HOST:]PORT",
                     help="run as a headless engine server on this address")
@@ -218,12 +277,36 @@ def build_parser() -> argparse.ArgumentParser:
                     help="with --replay: playback pacing in turns/s "
                          "(0 = as fast as the observers drain; "
                          "default: the recorded wall-clock timing)")
+    ap.add_argument("--relay", default=None, metavar="HOST:PORT",
+                    help="run as a RELAY NODE (gol_tpu_torch.relay): "
+                         "attach to the upstream server/relay at "
+                         "HOST:PORT as one batching binary client and "
+                         "re-serve its stream on --serve [HOST:]PORT to "
+                         "any number of observers, forwarding identical "
+                         "frame bytes with zero re-encode; reconnect and "
+                         "clock sync compose per hop. Steps no board; "
+                         "--platform gpu still needs the card")
+    ap.add_argument("--ws-port", type=int, default=None,
+                    dest="ws_port", metavar="PORT",
+                    help="with --relay: also serve browser observers "
+                         "over RFC-6455 WebSocket on this port — the "
+                         "identical binary frames inside WS binary "
+                         "messages (subprotocol gol-tpu-wire)")
     ap.add_argument("--writer-pool-threads", type=int, default=2,
                     dest="writer_pool_threads", metavar="N",
-                    help="with --serve: selector event-loop "
+                    help="with --serve/--relay: selector event-loop "
                          "threads draining every peer's outbound "
                          "frames (default 2; 0 = one writer thread per "
                          "connection)")
+    ap.add_argument("--control", default=None, metavar="SPEC.json",
+                    help="run as the FLEET CONTROLLER "
+                         "(gol_tpu_torch.control): own the declarative "
+                         "topology in SPEC.json and reconcile observed "
+                         "state toward it — heal dead relays (spawn + "
+                         "re-point the orphaned subtree), grow/shrink "
+                         "the relay tree, migrate sessions between "
+                         "engines, roll managed engines behind --resume "
+                         "latest. Needs no card")
     ap.add_argument("--connect", default=None, metavar="HOST:PORT",
                     help="run as a controller attached to a remote engine")
     ap.add_argument("--session", default=None, metavar="ID",
@@ -288,27 +371,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "link failure — long enough to ride out a "
                          "server crash-restart with --resume "
                          "(default 60)")
-    # gol_tpu's relay mode and session budgets: accepted by name and
-    # refused, so a command line moved between the packages gets a
-    # clear error.
-    for flag, what in UNPORTED_FLAGS.items():
-        ap.add_argument(flag, default=None, nargs="?", const=True,
-                        dest=_dest(flag), help=f"{what}: not yet ported")
     return ap
-
-
-#: gol_tpu flags of later slices -> what they would run.
-UNPORTED_FLAGS = {
-    "--relay": "the relay node (--relay)",
-    "--session-budget-flops": "per-tenant FLOPs budgets "
-                              "(--session-budget-flops)",
-    "--session-budget-bytes": "per-tenant wire-bytes budgets "
-                              "(--session-budget-bytes)",
-}
-
-
-def _dest(flag: str) -> str:
-    return flag.strip("-").replace("-", "_")
 
 
 def _stdin_keys(keypresses: queue.Queue, stop: threading.Event) -> None:
@@ -323,9 +386,6 @@ def _stdin_keys(keypresses: queue.Queue, stop: threading.Event) -> None:
 
 def main(argv: Optional[list[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, what in UNPORTED_FLAGS.items():
-        if getattr(args, _dest(flag)) is not None:
-            raise SystemExit(f"error: {not_yet_ported(what)}")
 
     if args.check_invariants:
         # Env-var form on purpose: spawned processes inherit the opt-in
@@ -337,23 +397,23 @@ def main(argv: Optional[list[str]] = None) -> int:
     from gol_tpu_torch.models.rules import GenRule, get_rule
     from gol_tpu_torch.obs import device, flight, tracing
 
-    try:
-        rule = get_rule(args.rule)
-    except ValueError as e:
-        raise SystemExit(f"error: {e}") from None
-    # Multi-state rules visualise as gray levels.
-    vis_levels = isinstance(rule, GenRule)
     # Observability bootstrap, as in gol_tpu: label this process for
     # merged timelines, arm the flight recorder's dump directory, and
     # dump the black box when SIGTERM lands (the handler then raises
     # KeyboardInterrupt, so every mode's graceful shutdown still runs).
     tracing.set_process_label(
-        "replay" if args.replay is not None
+        "control" if args.control is not None
+        else "collector" if args.collector is not None
+        else "relay" if args.relay is not None
+        else "replay" if args.replay is not None
         else "serve" if args.serve is not None
         else "connect" if args.connect is not None else "local"
     )
     flight.configure(args.out)
     flight.install_sigterm_handler()
+    # Every real run publishes its programs' price (the port's own
+    # operation count; library embedders opt in).
+    device.enable_cost_probes()
     if args.profile_dir:
         if device.start_profile(args.profile_dir,
                                 cuda=args.platform == "gpu"):
@@ -366,6 +426,13 @@ def main(argv: Optional[list[str]] = None) -> int:
     print("Threads:", args.t)
     print("Width:", args.w)
     print("Height:", args.h)
+
+    try:
+        rule = get_rule(args.rule)
+    except ValueError as e:
+        raise SystemExit(f"error: {e}") from None
+    # Multi-state rules visualise as gray levels.
+    vis_levels = isinstance(rule, GenRule)
 
     try:
         params = Params(
@@ -387,6 +454,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(f"error: {e}") from None
 
+    # The mode guards, in gol_tpu's order and with its messages.
     # Checkpoint restart (local or --serve): boot from a snapshot,
     # continuing at the turn in its filename. A controller holds no
     # board state, so --connect cannot resume.
@@ -396,13 +464,82 @@ def main(argv: Optional[list[str]] = None) -> int:
             "error: --resume applies to the engine (local or --serve), "
             "not to a --connect controller"
         )
-    if args.session is not None and args.connect is None:
+    if args.session is not None and args.connect is None \
+            and args.relay is None:
         raise SystemExit("error: --session requires --connect "
                          "(or --relay, to fan a named session out)")
+    if args.relay is not None and args.sessions:
+        raise SystemExit(
+            "error: --relay attaches to a session server with "
+            "--session ID; --sessions starts one"
+        )
+    if args.ws_port is not None and args.relay is None:
+        # A silently ignored WS port would leave an operator believing
+        # browsers are served.
+        raise SystemExit(
+            "error: --ws-port requires --relay (a root engine serves "
+            "browsers through a co-located relay: start one with "
+            "--relay HOST:PORT --serve PORT --ws-port N)"
+        )
+    if args.collector is not None:
+        # The history-plane collector is its own process mode: it stores
+        # telemetry ABOUT serving processes rather than being one, and
+        # --resume latest replays its own segment logs.
+        if (args.serve is not None or args.sessions
+                or args.relay is not None or args.connect is not None
+                or args.replay is not None or args.control is not None):
+            raise SystemExit(
+                "error: --collector is its own mode — it cannot "
+                "combine with --serve/--sessions/--relay/--connect/"
+                "--replay/--control"
+            )
+        if resume_path not in (None, "latest"):
+            raise SystemExit(
+                "error: a collector resumes its own segment logs "
+                "under <out>/tsdb; use --resume latest (or none)"
+            )
+        _arm_accounting(args)
+        return _collector(args, resume_path == "latest")
+    if args.remote_write is not None and args.metrics_port is None:
+        # A silently ignored remote-write target would leave an operator
+        # believing telemetry is being collected.
+        raise SystemExit(
+            "error: --remote-write requires --metrics-port (the "
+            "writer rides the metrics sidecar, and the sidecar "
+            "address is its source label)"
+        )
+    if args.control is not None:
+        # The fleet controller is its own process mode: it OWNS serving
+        # processes rather than being one, and it applies --resume
+        # latest to the engines it rolls, never to itself.
+        if (args.serve is not None or args.sessions
+                or args.relay is not None or args.connect is not None
+                or args.replay is not None):
+            raise SystemExit(
+                "error: --control is its own mode — it cannot combine "
+                "with --serve/--sessions/--relay/--connect/--replay"
+            )
+        if resume_path is not None:
+            raise SystemExit(
+                "error: --resume applies to an engine; the controller "
+                "itself holds no board state (it rolls engines with "
+                "--resume latest on their behalf)"
+            )
+        _arm_accounting(args)
+        return _control_plane(args)
     if args.park_idle_secs is not None and not args.sessions:
         raise SystemExit(
             "error: --park-idle-secs applies to --serve --sessions "
             "(hibernation is a session-plane policy)"
+        )
+    if (args.session_budget_flops is not None
+            or args.session_budget_bytes is not None) \
+            and not args.sessions:
+        # A silently ignored budget would leave an operator believing
+        # tenants are being watched.
+        raise SystemExit(
+            "error: --session-budget-flops/--session-budget-bytes "
+            "apply to --serve --sessions (per-tenant accounting)"
         )
     if args.record and not args.sessions:
         raise SystemExit(
@@ -420,7 +557,8 @@ def main(argv: Optional[list[str]] = None) -> int:
     if args.replay_rate is not None and args.replay is None:
         raise SystemExit("error: --replay-rate requires --replay")
     if args.replay is not None:
-        if args.sessions or args.connect is not None:
+        if args.sessions or args.relay is not None \
+                or args.connect is not None:
             raise SystemExit(
                 "error: --replay is its own serving mode — it cannot "
                 "combine with --sessions/--relay/--connect"
@@ -441,11 +579,11 @@ def main(argv: Optional[list[str]] = None) -> int:
                 "error: --resume applies to an engine, not a replay "
                 "server"
             )
-        return _replay_serve(args)
-    if args.tile and args.sessions:
-        # Buckets step whole stacks: a silently ignored --tile would
-        # leave an operator believing a large geometry runs
-        # activity-driven when it would run dense.
+        return _with_card(args, _replay_serve, args)
+    if args.tile and (args.sessions or args.relay is not None):
+        # Buckets step whole stacks and relays own no board: a silently
+        # ignored --tile would leave an operator believing a large
+        # geometry runs activity-driven when it would run dense.
         raise SystemExit(
             "error: --tile applies to single-board engines (local or "
             "--serve), not --sessions buckets or relays"
@@ -461,7 +599,21 @@ def main(argv: Optional[list[str]] = None) -> int:
                 "error: --sessions resumes per-session checkpoints; "
                 "use --resume latest (or none)"
             )
-        return _serve_sessions(args, params, resume_path == "latest")
+        return _with_card(args, _serve_sessions, args, params,
+                          resume_path == "latest")
+    if args.relay is not None:
+        # Relay node: no engine of its own — resume/snapshot flags make
+        # no sense here, and the downstream address is --serve.
+        if args.serve is None:
+            raise SystemExit(
+                "error: --relay needs --serve [HOST:]PORT for its "
+                "downstream listener"
+            )
+        if resume_path is not None:
+            raise SystemExit(
+                "error: --resume applies to an engine, not a relay"
+            )
+        return _with_card(args, _relay, args)
     if resume_path == "latest":
         from gol_tpu_torch.checkpoint import latest_snapshot
 
@@ -488,15 +640,46 @@ def main(argv: Optional[list[str]] = None) -> int:
 
     try:
         if args.serve is not None:
-            return _serve(args, params, resume_path)
-        return _interactive(args, params, resume_path, resume_turn,
-                            vis_levels)
+            return _with_card(args, _serve, args, params, resume_path)
+        if args.connect is not None:
+            # A controller spends on the server's bill, not its own.
+            return _interactive(args, params, resume_path, resume_turn,
+                                vis_levels)
+        return _with_card(args, _interactive, args, params, resume_path,
+                          resume_turn, vis_levels)
     finally:
         # Exported here, while the CUDA context is up; the atexit hook
         # would find an empty capture after teardown.
         trace = device.stop_profile()
         if trace is not None:
             print(f"torch profiler trace written to {trace}")
+
+
+def _with_card(args, mode, *mode_args) -> int:
+    """Run a mode that steps or serves boards: on the card (resolved
+    here, so that a run without one fails before it writes anything)
+    unless --platform cpu, with the usage ledger under <out>/usage."""
+    from gol_tpu_torch.parallel.stepper import resolve_device
+
+    try:
+        resolve_device(PLATFORMS[args.platform])
+    except RuntimeError as e:
+        raise SystemExit(f"error: {e}") from None
+    _arm_accounting(args)
+    return mode(*mode_args)
+
+
+def _arm_accounting(args) -> None:
+    """The accounting plane, as gol_tpu's CLI arms it: a crash-safe
+    usage ledger under <out>/usage and the soft budgets. A no-op under
+    GOL_TPU_ACCOUNTING=0 (no ledger I/O)."""
+    from gol_tpu_torch.obs import accounting
+
+    accounting.configure(
+        out_dir=args.out,
+        budget_flops=args.session_budget_flops,
+        budget_bytes=args.session_budget_bytes,
+    )
 
 
 def _interactive(args, params: Params, resume_path: Optional[str],
@@ -592,18 +775,63 @@ def _local(args, params: Params, keypresses: queue.Queue,
     return 0
 
 
-def _start_metrics(args, health=None):
+def _start_metrics(args, health=None, tsdb=None, series_source=None):
     """Opt-in observability sidecar (gol_tpu_torch.obs.http): serve the
     process registry and a health probe whenever --metrics-port is
-    given. Returns the MetricsServer (the caller closes it) or None."""
+    given. With --alert-rules, the freshness plane's SLO evaluator runs
+    inside the sidecar (served at /alerts) — rule-file parse errors
+    abort AT STARTUP with the offending line, so a typo can never take
+    a serving process down at runtime. With --remote-write, a
+    history-plane RemoteWriter rides the sidecar too, pushing this
+    registry to the collector. Returns the MetricsServer (the caller
+    closes it — evaluator and writer ride its lifecycle) or None."""
+    if args.alert_rules is not None and args.metrics_port is None:
+        raise SystemExit(
+            "error: --alert-rules requires --metrics-port (the "
+            "evaluator runs inside the metrics sidecar)"
+        )
+    if args.remote_write is not None and args.metrics_port is None:
+        raise SystemExit(
+            "error: --remote-write requires --metrics-port (the "
+            "writer rides the metrics sidecar, and the sidecar "
+            "address is its source label)"
+        )
     if args.metrics_port is None:
         return None
     from gol_tpu_torch.obs.http import MetricsServer
 
+    alerts = None
+    if args.alert_rules is not None:
+        from gol_tpu_torch.obs.freshness import AlertEvaluator, load_rules
+
+        try:
+            rules = load_rules(args.alert_rules)
+        except OSError as e:
+            raise SystemExit(f"error: cannot read --alert-rules: {e}") \
+                from None
+        except ValueError as e:
+            raise SystemExit(f"error: {e}") from None
+        alerts = AlertEvaluator(rules, series_source=series_source)
+        print(f"alert evaluator armed: {len(rules)} rule(s) from "
+              f"{args.alert_rules}")
     srv = MetricsServer(args.metrics_host, args.metrics_port,
-                        health=health).start()
+                        health=health, alerts=alerts, tsdb=tsdb)
+    if args.remote_write is not None:
+        from gol_tpu_torch.obs.collector import RemoteWriter
+
+        # The sidecar's own bound address is the source label: unique per
+        # process on a host, and how the console and the controller
+        # already name this endpoint.
+        srv.remote = RemoteWriter(
+            args.remote_write,
+            source=f"{srv.address[0]}:{srv.address[1]}",
+            alerts=alerts, secret=args.secret,
+        )
+        print(f"remote-write to {args.remote_write} "
+              f"(source {srv.remote.source})")
+    srv.start()
     print(f"metrics serving on http://{srv.address[0]}:{srv.address[1]}"
-          "/metrics")
+          "/metrics", flush=True)
     return srv
 
 
@@ -666,6 +894,7 @@ def _serve(args, params: Params, resume_path: Optional[str] = None) -> int:
     finally:
         if metrics is not None:
             metrics.close()
+    _print_launches()
     if server.engine.error is not None:
         print(f"engine error: {server.engine.error!r}", file=sys.stderr)
         return 1
@@ -728,6 +957,7 @@ def _serve_sessions(args, params: Params, resume: bool) -> int:
     finally:
         if metrics is not None:
             metrics.close()
+    _print_launches()
     if server.engine.error is not None:
         print(f"session engine error: {server.engine.error!r}",
               file=sys.stderr)
@@ -735,19 +965,30 @@ def _serve_sessions(args, params: Params, resume: bool) -> int:
     return 0
 
 
+def _print_launches() -> None:
+    """A serving process's kernel launches by kernel, printed as it
+    ends (all 0 on the CPU, where the plain versions run)."""
+    import json
+
+    from gol_tpu_torch.ops import cuda_bitgens, cuda_bitlife, cuda_life
+
+    counts = {**cuda_bitlife.LAUNCHES, **cuda_bitgens.LAUNCHES,
+              **cuda_life.LAUNCHES}
+    print(f"kernel launches: {json.dumps(counts)}", flush=True)
+
+
 def _replay_serve(args) -> int:
     """Static replay server (gol_tpu_torch.replay): serve the recordings
-    under --replay LOG-DIR with zero engine dispatches. Same exposure rules as --serve: loopback unless an
-    explicit HOST, --secret authenticates every attach."""
+    under --replay LOG-DIR with zero engine dispatches. The decode is
+    host work, but a gpu run still needs the card (resolved by the
+    caller, the CLI's rule for every mode that serves boards). Same
+    exposure rules as --serve: loopback unless an explicit HOST,
+    --secret authenticates every attach."""
     from gol_tpu_torch.obs import flight
-    from gol_tpu_torch.parallel.stepper import resolve_device
     from gol_tpu_torch.replay import ReplayServer
 
     host, port = _addr(args.serve, default_host="127.0.0.1")
     try:
-        # The decode is host work, but a gpu run still needs the card
-        # (the CLI's rule for every mode that serves boards).
-        resolve_device(PLATFORMS[args.platform])
         server = ReplayServer(
             args.replay, host, port,
             secret=args.secret,
@@ -778,6 +1019,184 @@ def _replay_serve(args) -> int:
     finally:
         if metrics is not None:
             metrics.close()
+    return 0
+
+
+def _relay(args) -> int:
+    """Relay node (gol_tpu_torch.relay): attach upstream as one batching
+    binary client, re-serve the stream to N observers (TCP on --serve,
+    browsers on --ws-port) with zero re-encode. It steps no board; the
+    card was resolved by the caller, the CLI's rule for every mode that
+    serves boards. Same exposure rules as --serve: loopback unless an
+    explicit HOST, --secret authenticates the upstream attach AND every
+    downstream."""
+    from gol_tpu_torch.obs import flight
+    from gol_tpu_torch.relay import RelayNode
+
+    up = _addr(args.relay)
+    host, port = _addr(args.serve, default_host="127.0.0.1")
+    try:
+        relay = RelayNode(
+            up, host, port,
+            secret=args.secret,
+            session=args.session,
+            batch_turns=(args.batch_turns
+                         if args.batch_turns is not None else 1024),
+            heartbeat_secs=args.hb_secs,
+            evict_secs=args.evict_secs,
+            max_peers=args.max_peers,
+            high_water=args.high_water,
+            drain_secs=args.drain_secs,
+            writer_pool_threads=args.writer_pool_threads,
+            ws_port=args.ws_port,
+            reconnect_window=args.reconnect_secs,
+        )
+    except ValueError as e:
+        raise SystemExit(f"error: {e}") from None
+    print(f"relay serving on {relay.address[0]}:{relay.address[1]} "
+          f"(upstream {up[0]}:{up[1]})", flush=True)
+    if relay.ws_address is not None:
+        print(f"websocket gateway on "
+              f"{relay.ws_address[0]}:{relay.ws_address[1]}", flush=True)
+    try:
+        metrics = _start_metrics(args, health=relay.health)
+    except (OSError, SystemExit):
+        relay.shutdown()
+        raise
+    flight.set_state_provider(relay.health)
+    relay.start()
+    try:
+        while not relay.wait(timeout=1.0):
+            pass
+    except KeyboardInterrupt:
+        relay.shutdown()
+    finally:
+        if metrics is not None:
+            metrics.close()
+    return 0
+
+
+def _control_plane(args) -> int:
+    """Fleet controller (gol_tpu_torch.control): load the declarative
+    spec (a parse error aborts AT STARTUP, the --alert-rules
+    discipline), then reconcile forever. Host-side only: it steps
+    nothing and needs no card. The sidecar serves the controller's own
+    metrics and /healthz, so the console — and another controller — can
+    observe the observer."""
+    from gol_tpu_torch.control import Controller, SpecError, load_spec
+    from gol_tpu_torch.obs import flight
+
+    try:
+        spec = load_spec(args.control)
+        ctl = Controller(spec, out_dir=args.out)
+    except SpecError as e:
+        raise SystemExit(f"error: {e}") from None
+    print(f"controller reconciling {args.control} "
+          f"(root {spec.root}, {len(spec.engines)} engine(s), "
+          f"relays {spec.relay_min}..{spec.relay_max})", flush=True)
+    metrics = _start_metrics(args, health=ctl.health)
+    flight.set_state_provider(ctl.health)
+    ctl.start()
+    try:
+        while not ctl.wait(timeout=1.0):
+            pass
+    except KeyboardInterrupt:
+        ctl.shutdown()
+    finally:
+        if metrics is not None:
+            metrics.close()
+    return 0
+
+
+def _collector(args, resume: bool) -> int:
+    """History-plane collector (gol_tpu_torch.obs.collector + .tsdb):
+    ingest remote-write telemetry from every sidecar into crash-atomic
+    segment logs under <out>/tsdb and serve range queries (/query,
+    /history) from its own metrics sidecar. Host-side only: it needs no
+    card. Same exposure rules as --serve: loopback unless an explicit
+    HOST, --secret gates every remote-write attach.
+
+    --alert-rules here evaluate FLEET-WIDE: the evaluator reads the
+    collected series (each key tagged src="SOURCE") instead of the
+    collector's own registry, and after --resume latest the `for:`
+    clocks are seeded from stored history — a restart cannot reset a
+    breach that was already pending."""
+    import time as _time
+
+    from gol_tpu_torch.obs import flight
+    from gol_tpu_torch.obs.collector import CollectorServer
+    from gol_tpu_torch.obs.tsdb import TSDB, eval_expr
+
+    host, port = _addr(args.collector, default_host="127.0.0.1")
+    root = os.path.join(args.out, "tsdb")
+    db = TSDB(root, resume=resume)
+    if resume:
+        print(f"resumed {len(db.sources())} source(s) from {root}/")
+    server = CollectorServer(host, port, db, secret=args.secret)
+    print(f"collector serving on "
+          f"{server.address[0]}:{server.address[1]} (store {root}/)",
+          flush=True)
+
+    def health():
+        last = db.last_sample_time()
+        return {
+            "status": "ok", "mode": "collector",
+            "sources": len(db.sources()),
+            "last_sample_age_s": (None if last is None
+                                  else round(_time.time() - last, 3)),
+        }
+
+    def fleet_series():
+        # Merged latest values across every source, each key tagged
+        # src="..." — `max(family)` in a rule means "worst source".
+        merged = {}
+        now = _time.time()
+        for src in db.sources():
+            for key, value in db.latest(src, max_age=60.0,
+                                        now=now).items():
+                name, brace, rest = key.partition("{")
+                if brace:
+                    merged[f'{name}{{src="{src}",{rest}'] = value
+                else:
+                    merged[f'{name}{{src="{src}"}}'] = value
+        return merged
+
+    # One try from here down: a SIGINT landing anywhere after the banner
+    # (even mid-seeding) must still reach the graceful close (final
+    # segment flushed), not escape as an uncaught interrupt.
+    metrics = None
+    try:
+        metrics = _start_metrics(args, health=health, tsdb=db,
+                                 series_source=fleet_series)
+        if metrics is not None and metrics.alerts is not None \
+                and resume:
+            ev = metrics.alerts
+            now_wall = _time.time()
+
+            def stored_values(rule):
+                # Ages relative to now, one point per evaluator interval
+                # over the trailing 2x `for:` window.
+                window = max(10.0, 2.0 * rule.for_secs)
+                step = max(1.0, ev.interval)
+                pts = eval_expr(db, rule.agg, rule.family,
+                                now_wall - window, now_wall, step)
+                return [(now_wall - t, v) for t, v in pts
+                        if v is not None]
+
+            seeded = ev.seed_history(stored_values)
+            if seeded:
+                print(f"seeded {seeded} for: rule(s) pending from "
+                      "stored history")
+        flight.set_state_provider(health)
+        server.start()
+        while True:
+            _time.sleep(1.0)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if metrics is not None:
+            metrics.close()
+        server.close()  # closes the TSDB (final segment flushed)
     return 0
 
 

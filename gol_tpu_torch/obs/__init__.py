@@ -1,8 +1,12 @@
 """gol_tpu_torch.obs — host-side observability for the port: metrics
 (`registry`, served live by `http.MetricsServer`), spans (`tracing`),
-the black box (`flight`), usage accounting (`accounting`), the
-freshness plane (`freshness`), and the dispatch split, memory census
-and `torch.profiler` driver (`device`).
+the black box (`flight`), usage accounting and its ledger
+(`accounting`), the freshness plane and its alert evaluator
+(`freshness`), the dispatch split, memory census, cost price and
+`torch.profiler` driver (`device`); above the process, the scrape join
+(`scrape`), the fleet console (`console`), the history plane (`tsdb`,
+`collector`), the post-mortem tools (`report`) and the synthetic
+observer (`canary`).
 
 Ground rules, as in `gol_tpu.obs`: metrics, spans and flight notes are
 host-side and dispatch-granular — never inside a kernel, never per

@@ -14,8 +14,20 @@
   stepper's slab bound and the capacity answer price one per-slot
   constant.
 
-gol_tpu's compile watcher and XLA cost probes have no counterpart here
-yet. Host-side only: nothing here synchronises the device (the
+- `enable_cost_probes()` / `cost_of()` / `publish_cost()` price one turn
+  of a program ("engine.step", "bucket.step") for the accounting plane
+  and the `gol_tpu_device_cost_*` gauges. gol_tpu reads the price from
+  XLA's `cost_analysis` of a compiled program; here nothing compiles:
+  `cost_of` states the port's own count of the work, the integer
+  operations per call (the fewest 32-bit instructions per packed word
+  that `chip_smoke.py`'s bound counts: 12 for a Life-like rule, 12 for
+  a three-state Generations rule, 15 for more states, 9 per 4-cell word
+  of the dense layout) and the bytes of each input read once and each
+  output written once. So the two packages' prices differ in value for
+  the same board; the mechanism (price x turns, split by the bucket
+  rule) is the same.
+
+gol_tpu's compile watcher has no counterpart here yet. Host-side only: nothing here synchronises the device (the
 allocator's statistics and `cudaMemGetInfo` read host state). torch is
 imported inside the functions that need it.
 """
@@ -34,8 +46,11 @@ from gol_tpu_torch.obs import flight, tracing
 
 __all__ = [
     "cause",
+    "cost_of",
+    "cost_probes_enabled",
     "current_cause",
     "device_budget",
+    "enable_cost_probes",
     "fits",
     "max_resident_tiles",
     "memory_census",
@@ -43,6 +58,7 @@ __all__ = [
     "observe_split",
     "profile_window",
     "profiler",
+    "publish_cost",
     "start_profile",
     "stop_profile",
     "tile_ext_bytes",
@@ -107,6 +123,106 @@ def observe_split(enqueue_s: Optional[float] = None,
         total = enqueue_s + sync_s + host_s
         if total > 0:
             _DEVICE_FRACTION.set(round(sync_s / total, 5))
+
+
+# --- cost model ----------------------------------------------------------
+
+#: Cost probes are a real-run concern, as in gol_tpu: the CLI enables
+#: them so a live `/metrics` carries the cost model, while library
+#: embedders and the tests opt in. Explicit `cost_of` / `publish_cost`
+#: calls always work.
+_COST_PROBES = False
+
+#: Integer operations per 32-bit word per turn (see the module
+#: docstring): packed Life-like, packed Generations by state count, and
+#: the dense byte-SIMD form (four cells a word).
+OPS_PER_WORD_LIFE = 12
+OPS_PER_WORD_GENS3 = 12
+OPS_PER_WORD_GENS = 15
+OPS_PER_WORD_DENSE = 9
+
+
+def enable_cost_probes(on: bool = True) -> None:
+    global _COST_PROBES
+    _COST_PROBES = bool(on)
+
+
+def cost_probes_enabled() -> bool:
+    return _COST_PROBES and obs.enabled()
+
+
+def cost_of(height: int, width: int, rule, layout: str = "packed",
+            boards: int = 1) -> dict:
+    """Modelled work of ONE turn of `boards` (height, width) boards under
+    `rule` (a rule object or its notation) in `layout` ("packed": int32
+    words of 32 cells, one plane per live state; "dense": one byte a
+    cell): {"flops": integer operations, "bytes_accessed": input read
+    once + output written once, "argument_bytes", "output_bytes"} — the
+    keys of gol_tpu's `cost_of`, from arithmetic alone (no compile, no
+    device). Returns {"error": ...} for an unknown layout or rule
+    instead of raising: the price is advisory."""
+    try:
+        from gol_tpu_torch.models.rules import GenRule, get_rule
+
+        r = get_rule(rule) if isinstance(rule, str) else rule
+        cells = int(height) * int(width) * int(boards)
+        if layout == "packed":
+            words = -(-cells // 32)
+            if isinstance(r, GenRule):
+                planes = r.states - 1
+                per_word = (OPS_PER_WORD_LIFE if r.states == 2
+                            else OPS_PER_WORD_GENS3 if r.states == 3
+                            else OPS_PER_WORD_GENS)
+            else:
+                planes, per_word = 1, OPS_PER_WORD_LIFE
+            state_bytes = 4 * words * planes
+            ops = per_word * words
+        elif layout == "dense":
+            state_bytes = cells
+            ops = OPS_PER_WORD_DENSE * -(-cells // 4)
+        else:
+            raise ValueError(f"unknown layout {layout!r}")
+        return {
+            "flops": float(ops),
+            "bytes_accessed": float(2 * state_bytes),
+            "argument_bytes": state_bytes,
+            "output_bytes": state_bytes,
+        }
+    except Exception as e:
+        return {"error": repr(e)}
+
+
+def publish_cost(program: str, *args, **kw) -> dict:
+    """`cost_of(*args, **kw)`, exported as gol_tpu exports it: the price
+    lands in the accounting plane (modelled FLOPs = price x dispatched
+    turns), as labeled gauges (`gol_tpu_device_cost_{flops,
+    bytes_accessed}{program=...}`), a trace event and a flight note.
+    `program` must come from a BOUNDED vocabulary ("engine.step",
+    "bucket.step") — it is a label."""
+    if not obs.enabled():
+        return {}
+    out = cost_of(*args, **kw)
+    if "error" not in out:
+        from gol_tpu_torch.obs import accounting
+
+        m = accounting.meter()
+        if m is not None:
+            m.set_price(program, out)
+        obs.gauge(
+            "gol_tpu_device_cost_flops",
+            "Modelled integer operations per call of the named program",
+            {"program": program},
+        ).set(out["flops"])
+        obs.gauge(
+            "gol_tpu_device_cost_bytes_accessed",
+            "Modelled bytes accessed per call of the named program",
+            {"program": program},
+        ).set(out["bytes_accessed"])
+    tracing.event("device.cost", "device", program=program, **{
+        k: v for k, v in out.items() if not isinstance(v, str)
+    })
+    flight.note("device.cost", program=program, **out)
+    return out
 
 
 # --- memory census -------------------------------------------------------

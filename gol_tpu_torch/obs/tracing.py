@@ -37,9 +37,8 @@ Design constraints, matching `obs.registry`:
 Cross-process correlation: the distributed handshake's clock probe
 estimates this process's wall-clock offset to its server peer;
 `set_clock_offset` stores it and the export carries it in `metadata`,
-so two processes' dumps can be put on one timebase (gol_tpu's
-`python -m gol_tpu.obs.report merge` does that; the port has no merge
-tool yet).
+so two processes' dumps can be put on one timebase (`python -m
+gol_tpu_torch.obs.report merge` does that).
 """
 
 from __future__ import annotations

@@ -995,7 +995,7 @@ def _make_gens_stepper(rule: GenRule, height: int, width: int, dev,
     return _gens_stepper(rule, dev)
 
 
-def instrument_stepper(s: Stepper) -> Stepper:
+def instrument_stepper(s: Stepper, price: Optional[dict] = None) -> Stepper:
     """Wrap a Stepper's dispatch entries with gol_tpu_torch.obs counters,
     wall-time histograms and one `stepper.<entry>` span each on
     `obs.tracing` (dataclasses.replace, the checked_stepper pattern) —
@@ -1011,8 +1011,13 @@ def instrument_stepper(s: Stepper) -> Stepper:
 
     Halo traffic: the gol_tpu_halo_* series are registered as in
     gol_tpu and stay at zero while the stepper publishes no `halo_cost`
-    (every single-device backend). gol_tpu's XLA cost probe has no
-    counterpart here."""
+    (every single-device backend).
+
+    Cost probe: with `price` (`obs.device.cost_of`'s arguments) and the
+    probes enabled (`device.enable_cost_probes`, the CLI's default), the
+    FIRST `put` publishes the one-turn "engine.step" price — at put
+    time, as gol_tpu probes, so that nothing of it lands inside a
+    dispatch's timing."""
     import time
 
     from gol_tpu_torch import obs
@@ -1075,6 +1080,17 @@ def instrument_stepper(s: Stepper) -> Stepper:
 
         return wrapper
 
+    probed = []
+    _timed_put = timed("put", s.put)
+
+    def put(host_world):
+        out = _timed_put(host_world)
+        if price is not None and not probed \
+                and obs_device.cost_probes_enabled():
+            probed.append(True)
+            obs_device.publish_cost("engine.step", **price)
+        return out
+
     def step_n(world, k):
         dispatches["step_n"].inc()
         cost = _charge_halo(world, int(k), False)
@@ -1124,7 +1140,7 @@ def instrument_stepper(s: Stepper) -> Stepper:
     # declaring a `wrap` shape gets that wrapper, absent entries stay
     # None.
     wrappers = {"timed": timed, "one_turn": _one_turn, "diffy": _diffy}
-    repl: dict = {"put": timed("put", s.put), "step_n": step_n}
+    repl: dict = {"put": put, "step_n": step_n}
     for e in ENTRY_TABLE:
         if e.wrap is None or e.name in repl:
             continue
@@ -1163,7 +1179,11 @@ def make_stepper(
     s = _make_stepper(threads, height, width, rule, device, backend, tile,
                       mesh, partition_rules)
     if obs.enabled():
-        s = instrument_stepper(s)
+        rule = get_rule(rule) if isinstance(rule, str) else rule
+        dense = s.name in ("single", "single-cuda-dense", "generations-1")
+        s = instrument_stepper(s, price={
+            "height": height, "width": width, "rule": rule,
+            "layout": "dense" if dense else "packed"})
     if invariants_enabled():
         s = checked_stepper(s)
     return s

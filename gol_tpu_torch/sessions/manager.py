@@ -294,11 +294,18 @@ class _Bucket:
                                          dev)
             zero = np.zeros((height, width), np.uint8)
             self.stack = self.bs.put_all([zero] * capacity)
-        # gol_tpu prices a bucket's step here from its compiler's cost
-        # analysis
-        # (`device.publish_cost`). This package has no cost probe yet,
-        # so no price is set: `price_flops` answers 0 and every bucket
-        # charge carries 0 modeled FLOPs (never a guess).
+        if device.cost_probes_enabled():
+            cost = device.publish_cost(
+                "bucket.step", height, width, rule,
+                layout="packed" if self.bs.packed else "dense",
+                boards=capacity,
+            )
+            m = accounting.meter()
+            if m is not None:
+                # Per-bucket price: one step of the WHOLE stack (padding
+                # slots step too) — the accounting plane splits it
+                # across the bucket's live tenants at dispatch time.
+                m.set_price(f"bucket.step:{self.key}", cost)
         #: Free slots, lowest first (pop from the end).
         self.free = list(range(capacity - 1, -1, -1))
         self.sessions: "dict[int, Session]" = {}   # slot -> Session

@@ -48,9 +48,12 @@ def test_scan_covers_every_port_module():
     dense-kernel modules, the invariant checker, the visualiser, the
     checkpoint and trace utilities, the serving core (wire, server,
     client, writer pool, freshness, the metrics sidecar, the fault
-    injector, lockcheck), the session plane (manager, engine) and the
-    replay plane (log, recorder, server) and chip_smoke.py among them; the
-    native core's directory holds its sources only (it builds under
+    injector, lockcheck), the session plane (manager, engine), the
+    replay plane (log, recorder, server), the broadcast tier (relay
+    node, WebSocket gateway), the telemetry planes (scrape, console,
+    tsdb, collector, report, canary), the fleet controller (spec,
+    manifest, controller) and chip_smoke.py among them; the native
+    core's directory holds its sources only (it builds under
     build/gol_tpu_torch/)."""
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
     for want in ("gol_tpu_torch/ops/generations.py",
@@ -85,11 +88,52 @@ def test_scan_covers_every_port_module():
                  "gol_tpu_torch/replay/log.py",
                  "gol_tpu_torch/replay/recorder.py",
                  "gol_tpu_torch/replay/server.py",
+                 "gol_tpu_torch/relay/node.py",
+                 "gol_tpu_torch/relay/ws.py",
+                 "gol_tpu_torch/obs/scrape.py",
+                 "gol_tpu_torch/obs/console.py",
+                 "gol_tpu_torch/obs/tsdb.py",
+                 "gol_tpu_torch/obs/collector.py",
+                 "gol_tpu_torch/obs/report.py",
+                 "gol_tpu_torch/obs/canary.py",
+                 "gol_tpu_torch/control/__init__.py",
+                 "gol_tpu_torch/control/spec.py",
+                 "gol_tpu_torch/control/manifest.py",
+                 "gol_tpu_torch/control/controller.py",
                  "chip_smoke.py"):
         assert want in names
     native = sorted(p.name for p in (REPO / "gol_tpu_torch" / "native")
                     .iterdir() if p.name != "__pycache__")
     assert native == ["Makefile", "board.cpp"]
+
+
+def _module_runs(node) -> list:
+    """The module names that a list literal runs as `-m MODULE`."""
+    if not isinstance(node, ast.List):
+        return []
+    items = node.elts
+    return [b.value for a, b in zip(items, items[1:])
+            if isinstance(a, ast.Constant) and a.value == "-m"
+            and isinstance(b, ast.Constant) and isinstance(b.value, str)]
+
+
+def test_no_argv_runs_gol_tpu_as_a_module():
+    """No argv list in the port (the controller's spawn commands, the
+    smoke script's processes) runs `-m gol_tpu` or a module of it: the
+    import scan cannot see an argv string."""
+    bad, runs = [], 0
+    for path in PORT_FILES:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            for mod in _module_runs(node):
+                runs += 1
+                if _forbidden(mod):
+                    bad.append(f"{path.name}:{node.lineno} -m {mod}")
+    assert runs >= 3  # the controller's two spawns and the smoke's CLI
+    assert not bad, bad
+    # The scan itself catches the bad form.
+    tree = ast.parse('cmd = [sys.executable, "-m", "gol_tpu", "--relay"]')
+    assert [_module_runs(n) for n in ast.walk(tree)
+            if isinstance(n, ast.List)] == [["gol_tpu"]]
 
 
 def test_full_cpu_run_loads_no_jax(golden_root, tmp_path):
@@ -241,30 +285,64 @@ def test_engine_server_without_gpu_raises(no_cuda, golden_root, tmp_path):
     assert not list(tmp_path.iterdir())
 
 
+def _gol_tpu_messages() -> set:
+    """Every string constant of gol_tpu's CLI (adjacent literals are
+    joined by the parser): the guards' messages the port keeps."""
+    tree = ast.parse((REPO / "gol_tpu" / "cli.py").read_text())
+    return {n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)}
+
+
 @pytest.mark.parametrize("argv,match", [
     pytest.param(["--sessions", "--serve", "0"], "no CUDA GPU",
                  id="--sessions"),
-    pytest.param(["--relay", "x:1", "--serve", "0", "--platform", "cpu"],
-                 "not yet ported", id="--relay"),
+    pytest.param(["--relay", "x:1", "--sessions", "--serve", "0",
+                  "--platform", "cpu"], None, id="--relay"),
     pytest.param(["--record", "--serve", "0", "--platform", "cpu"],
                  "--record applies to --serve --sessions", id="--record"),
     pytest.param(["--replay", "x:1", "--serve", "0"], "no CUDA GPU",
                  id="--replay"),
-    pytest.param(["--sessions", "--serve", "0", "--platform", "cpu",
-                  "--session-budget-flops", "1e9"], "not yet ported",
+    pytest.param(["--serve", "0", "--platform", "cpu",
+                  "--session-budget-flops", "1e9"], None,
                  id="--session-budget-flops"),
-    pytest.param(["--sessions", "--serve", "0", "--platform", "cpu",
-                  "--session-budget-bytes", "1e6"], "not yet ported",
+    pytest.param(["--serve", "0", "--platform", "cpu",
+                  "--session-budget-bytes", "1e6"], None,
                  id="--session-budget-bytes"),
+    pytest.param(["--relay", "x:1", "--serve", "0", "--tile", "64"], None,
+                 id="--tile with --relay"),
+    pytest.param(["--serve", "0", "--ws-port", "0"], None,
+                 id="--ws-port without --relay"),
+    pytest.param(["--relay", "x:1"], None, id="--relay without --serve"),
+    pytest.param(["--relay", "x:1", "--serve", "0", "--resume", "latest"],
+                 None, id="--relay with --resume"),
+    pytest.param(["--serve", "0", "--remote-write", "x:1"], None,
+                 id="--remote-write without --metrics-port"),
+    pytest.param(["--collector", "0", "--control", "s.json"], None,
+                 id="--collector with --control"),
+    pytest.param(["--collector", "0", "--serve", "0"], None,
+                 id="--collector with a serving mode"),
+    pytest.param(["--collector", "0", "--resume", "x.pgm"], None,
+                 id="--collector with a snapshot"),
+    pytest.param(["--control", "s.json", "--relay", "x:1"], None,
+                 id="--control with --relay"),
+    pytest.param(["--control", "s.json", "--resume", "latest"], None,
+                 id="--control with --resume"),
 ])
 def test_unported_serving_flags_refused(argv, match, no_cuda):
-    """The relay and the session budgets are still refused as not yet
-    ported; `--sessions`, `--record` and `--replay` are ported, so they
-    reach their own guards — and, without --platform cpu, the card."""
+    """Every gol_tpu serving flag is ported: the relay, the session
+    budgets, the alerting, history and control flags reach gol_tpu's
+    own guards with gol_tpu's messages (match None: the message is one
+    of gol_tpu's CLI's), and `--sessions` / `--replay` without
+    --platform cpu reach the card."""
     from gol_tpu_torch import cli
 
-    with pytest.raises(SystemExit, match=match):
+    with pytest.raises(SystemExit) as e:
         cli.main(argv)
+    msg = str(e.value)
+    if match is None:
+        assert msg.startswith("error: ") and msg in _gol_tpu_messages(), msg
+    else:
+        assert match in msg
 
 
 def test_session_server_without_gpu_raises(no_cuda, tmp_path):
@@ -324,3 +402,122 @@ print("FORBIDDEN", bad)
     assert r.returncode == 0, r.stderr
     assert "FORBIDDEN []" in r.stdout, r.stdout
     assert (tmp_path / "sessions" / "s1" / "replay").is_dir()
+
+
+def test_relay_on_gpu_without_a_card_exits_nonzero(no_cuda, tmp_path):
+    """A relay steps no board, but `--platform gpu` (the default) still
+    needs the card: without one it exits nonzero before it dials."""
+    r = subprocess.run(
+        [sys.executable, "-m", "gol_tpu_torch", "--relay", "127.0.0.1:1",
+         "--serve", "127.0.0.1:0", "--out", str(tmp_path)],
+        cwd=REPO, capture_output=True, text=True, timeout=120, env=ENV)
+    assert r.returncode != 0
+    assert "no CUDA GPU" in r.stderr
+    assert not list(tmp_path.iterdir())
+
+
+def _until_banner(proc, prefix, timeout=60.0):
+    import select
+    import time
+
+    deadline = time.monotonic() + timeout
+    seen = ""
+    while time.monotonic() < deadline:
+        ready, _, _ = select.select([proc.stdout], [], [], 0.2)
+        if ready:
+            line = proc.stdout.readline()
+            seen += line
+            if line.startswith(prefix):
+                return line
+        if proc.poll() is not None:
+            break
+    raise AssertionError(f"no {prefix!r} banner:\n{seen}")
+
+
+@pytest.mark.parametrize("mode", ["--collector", "--control"])
+def test_collector_and_control_run_without_a_card(mode, tmp_path):
+    """`--collector` and `--control` compute nothing on any device: with
+    no --platform and no card they start, serve their sidecar and end
+    cleanly on SIGINT."""
+    import json
+    import signal
+    import time
+
+    if mode == "--collector":
+        argv, banner = ["--collector", "127.0.0.1:0"], "collector serving on"
+    else:
+        spec = tmp_path / "spec.json"
+        spec.write_text(json.dumps({"root": "127.0.0.1:1",
+                                    "interval_secs": 0.2}))
+        argv, banner = ["--control", str(spec)], "controller reconciling"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gol_tpu_torch", *argv, "--out",
+         str(tmp_path / "out"), "--metrics-port", "0"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env={**ENV, "PYTHONUNBUFFERED": "1"})
+    try:
+        _until_banner(proc, banner)
+        _until_banner(proc, "metrics serving on")
+        time.sleep(1.0)  # past the banner, into the serving loop
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def test_cpu_relay_and_collector_round_loads_no_jax(tmp_path):
+    """A relay round and a history round on the CPU — EngineServer, a
+    RelayNode with its WebSocket gateway, a batching observer through
+    the relay, the alert evaluator, a RemoteWriter into a
+    CollectorServer, a query, the console, a report, the controller's
+    spec and manifest — load no JAX and nothing of gol_tpu."""
+    code = f"""
+import io, sys
+sys.path.insert(0, {str(REPO)!r})
+from gol_tpu_torch.distributed import Controller, EngineServer
+from gol_tpu_torch.params import Params
+from gol_tpu_torch.relay import RelayNode
+from gol_tpu_torch.obs import console, freshness, report
+from gol_tpu_torch.obs.collector import CollectorServer, RemoteWriter
+from gol_tpu_torch.obs.http import MetricsServer
+from gol_tpu_torch.obs.tsdb import TSDB
+from gol_tpu_torch.control import ControllerManifest, FleetSpec
+p = Params(turns=10**9, image_width=64, image_height=64,
+           image_dir={str(REPO / "fixtures" / "images")!r},
+           out_dir={str(tmp_path)!r}, tick_seconds=60.0)
+srv = EngineServer(p, port=0, device="cpu").start()
+relay = RelayNode(srv.address, port=0, ws_port=0).start()
+assert relay.synced.wait(10)
+ob = Controller(*relay.address, want_flips=True, batch=True,
+                batch_turns=8, observe=True, timeout=10)
+assert ob.wait_sync(10)
+for i, ev in enumerate(ob.events):
+    if i > 30:
+        break
+ev = freshness.AlertEvaluator(freshness.parse_rules(
+    "age: max(gol_tpu_server_worst_turn_age_seconds) > 60"))
+ev.eval_once()
+db = TSDB({str(tmp_path / 'tsdb')!r})
+col = CollectorServer("127.0.0.1", 0, db).start()
+side = MetricsServer(port=0, alerts=ev, tsdb=db).start()
+rw = RemoteWriter("127.0.0.1:%d" % col.address[1], source="x")
+assert rw.push_once()
+snap = console.fleet_snapshot([console.Endpoint("127.0.0.1:%d"
+                                                % side.address[1])])
+console.render(snap, out=io.StringIO())
+FleetSpec({{"root": "127.0.0.1:1"}})
+ControllerManifest({str(tmp_path / 'controller.json')!r})
+assert report.main(["usage", {str(tmp_path)!r}, "--json"]) == 0
+rw.close(); side.close(); col.close(); ob.close(); relay.shutdown()
+srv.shutdown()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0].startswith("jax") or m == "gol_tpu"
+             or m.startswith("gol_tpu."))
+print("FORBIDDEN", bad)
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=tmp_path, env=ENV)
+    assert r.returncode == 0, r.stderr
+    assert "FORBIDDEN []" in r.stdout, r.stdout
