@@ -54,8 +54,21 @@ at 16384², by leg, and a WebSocket observer on its gateway;
 wedged observer and resolved by its drain, the usage ledger and the
 cost price, remote-write into a collector, a WebSocket canary;
 `cli-fleet`: `--collector`, `--serve --sessions`, `--relay` and
-`--control` processes, a SIGKILLed relay healed), every board against
-the plain version — and prints
+`--control` processes, a SIGKILLed relay healed), runs rings and 2-D
+meshes of shards over `[cuda:0] * k` (phase `kernels`: each local-block
+plan's entry on the rings' ghost-extended blocks at 512² and 16384²
+over 4, 1504 x 512 over 3 and 3072 x 8192 over 2, kernel E on the dense
+ring's strips, one-turn launches on the mesh's and the lane layout's
+blocks; `main-ring-512`: the fixture through an Engine on a 4-shard
+ring, Life and B2/S/C3, launches equal to the plan's and the halo
+series; `main-ring-16384`: Life and B2/S/C3 over 4 shards against the
+single-device boards, both walls; `main-ring-uneven`: balanced and
+narrow splits and the dense ring against the single-device steppers,
+padding dead, diff rows stripped; `main-watched-ring`: FlipBatch and
+FlipChunk streams with a forced redo, equal to one device's, one launch
+a watched turn a shard; `main-mesh`: 2x2 meshes and
+`layout=lane-coupled`; `cli-mesh`: `--mesh 2x2` refused on one card,
+`-t 4` one shard), every board against the plain version — and prints
 the `kernels` JSON line, the card's name and power limit, and a last
 line `{"ok": true, "device": {...}}`. Any failed phase raises, so the
 script exits nonzero and prints no result. Without a CUDA device, or
@@ -847,6 +860,7 @@ def main_path_16384(tmp: pathlib.Path, card: str) -> tuple:
         raise AssertionError("16384²: no FinalTurnComplete at the last turn")
     p = bitlife.pack(life.to_bits(torch.from_numpy(world).cuda()))
     want = bitlife.step_n_packed_raw(p, turns)
+    REUSE["life"] = (world, want)  # phase main-ring-16384's reference
     got = bitlife.pack(life.to_bits(torch.from_numpy(
         read_pgm(out / f"{side}x{side}x{turns}.pgm")).cuda()))
     if not torch.equal(got, want):
@@ -993,6 +1007,7 @@ def main_gens_16384(tmp: pathlib.Path, card: str) -> int:
         raise AssertionError("16384² gens: no FinalTurnComplete at the last turn")
     ref = make_stepper(height=side, width=side, rule=rule, backend="packed")
     q, count = ref.step_n(ref.put(world), turns)
+    REUSE["gens"] = (world, q)  # phase main-ring-16384's reference
     want = ref.fetch(q)
     got = read_pgm(out / f"{side}x{side}x{turns}.pgm")
     if not np.array_equal(got, want):
@@ -4406,6 +4421,593 @@ def count_tree(nodes) -> int:
 
 
 
+# --- rings and meshes of shards ------------------------------------------
+
+#: (height, width, shards) of the packed rings whose ghost-extended
+#: blocks phase `kernels` holds against the plain versions: the main
+#: path's 512² and 16384² over 4, the balanced split 1504 / 3 and
+#: gol_tpu's wide-shard seam 3072 x 8192 / 2.
+RING_SHAPES = ((512, 512, 4), (16384, 16384, 4), (1504, 512, 3),
+               (3072, 8192, 2))
+#: The dense ring of phase `main-ring-uneven` (kernel E): 100 rows over
+#: 3 shards, the balanced split of 34, 33 and 33 rows.
+DENSE_RING = (100, 512, 3)
+#: Boards stepped by reused reference boards of the 16384² phases.
+REUSE: dict = {}
+
+
+def ring_plan(rule, h: int, w: int, k: int) -> tuple:
+    """(h_ghost, mode, Sw, real) of a packed ring's local blocks on the
+    card, as the steppers plan them."""
+    from gol_tpu_torch.models.rules import GenRule
+    from gol_tpu_torch.parallel import gens_halo, packed_halo
+
+    size, real = packed_halo.balanced_words(h, k)
+    if isinstance(rule, GenRule):
+        plan = gens_halo.gens_local_block_mode(size, w, rule, True,
+                                               max_h=min(real))
+    else:
+        plan = packed_halo.local_block_mode(size, w, True, max_h=min(real))
+    return (*plan, size, real)
+
+
+def ring_launches(plan: tuple, k: int, shards: int) -> int:
+    """Launches of one `step_n(world, k)` of a packed ring with local
+    block plan (h, mode): one a shard a deep block (h launches of 32
+    turns for ``tiled2d``), the remainder as one partial block."""
+    h, mode = plan[:2]
+    big, rem = divmod(k, 32 * h)
+    if mode == "tiled2d":
+        return shards * (big * h + -(-rem // 32))
+    return shards * (big + (1 if rem else 0))
+
+
+def kernel_of(before: dict) -> str:
+    """The one kernel whose launch count moved since `before`."""
+    moved_ = {k: v - before[k] for k, v in read_launches().items()
+              if v != before[k]}
+    if len(moved_) != 1:
+        raise AssertionError(f"expected one kernel to launch, got {moved_}")
+    return next(iter(moved_))
+
+
+def check_ring_kernels(errs: dict) -> dict:
+    """Phase `kernels` (rings and meshes): each plan's local-block entry
+    on the ring's ghost-extended blocks — a whole deep block, a partial
+    one, and the per-turn block of one ghost word-row — for B3/S23
+    (kernels A, B) and B2/S/C3 (C, D), at RING_SHAPES; kernel E on the
+    dense ring's deep and per-turn strips; one-turn launches on the 2x2
+    mesh's and the lane layout's extended blocks at 512². Each against
+    its plain version on the same input on the card, bit-exact.
+    Returns {shape: plan} for the record."""
+    import torch
+
+    from gol_tpu_torch.models.rules import get_rule
+    from gol_tpu_torch.ops import bitgens, bitlife, cuda_life, life
+    from gol_tpu_torch.parallel import halo, packed_halo
+
+    gen = torch.Generator().manual_seed(15)
+    plans, checked = {}, 0
+
+    def held(tag, got, want):
+        nonlocal checked
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        errs[kernel] = max(errs[kernel], err)
+        if err:
+            raise AssertionError(f"{kernel} on {tag}: mismatch")
+        checked += 1
+
+    for notation in ("B3/S23", "B2/S/C3"):
+        rule = get_rule(notation)
+        gens = "/C" in notation
+        plain = ((lambda x, n: bitgens.step_n_packed_gens_raw(x, n, rule))
+                 if gens else
+                 (lambda x, n: bitlife.step_n_packed_raw(x, n, rule)))
+
+        def block(rows, w):
+            if gens:
+                return gens_planes(rule, rows * 32, w, gen)
+            return torch.randint(-2**31, 2**31 - 1, (rows, w),
+                                 dtype=torch.int32, generator=gen).cuda()
+
+        for h, w, k in RING_SHAPES:
+            g, mode, size, real = ring_plan(rule, h, w, k)
+            plans[f"{notation} {h}x{w}/{k}"] = (size + 2 * g, w, g, mode)
+            local = packed_halo.local_stepper(rule, mode, g)
+            ext = block(size + 2 * g, w)
+            for n in sorted({32 * g, 32 * g - 1, 33}):
+                before = read_launches()
+                got = local(ext, n)
+                kernel = kernel_of(before)
+                held(f"{notation} ext {tuple(ext.shape)} ({mode}, h={g}) "
+                     f"n={n}", got, plain(ext, n))
+            ext1 = block(size + 2, w)
+            before = read_launches()
+            got = packed_halo.turn_stepper(rule, mode)(ext1)
+            kernel = kernel_of(before)
+            held(f"{notation} per-turn ext {tuple(ext1.shape)}", got,
+                 plain(ext1, 1))
+            del ext, ext1
+            torch.cuda.empty_cache()
+        # The 2x2 mesh's blocks at 512² (8 word-rows x 256 columns plus
+        # a ghost a side) and the lane layout's chunks (k = 2).
+        for tag, rows, w in (("mesh 2x2", 8 + 2, 256 + 2),
+                             ("lane-coupled", 16, 256 + 2)):
+            if gens and tag == "lane-coupled":
+                continue
+            ext = block(rows, w)
+            before = read_launches()
+            got = packed_halo.turn_stepper(rule, "kernel")(ext)
+            kernel = kernel_of(before)
+            held(f"{notation} {tag} ext {tuple(ext.shape)}", got,
+                 plain(ext, 1))
+    # Kernel E on the dense ring's strips: a deep block of `deep` turns
+    # and the per-turn strip.
+    h, w, k = DENSE_RING
+    size, real = halo.balanced_rows(h, k)
+    deep = halo.dense_deep(h, k)
+    for rule in (get_rule("B3/S23"), get_rule("B36/S23")):
+        for rows, n in ((size + 2 * deep, deep), (size + 2, 1)):
+            ext = (torch.randint(0, 2, (rows, w), generator=gen)
+                   .to(torch.uint8) * 255).cuda()
+            before = read_launches()
+            got = cuda_life.step_n_cuda_dense(ext, n, rule)
+            kernel = kernel_of(before)
+            held(f"{rule} dense ring strip {rows}x{w} n={n}", got,
+                 life.step_n(ext, n, rule))
+    phase("kernels", f"{checked} ring / mesh / lane block runs bit-exact "
+                     f"against the plain versions; local-block plans "
+                     f"(ext rows, width, h, mode): {plans}")
+    return plans
+
+
+def recording(stepper) -> tuple:
+    """The stepper with its `step_n` recording each chunk's turns, and
+    the list it records into."""
+    import dataclasses
+
+    ks = []
+    inner = stepper.step_n
+
+    def step_n(world, k):
+        ks.append(int(k))
+        return inner(world, k)
+
+    return dataclasses.replace(stepper, step_n=step_n), ks
+
+
+def halo_counters(name: str) -> tuple:
+    """(exchanges, bytes) of the gol_tpu_halo_* series of backend `name`."""
+    from gol_tpu_torch import obs
+
+    labels = {"backend": name}
+    return (int(obs.counter("gol_tpu_halo_exchanges_total",
+                            labels=labels).value),
+            int(obs.counter("gol_tpu_halo_bytes_total",
+                            labels=labels).value))
+
+
+def ring_devices(k: int) -> list:
+    import torch
+
+    return [torch.device("cuda", 0)] * k
+
+
+def stepper_wall(stepper, world, chunks, reps: int = 5) -> float:
+    """Best seconds of `reps` runs of `chunks` through the stepper's
+    `step_n` from one put board, each ended by reading the count."""
+    import torch
+
+    p0 = stepper.put(world)
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        p = p0
+        for k in chunks:
+            p, count = stepper.step_n(p, k)
+        int(count.item())
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def main_ring_512(tmp: pathlib.Path) -> dict:
+    """Phase `main-ring-512`: `Engine(Params(512², 100 turns))` with
+    `make_stepper(threads=4, devices=[cuda:0] * 4)` injected — every
+    shard's deep block one launch of kernel A — PGM byte-equal to the
+    fixture and every AliveCellsCount equal to the CSV; then B2/S/C3
+    the same way (kernel C) against the single-device stepper's run.
+    Launches equal the plan's count for the chunks dispatched."""
+    from gol_tpu_torch import AliveCellsCount, FinalTurnComplete, Params
+    from gol_tpu_torch.engine.distributor import Engine
+    from gol_tpu_torch.models.rules import get_rule
+    from gol_tpu_torch.parallel import make_stepper
+
+    from gol_tpu_torch.io.pgm import read_pgm
+
+    with open(FIXTURES / "check/alive/512x512.csv") as f:
+        csv_alive = {int(r["completed_turns"]): int(r["alive_cells"])
+                     for r in csv.DictReader(f)}
+    # The CSV counts from turn 1; turn 0 is the input board's count.
+    csv_alive[0] = int((read_pgm(FIXTURES / "images/512x512.pgm") != 0).sum())
+    out_launches = {}
+    boards = {}
+    for notation, kernel, name in (
+            ("B3/S23", "bitlife_resident", "packed-halo-ring-4"),
+            ("B2/S/C3", "bitgens_resident", "gens-packed-halo-ring-4")):
+        plan = ring_plan(get_rule(notation), 512, 512, 4)
+        for tag, devs in (("ring", ring_devices(4)), ("single", None)):
+            out = tmp / f"ring512-{notation.replace('/', '_')}-{tag}"
+            params = Params(image_width=512, image_height=512, turns=100,
+                            threads=4, rule=notation, chunk=0,
+                            tick_seconds=0.002,
+                            image_dir=str(FIXTURES / "images"),
+                            out_dir=str(out))
+            st = make_stepper(threads=4, height=512, width=512,
+                              rule=notation, devices=devs)
+            if tag == "ring" and st.name != name:
+                raise AssertionError(f"ring stepper is {st.name}")
+            st, ks = recording(st)
+            reset_launches()
+            halo0 = halo_counters(name)
+            t0 = time.perf_counter()
+            engine = Engine(params, stepper=st, emit_flips=False).start()
+            evs = drain(engine.events)
+            wall = time.perf_counter() - t0
+            engine.join(timeout=60)
+            if engine.error is not None:
+                raise engine.error
+            got = read_launches()
+            final = [e for e in evs if isinstance(e, FinalTurnComplete)]
+            if not final or final[0].completed_turns != 100:
+                raise AssertionError(f"{tag} {notation}: no final turn 100")
+            boards[notation, tag] = (out / "512x512x100.pgm").read_bytes()
+            if notation == "B3/S23":
+                ticks = [(e.completed_turns, e.cells_count) for e in evs
+                         if isinstance(e, AliveCellsCount)]
+                bad = [(t, c) for t, c in ticks if csv_alive.get(t) != c]
+                if bad or len(final[0].alive) != csv_alive[100]:
+                    raise AssertionError(f"{tag} 512²: counts {bad} against "
+                                         "the CSV")
+            if tag != "ring":
+                continue
+            want = sum(ring_launches(plan, k, 4) for k in ks)
+            if got[kernel] != want or sum(got.values()) != want:
+                raise AssertionError(f"ring 512² {notation}: launches {got}, "
+                                     f"the plan {plan[:2]} over chunks {ks} "
+                                     f"gives {want} of {kernel}")
+            halo1 = halo_counters(name)
+            out_launches[notation] = got[kernel]
+            # The stepper alone, ring against one device, same chunks.
+            start = read_pgm(FIXTURES / "images/512x512.pgm")
+            walls = [stepper_wall(make_stepper(
+                threads=4, height=512, width=512, rule=notation,
+                devices=devs), start, ks) for devs in (ring_devices(4),
+                                                       None)]
+            phase("main-ring-512", f"{name} {notation} 512² x 100 on 4 "
+                  f"shards of cuda:0: plan (h, mode) {plan[:2]}, chunks "
+                  f"{ks}, {got[kernel]} {kernel} launches (= the plan's), "
+                  f"gol_tpu_halo_exchanges_total +{halo1[0] - halo0[0]}, "
+                  f"gol_tpu_halo_bytes_total +{halo1[1] - halo0[1]}; "
+                  f"{wall:.3f} s engine wall; step_n over the chunks "
+                  f"{walls[0] * 1e3:.3f} ms on the ring, "
+                  f"{walls[1] * 1e3:.3f} ms on one device (best of 5, "
+                  f"the shards one after another on one card)")
+    golden = (FIXTURES / "check/images/512x512x100.pgm").read_bytes()
+    if golden != boards["B3/S23", "ring"] or golden != boards["B3/S23",
+                                                              "single"]:
+        raise AssertionError("ring 512²: PGM differs from the fixture")
+    if boards["B2/S/C3", "ring"] != boards["B2/S/C3", "single"]:
+        raise AssertionError("ring 512² B2/S/C3: PGM differs from the "
+                             "single-device stepper's")
+    phase("main-ring-512", "Life PGM byte-equal to 512x512x100.pgm and "
+          "every AliveCellsCount to 512x512.csv; B2/S/C3 PGM equal to the "
+          "single-device stepper's")
+    return {"bitlife_resident": out_launches["B3/S23"],
+            "bitgens_resident": out_launches["B2/S/C3"]}
+
+
+def main_ring_16384(card: str) -> dict:
+    """Phase `main-ring-16384`: Life and B2/S/C3 at 16384² x 256 turns
+    over 4 shards of the card, through the stepper (put, four 64-turn
+    `step_n` chunks, count, fetch), bit-exact against the boards the
+    single-device phases `main-16384` and `main-gens-16384` computed;
+    the ring's wall beside the single-device stepper's for the same
+    chunks, and the launches against the plan's."""
+    import torch
+
+    from gol_tpu_torch.models.rules import get_rule
+    from gol_tpu_torch.ops import bitlife
+    from gol_tpu_torch.parallel import make_stepper
+
+    side, chunks = 16384, (64, 64, 64, 64)
+    out = {}
+    for notation, key, kernel in (("B3/S23", "life", "bitlife_tiled"),
+                                  ("B2/S/C3", "gens", "bitgens_tiled")):
+        world, want = REUSE.pop(key)
+        plan = ring_plan(get_rule(notation), side, side, 4)
+        walls = {}
+        for tag, devs in (("ring", ring_devices(4)), ("single", None)):
+            st = make_stepper(threads=4, height=side, width=side,
+                              rule=notation, devices=devs)
+            t_put = time.perf_counter()
+            p = st.put(world)
+            torch.cuda.synchronize()
+            t_put = time.perf_counter() - t_put
+            reset_launches()
+            t0 = time.perf_counter()
+            for k in chunks:
+                p, count = st.step_n(p, k)
+            alive = int(count.item())
+            walls[tag] = time.perf_counter() - t0
+            if tag == "ring":
+                got = read_launches()
+                expect = sum(ring_launches(plan, k, 4) for k in chunks)
+                if got[kernel] != expect or sum(got.values()) != expect:
+                    raise AssertionError(
+                        f"ring 16384² {notation}: launches {got}, the plan "
+                        f"{plan[:2]} gives {expect} of {kernel}")
+                if not torch.equal(p.gather(), want):
+                    raise AssertionError(f"ring 16384² {notation}: words "
+                                         "differ from the single-device run")
+                want_alive = int(bitlife.count_packed(
+                    want if key == "life" else want[0]).item())
+                if alive != want_alive:
+                    raise AssertionError(f"ring 16384² {notation}: count "
+                                         f"{alive} != {want_alive}")
+                t_fetch = time.perf_counter()
+                host = st.fetch(p)
+                t_fetch = time.perf_counter() - t_fetch
+                if host.shape != (side, side):
+                    raise AssertionError("ring 16384²: fetch shape")
+                out[notation] = got[kernel]
+                ring_put, ring_fetch = t_put, t_fetch
+            del p
+            torch.cuda.empty_cache()
+        phase("main-ring-16384", f"{notation} {side}² x {sum(chunks)} turns "
+              f"on 4 shards of one card, plan (h, mode) {plan[:2]}: words "
+              f"and count ({alive}) equal to the single-device run; "
+              f"{out[notation]} {kernel} launches (= the plan's); step_n "
+              f"chunks {walls['ring']:.4f} s on the ring, "
+              f"{walls['single']:.4f} s on the single-device stepper (the "
+              f"4 shards run one after another on one card); ring put "
+              f"{ring_put:.2f} s, fetch {ring_fetch:.2f} s; {card}")
+    return {"bitlife_tiled": out["B3/S23"], "bitgens_tiled": out["B2/S/C3"]}
+
+
+def main_ring_uneven() -> dict:
+    """Phase `main-ring-uneven`: the balanced packed split 1504 x 512
+    over 3 shards (16/16/15 word-rows), the even ring's narrowest strips
+    128 x 64 over 2 and the dense balanced ring 100 x 512 over 3 (kernel
+    E), Life and B2/S/C3, 100 turns, against the single-device
+    steppers: boards and counts equal, the padding rows dead, the diff
+    stacks through `fetch_diffs` stripped to the canonical rows and
+    equal to the single-device scans'."""
+    import numpy as np
+    import torch
+
+    from gol_tpu_torch.ops import life
+    from gol_tpu_torch.parallel import make_stepper
+
+    cases = [(1504, 512, 3, "B3/S23"), (1504, 512, 3, "B2/S/C3"),
+             (128, 64, 2, "B3/S23"), (128, 64, 2, "B2/S/C3"),
+             (*DENSE_RING, "B3/S23"), (*DENSE_RING, "B2/S/C3")]
+    totals: dict = {}
+    for h, w, k, notation in cases:
+        world = life.random_world(h, w, seed=h + k)
+        ring = make_stepper(threads=k, height=h, width=w, rule=notation,
+                            devices=ring_devices(k))
+        single = make_stepper(height=h, width=w, rule=notation)
+        reset_launches()
+        p, c = ring.step_n(ring.put(world), 100)
+        got = read_launches()
+        q, d = single.step_n(single.put(world), 100)
+        if not np.array_equal(ring.fetch(p), single.fetch(q)) \
+                or int(c.item()) != int(d.item()):
+            raise AssertionError(f"{ring.name} {h}x{w}: board or count "
+                                 "differs from the single-device stepper")
+        pad = [bool(torch.any(part[..., r:, :]).item())
+               for part, r in zip(p.parts, _ring_real(ring.name, h, k))]
+        if any(pad):
+            raise AssertionError(f"{ring.name}: padding rows came alive")
+        _, rd, _ = ring.step_n_with_diffs(p, 5)
+        _, sd, _ = single.step_n_with_diffs(q, 5)
+        a = np.asarray(ring.fetch_diffs(rd))
+        b = sd.cpu().numpy()
+        b = b.view(np.uint32) if b.dtype == np.int32 else b
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"{ring.name}: diff rows {a.shape} differ "
+                                 f"from the single-device scan's {b.shape}")
+        launched = {n: v for n, v in got.items() if v}
+        for n, v in launched.items():
+            totals[n] = totals.get(n, 0) + v
+        phase("main-ring-uneven", f"{ring.name} {notation} {h}x{w}: 100 "
+              f"turns equal to {single.name}, padding dead, diff rows "
+              f"{a.shape} stripped; step_n launches {launched}")
+    return totals
+
+
+def _ring_real(name: str, h: int, k: int) -> list:
+    """The owned rows of each shard of ring `name` (word-rows for the
+    packed rings, rows for the dense ones)."""
+    from gol_tpu_torch.parallel import halo, packed_halo
+
+    if name.startswith(("halo-ring", "gens-halo-ring")):
+        return halo.balanced_rows(h, k)[1]
+    return packed_halo.balanced_words(h, k)[1]
+
+
+def main_watched_ring(tmp: pathlib.Path) -> dict:
+    """Phase `main-watched-ring`: watched Life 512² over 4 shards of the
+    card through the engine's diff pipeline — level-free FlipBatches at
+    chunk 7 (dense, then sparse and compact chunks as the board calms),
+    then FlipChunks with the compact buffer forced to 4 words (every
+    chunk overflows and is redone from its input) — each stream event
+    for event the single-device stepper's. Every watched turn is one
+    kernel A launch a shard."""
+    import dataclasses
+
+    from gol_tpu_torch import Params
+    from gol_tpu_torch.engine.distributor import Engine
+    from gol_tpu_torch.parallel import make_stepper
+
+    kinds = {}
+    launches = 0
+    for tag, kw, cap in (("batches", {"emit_flip_batches": True}, None),
+                         ("chunks-redo", {"emit_flip_chunks": True}, 4)):
+        streams = {}
+        for who, devs in (("ring", ring_devices(4)), ("single", None)):
+            params = Params(image_width=512, image_height=512, turns=100,
+                            threads=4, chunk=7, tick_seconds=60.0,
+                            image_dir=str(FIXTURES / "images"),
+                            out_dir=str(tmp / f"wring-{tag}-{who}"))
+            st = make_stepper(threads=4, height=512, width=512,
+                              devices=devs)
+            turns = []
+
+            def counted(fn):
+                def wrapper(world, k, *rest):
+                    turns.append(int(k))
+                    return fn(world, k, *rest)
+                return wrapper
+
+            st = dataclasses.replace(
+                st,
+                step_n_with_diffs=counted(st.step_n_with_diffs),
+                step_n_with_diffs_sparse=counted(
+                    st.step_n_with_diffs_sparse),
+                step_n_with_diffs_compact=counted(
+                    st.step_n_with_diffs_compact))
+            engine = Engine(params, stepper=st, **kw)
+            if cap is not None:
+                engine._compact_total_cap = lambda k: cap
+            before = engine_counters()
+            reset_launches()
+            engine.start()
+            evs = drain(engine.events)
+            engine.join(timeout=60)
+            if engine.error is not None:
+                raise engine.error
+            got = read_launches()
+            streams[who] = normalize(evs)
+            if who == "ring":
+                kinds[tag] = moved(before)
+                ring_got = got["bitlife_resident"]
+                want = 4 * sum(turns)
+                if got["bitlife_resident"] != want \
+                        or sum(got.values()) != want:
+                    raise AssertionError(
+                        f"watched ring {tag}: launches {got}, 4 shards x "
+                        f"{sum(turns)} scanned turns give {want}")
+                launches += want
+        if streams["ring"] != streams["single"]:
+            raise AssertionError(f"watched ring {tag}: stream differs from "
+                                 "the single-device stepper's")
+        phase("main-watched-ring", f"512² x 100 {tag} on 4 shards: "
+              f"{len(streams['ring'])} events equal to the single-device "
+              f"stream; dispatches {kinds[tag]}; "
+              f"{ring_got} bitlife_resident launches, one a watched turn "
+              f"a shard")
+    return {"bitlife_resident": launches}
+
+
+def main_mesh(tmp: pathlib.Path) -> dict:
+    """Phase `main-mesh`: `make_stepper(mesh="2x2", devices=[cuda:0] *
+    4)` for Life (fixture) and B2/S/C3 (single-device board) at 512² x
+    100, one launch of kernel A (C) a block a turn; then
+    `--partition-rule layout=lane-coupled` through `run()` at 512²
+    against the fixture, two launches of kernel A a turn."""
+    import numpy as np
+
+    import gol_tpu_torch
+    from gol_tpu_torch import Params
+    from gol_tpu_torch.io.pgm import read_pgm
+    from gol_tpu_torch.parallel import make_stepper
+
+    world = read_pgm(FIXTURES / "images/512x512.pgm")
+    golden = read_pgm(FIXTURES / "check/images/512x512x100.pgm")
+    out = {}
+    for notation, kernel in (("B3/S23", "bitlife_resident"),
+                             ("B2/S/C3", "bitgens_resident")):
+        st = make_stepper(height=512, width=512, rule=notation, mesh="2x2",
+                          devices=ring_devices(4))
+        reset_launches()
+        p, c = st.step_n(st.put(world), 100)
+        got = read_launches()
+        ref = make_stepper(height=512, width=512, rule=notation)
+        q, d = ref.step_n(ref.put(world), 100)
+        want = golden if notation == "B3/S23" else ref.fetch(q)
+        if not np.array_equal(st.fetch(p), want) or int(c.item()) != int(
+                d.item()):
+            raise AssertionError(f"{st.name} {notation}: board differs")
+        if got[kernel] != 400 or sum(got.values()) != 400:
+            raise AssertionError(f"{st.name}: launches {got}, 4 blocks x "
+                                 "100 turns give 400")
+        out[kernel] = got[kernel]
+        phase("main-mesh", f"{st.name} {notation} 512² x 100 on 4 blocks "
+              f"of cuda:0 equal to the {'fixture' if notation == 'B3/S23' else ref.name}; "
+              f"{got[kernel]} {kernel} launches")
+    params = Params(image_width=512, image_height=512, turns=100, chunk=0,
+                    partition_rules="layout=lane-coupled",
+                    image_dir=str(FIXTURES / "images"),
+                    out_dir=str(tmp / "lanes"))
+    reset_launches()
+    drain(gol_tpu_torch.run(params, emit_flips=False))
+    got = read_launches()
+    if (tmp / "lanes/512x512x100.pgm").read_bytes() != (
+            FIXTURES / "check/images/512x512x100.pgm").read_bytes():
+        raise AssertionError("lane-coupled 512²: PGM differs from the fixture")
+    if got["bitlife_resident"] != 200 or sum(got.values()) != 200:
+        raise AssertionError(f"lane-coupled: launches {got}, 2 chunks x 100 "
+                             "turns give 200")
+    out["bitlife_resident"] += 200
+    phase("main-mesh", "run(Params 512², partition_rules "
+          "layout=lane-coupled) byte-equal to the fixture; 200 "
+          "bitlife_resident launches (two chunks a turn)")
+    return out
+
+
+def cli_mesh(tmp: pathlib.Path) -> None:
+    """Phase `cli-mesh`: on this one-card machine `--mesh 2x2` exits
+    nonzero with gol_tpu's "needs 4 devices, have 1", and `-t 4` runs one
+    shard, byte-equal to the fixture."""
+    import torch
+
+    base = [sys.executable, "-m", "gol_tpu_torch", "-w", "512", "-h", "512",
+            "-turns", "100", "-noVis", "--images", str(FIXTURES / "images")]
+    n = torch.cuda.device_count()
+    r = subprocess.run(base + ["--mesh", "2x2", "--out", str(tmp / "climesh")],
+                       cwd=REPO, capture_output=True, text=True, timeout=300)
+    want = f"mesh 2x2 needs 4 devices, have {n}"
+    if n < 4 and (r.returncode == 0 or want not in r.stdout + r.stderr):
+        raise AssertionError(f"--mesh 2x2 on {n} card(s): rc {r.returncode}, "
+                             f"{r.stderr[-400:]}")
+    r = subprocess.run(base + ["-t", "4", "--out", str(tmp / "clit4")],
+                       cwd=REPO, capture_output=True, text=True, timeout=300)
+    if r.returncode != 0 or (tmp / "clit4/512x512x100.pgm").read_bytes() != (
+            FIXTURES / "check/images/512x512x100.pgm").read_bytes():
+        raise AssertionError(f"-t 4: rc {r.returncode}, {r.stderr[-400:]}")
+    phase("cli-mesh", f"--mesh 2x2 exits {'nonzero: ' + want if n < 4 else 'with a mesh'}; "
+          f"-t 4 on {n} card(s) runs {min(4, n)} shard(s), byte-equal to "
+          "the fixture")
+
+
+def rings(tmp: pathlib.Path, card: str) -> dict:
+    """The ring and mesh phases after the kernel checks, each phase's
+    launches counted from 0; returns {phase: {kernel: launches}}."""
+    t0 = time.perf_counter()
+    out = {"main-ring-512": main_ring_512(tmp),
+           "main-ring-16384": main_ring_16384(card),
+           "main-ring-uneven": main_ring_uneven(),
+           "main-watched-ring": main_watched_ring(tmp),
+           "main-mesh": main_mesh(tmp)}
+    cli_mesh(tmp)
+    phase("rings", f"{time.perf_counter() - t0:.1f} s for the ring, mesh "
+                   "and lane phases")
+    return out
+
+
 def measure(errs: dict, launches: dict, int_ops_per_s: float,
             slab: int) -> list:
     """Phase 7: ms per launch of each kernel at its main-path shape, the
@@ -4945,6 +5547,7 @@ def main() -> int:
     check_dense_kernel(errs)
     check_batch_kernel(errs)
     check_session_kernels(errs)
+    check_ring_kernels(errs)
     diffs_launches = check_diffs()
     (REPO / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as d:
@@ -4955,6 +5558,9 @@ def main() -> int:
         launches["bitgens_resident"] = main_gens_512(tmp)
         launches["bitgens_tiled"] = main_gens_16384(tmp, card)
         launches["life_dense"] = main_dense_512(tmp)
+        # The rings and meshes of shards on the card, each phase's
+        # launches counted from 0.
+        ring = rings(tmp, card)
         watched = {"bitlife_resident": main_watched_512(tmp),
                    "bitgens_resident": main_watched_gens_512(tmp),
                    "bitlife_tiled": main_watched_16384(tmp, card)}
@@ -5016,6 +5622,10 @@ def main() -> int:
             ph: got[row["name"]] for ph, got in relay.items()
             if row["name"] in got} or None
         row["fleet_launches"] = fleet.get(row["name"])
+        # Launches on the ring, mesh and lane paths, by phase.
+        row["ring_launches"] = {
+            ph: got[row["name"]] for ph, got in ring.items()
+            if row["name"] in got} or None
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

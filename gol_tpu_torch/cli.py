@@ -2,9 +2,10 @@
 (ref: main.go:13-68), for the PyTorch / CUDA port.
 
 The reference flags with the reference spelling (`-t 8 -w 512 -h 512
--turns N -noVis`, ref: main.go:17-46), plus gol_tpu's single-device
+-turns N -noVis`, ref: main.go:17-46), plus gol_tpu's
 extensions — `--rule`, `--backend`, `--chunk`, `--images`, `--out`,
-`--tick`, `--autosave-turns`, `--autosave-secs`, `--tile`, `--cycle-detect`,
+`--tick`, `--autosave-turns`, `--autosave-secs`, `--tile`, `--mesh`,
+`--partition-rule`, `--cycle-detect`,
 `--resume SNAPSHOT.pgm|latest`, `--check-invariants` and
 `--profile-dir` (a `torch.profiler` capture of the whole run, written
 as a Chrome trace) — and `--platform {gpu,cpu}` (gpu by default;
@@ -87,8 +88,9 @@ def build_parser() -> argparse.ArgumentParser:
         add_help=False,  # -h is image height (ref: main.go:29-33); use --help
     )
     ap.add_argument("-t", type=int, default=8, metavar="N",
-                    help="number of worker shards (default 8; one device "
-                         "runs one shard, results are identical)")
+                    help="number of worker shards (default 8), capped "
+                         "by the CUDA cards the run has: one card runs "
+                         "one shard, results are identical")
     ap.add_argument("-w", type=int, default=512, metavar="W",
                     help="image width (default 512)")
     ap.add_argument("-h", type=int, default=512, metavar="H",
@@ -122,6 +124,22 @@ def build_parser() -> argparse.ArgumentParser:
                     metavar="SEC",
                     help="auto-checkpoint the board to out/ every SEC "
                          "seconds (0 = off)")
+    ap.add_argument("--mesh", default=None, metavar="ROWSxCOLS",
+                    help="force a 2-D device mesh (e.g. 2x4): the "
+                         "packed board shards over word-rows AND word-"
+                         "columns with mesh-generic halo exchange "
+                         "(parallel/mesh2d.py); per-host halo bytes "
+                         "stay flat as the column count grows. "
+                         "Packed-only; exclusive with --tile")
+    ap.add_argument("--partition-rule", default=None, dest="partition_rule",
+                    metavar="RULES",
+                    help="partition-table overrides, prepended to the "
+                         "backend family's defaults (first match wins): "
+                         "'PATTERN=AXES;...' with AXES a comma list of "
+                         "rows/cols/* or '-' for replicated, plus "
+                         "'layout=NAME' to select a registered kernel "
+                         "layout (e.g. layout=lane-coupled). See "
+                         "gol_tpu_torch/parallel/partition.py")
     ap.add_argument("--tile", type=int, default=0, metavar="T",
                     help="activity-driven tiled stepping: split the "
                          "board into T x T macro-tiles (T a multiple "
@@ -450,6 +468,8 @@ def main(argv: Optional[list[str]] = None) -> int:
             autosave_seconds=args.autosave_secs,
             cycle_detect=args.cycle_detect,
             tile=args.tile,
+            mesh=args.mesh,
+            partition_rules=args.partition_rule,
         )
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(f"error: {e}") from None

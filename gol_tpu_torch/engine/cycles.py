@@ -4,8 +4,9 @@ The counterpart of `gol_tpu.engine.cycles`. Finite Life boards are
 eventually periodic, and periodicity makes fast-forward bit-exact: if
 `world(t) == world(a)` then `world(t + k) == world(a + k)` for all k, so
 the remaining turns collapse modulo `m = t - a`. Equality is a full
-device-side compare (`torch.equal`, one scalar comes back) — a hit can
-never be spurious.
+device-side compare (`Tensor.equal`, or a ring's `Sharded.equal` shard
+by shard, one scalar a tensor comes back) — a hit can never be
+spurious.
 
 Detection is a Brent-style anchor walk at dispatch granularity: hold an
 anchor state, compare the committed world against it at a wall-clock
@@ -46,7 +47,7 @@ class CycleDetector:
             self._anchor, self._anchor_turn = world, turn
             return None
         # One scalar realization; the compare itself runs on the device.
-        if torch.equal(self._anchor, world):
+        if self._anchor.equal(world):
             return turn - self._anchor_turn
         self._used += 1
         if self._used >= self._lease:

@@ -1,4 +1,5 @@
-"""State carried between gol_tpu and this package, as numpy.
+"""State carried between gol_tpu and this package, as numpy: boards,
+packed words and planes, and the sharded worlds of rings and meshes.
 
 `gol_tpu` keeps packed boards as uint32 (H/32, W); this package keeps the
 same bits in int32 tensors. The conversions here are views, never value
@@ -60,3 +61,27 @@ def planes_to_numpy(t: torch.Tensor) -> np.ndarray:
 def rule_from_spec(spec: str):
     """B/S (or B/S/C) notation -> this package's rule object."""
     return get_rule(spec)
+
+
+def sharded_to_numpy(world) -> np.ndarray:
+    """A ring's or mesh's world (`partition.Sharded`) -> its global host
+    array in gol_tpu's global layout: packed words and Generations planes
+    as uint32, dense boards and state grids as uint8, a balanced split's
+    padding rows included — what `np.asarray` gives of gol_tpu's sharded
+    world."""
+    return world.numpy()
+
+
+def sharded_from_numpy(array, like):
+    """gol_tpu's global sharded world as a host array (`np.asarray` of
+    it: packed words, planes or dense rows, padding included) -> a world
+    placed as `like` is (same stepper, same shape), so both packages
+    can start from the same mid-run state."""
+    arr = np.asarray(array)
+    if arr.shape != tuple(like.shape):
+        raise ValueError(f"global world of shape {arr.shape} does not "
+                         f"match the placed shape {tuple(like.shape)}")
+    if (arr.dtype == np.uint32) != (like.dtype == torch.int32):
+        raise ValueError(f"a {arr.dtype} world cannot be placed as "
+                         f"{like.dtype} shards")
+    return like.sharding.place(arr)

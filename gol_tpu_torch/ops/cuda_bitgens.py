@@ -145,3 +145,15 @@ def step_n_packed_gens_tiled2d_raw(planes: torch.Tensor, n: int,
     geom = cb._tiled2d_geometry(rows, width, tile_rows, rule.states)
     return cb._run_passes(planes, n, geom,
                           lambda s, d, k, g: _tiled_pass(s, d, k, rule, g))
+
+
+def step_n_packed_gens_kernel_raw(planes: torch.Tensor, n: int,
+                                  rule: GenRule) -> torch.Tensor:
+    """`n` turns, planes in/out, through the kernel the stack's shape
+    takes: kernel C when C copies of a plane fit one block's shared
+    memory (`fits_cuda_gens`), else kernel D's 2-D entry, which raises
+    when no tile of it fits either."""
+    _, rows, width = planes.shape
+    if fits_cuda_gens(rows * WORD, width, rule):
+        return step_n_packed_gens_cuda_raw(planes, n, rule)
+    return step_n_packed_gens_tiled2d_raw(planes, n, rule)

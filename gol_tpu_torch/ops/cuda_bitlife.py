@@ -403,6 +403,19 @@ def step_n_packed_tiled2d_raw(p: torch.Tensor, n: int, rule: Rule = LIFE,
                        lambda s, d, k, g: _tiled_pass(s, d, k, rule, g))
 
 
+def step_n_packed_kernel_raw(p: torch.Tensor, n: int,
+                              rule: Rule = LIFE) -> torch.Tensor:
+    """`n` turns, packed in/out, through the kernel the board's shape
+    takes: kernel A when two copies of it fit one block's shared memory
+    (`fits_cuda_packed`), else kernel B's 2-D entry — the choice of the
+    "cuda-packed" stepper, for ghost-extended blocks of any shape (the
+    ring's and mesh's blocks, the lane layout's chunks)."""
+    rows, width = p.shape
+    if fits_cuda_packed(rows * WORD, width):
+        return step_n_packed_cuda_raw(p, n, rule)
+    return step_n_packed_tiled2d_raw(p, n, rule)
+
+
 def step_n_cuda_packed(world: torch.Tensor, n: int,
                        rule: Rule = LIFE) -> torch.Tensor:
     """`n` turns on a {0,255} uint8 world via kernel A — drop-in for

@@ -38,8 +38,20 @@ and compact encodings (`scan_diffs`, `sparse_scan_diffs`,
 `compact_decode_rows`). `fetch_diffs`, `step_n_with_diffs_redo` and
 `fetch_compact_values` stay None, as on gol_tpu's single-device
 backends; the tiled backend offers `fetch_diffs` (its diff stack is
-already on the host) and `tiled`, as gol_tpu's does. The sharded
-backends are not ported yet.
+already on the host) and `tiled`, as gol_tpu's does.
+
+Rings and meshes of shards, as gol_tpu builds them from `threads` and
+`devices` (or `mesh`): the packed Life ring (`packed_halo.py`), its
+balanced split for non-divisor shard counts, the dense ring
+(`halo.py`), the Generations rings (`gens_halo.py`) and the 2-D meshes
+(`mesh2d.py`). Their world is a `partition.Sharded` — one tensor per
+shard, on its device — and every local step of a shard on a CUDA
+device is a launch of kernel A, B, C, D or E (the dense Generations
+ring alone steps with the plain state step, as the single-device
+dense Generations backend does). They offer gol_tpu's capability sets,
+`fetch_diffs` and the Life rings' and meshes' `halo_cost` included. The
+device list may repeat a device: ``devices=["cpu"] * 4`` is a 4-shard
+ring on the CPU, ``[cuda:0] * 4`` one on a single card.
 
 `make_batch_stepper` builds the backend of one session bucket
 (`BatchStepper`): S boards of one shape stepped together, each k-turn
@@ -63,7 +75,7 @@ import torch
 
 from gol_tpu_torch.models.rules import LIFE, GenRule, Rule, get_rule
 from gol_tpu_torch.ops import bitgens, bitlife, generations as gens, life
-from gol_tpu_torch.params import BACKENDS, not_yet_ported
+from gol_tpu_torch.params import BACKENDS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -734,6 +746,30 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def resolve_devices(device=None, devices=None) -> list:
+    """The device list a stepper may shard over: `devices` as given (a
+    device may repeat), else `[device]` when the caller names one, else
+    every CUDA card (`torch.cuda.device_count()`). Each is checked by
+    `resolve_device`."""
+    if devices is not None:
+        devs = [resolve_device(d) for d in devices]
+        if not devs:
+            raise ValueError("devices must name at least one device")
+        return devs
+    if device is not None:
+        return [resolve_device(device)]
+    resolve_device(None)
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def shard_count(requested: int, height: int, n_devices: int) -> int:
+    """Actual shard count for a request: capped by the device count and
+    the grid height (a shard must own at least one row), but NOT by
+    divisibility — non-dividing counts run the balanced split, so every
+    requested device does work."""
+    return max(1, min(requested, n_devices, height))
+
+
 def _host_tensor(w, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(w, dtype=np.uint8)).to(device)
 
@@ -797,32 +833,38 @@ def _packed_state_stepper(name: str, rule: Rule, height: int,
     )
 
 
-def _single_device_packed(rule: Rule, height: int, device) -> Stepper:
-    """Bit-packed backend: the plain SWAR step, n times."""
-    return _packed_state_stepper(
-        "single-packed", rule, height,
-        lambda p, n: bitlife.step_n_packed_raw(p, n, rule), device,
-    )
+def _single_device_packed(rule: Rule, height: int, device,
+                          layout: Optional[str] = None) -> Stepper:
+    """Bit-packed backend: the plain SWAR step, n times. `layout` selects
+    a registered kernel layout of the partition table
+    (`partition.LAYOUTS`, e.g. ``lane-coupled``, whose every chunk turn
+    is a kernel launch on a CUDA device) for every step — bit-exact
+    either way."""
+    if layout is not None:
+        from gol_tpu_torch.parallel import partition
+
+        raw = partition.get_layout(layout)(rule)
+        name = f"single-packed-{layout}"
+    else:
+        raw = lambda p, n: bitlife.step_n_packed_raw(p, n, rule)  # noqa: E731
+        name = "single-packed"
+    return _packed_state_stepper(name, rule, height, raw, device)
 
 
-def _single_device_cuda_packed(rule: Rule, height: int, width: int,
-                               device) -> Stepper:
+def _single_device_cuda_packed(rule: Rule, height: int, device) -> Stepper:
     """Packed backend whose every step runs the CUDA kernels — multi-turn
     chunks in one call, single turns and scanned turns at n = 1: kernel
     A when two copies of the packed board fit one block's shared
     memory, else kernel B through the 2-D entry point (the counterpart
     of gol_tpu's `_single_device_pallas_packed`). Unlike the TPU's, the
     strip and 2-D entries launch kernel B with the same default tiles,
-    so there is no third choice."""
+    so there is no third choice. The board's shape picks the kernel
+    (`cuda_bitlife.step_n_packed_kernel_raw`)."""
     from gol_tpu_torch.ops import cuda_bitlife as cb
 
-    if cb.fits_cuda_packed(height, width):
-        raw = cb.step_n_packed_cuda_raw
-    else:
-        raw = cb.step_n_packed_tiled2d_raw
     return _packed_state_stepper(
         "single-cuda-packed", rule, height,
-        lambda p, n: raw(p, n, rule), device,
+        lambda p, n: cb.step_n_packed_kernel_raw(p, n, rule), device,
     )
 
 
@@ -910,11 +952,9 @@ def _gens_stepper_packed(rule: GenRule, device, height: int, width: int,
     if kernels:
         from gol_tpu_torch.ops import cuda_bitgens as cg
 
-        if cg.fits_cuda_gens(height, width, rule):
-            raw = cg.step_n_packed_gens_cuda_raw
-        elif cg.fits_cuda_gens_tiled(height, width, rule):
-            raw = cg.step_n_packed_gens_tiled2d_raw
-        else:
+        raw = cg.step_n_packed_gens_kernel_raw
+        if not (cg.fits_cuda_gens(height, width, rule)
+                or cg.fits_cuda_gens_tiled(height, width, rule)):
             raise ValueError(
                 f"grid {height}x{width} with {rule.states} states does not "
                 "fit the packed CUDA Generations kernels"
@@ -968,10 +1008,12 @@ def _gens_stepper_packed(rule: GenRule, device, height: int, width: int,
     )
 
 
-def _make_gens_stepper(rule: GenRule, height: int, width: int, dev,
-                       backend: str) -> Stepper:
-    """The single-device part of gol_tpu's GenRule branch of
-    `make_stepper` (stepper.py:1432-1501), with "cuda-packed" added."""
+def _make_gens_stepper(rule: GenRule, height: int, width: int, devs: list,
+                       threads: int, backend: str) -> Stepper:
+    """gol_tpu's GenRule branch of `make_stepper`, with "cuda-packed"
+    added for one device: one-hot packed planes on whole-word strips (the
+    balanced split for non-divisor shard counts), the dense state ring
+    otherwise."""
     if backend not in ("auto", "dense", "packed", "cuda-packed"):
         raise ValueError(
             f"generations rules support backend auto/dense/packed/"
@@ -987,12 +1029,101 @@ def _make_gens_stepper(rule: GenRule, height: int, width: int, dev,
     want_packed = backend in ("packed", "cuda-packed") or (
         backend == "auto" and rule.states <= 8
     )
+    k = shard_count(threads, height, len(devs))
+    if k > 1:
+        from gol_tpu_torch.parallel import gens_halo as gh
+
+        if backend == "cuda-packed":
+            raise ValueError(f"{backend} backend is single-device only")
+        even = gh.packable_gens_sharded(height, k)
+        uneven = gh.packable_gens_sharded_uneven(height, k)
+        if backend == "packed" and not (even or uneven):
+            raise ValueError(
+                f"grid height {height} over {k} shards is not packable "
+                f"(each shard must own at least one whole 32-row word)"
+            )
+        if want_packed and even:
+            return gh.packed_gens_sharded_stepper(rule, devs[:k], height,
+                                                  width)
+        if want_packed and uneven:
+            return gh.packed_gens_sharded_stepper_uneven(
+                rule, devs[:k], height, width)
+        return gh.gens_sharded_stepper(rule, devs[:k], height, width)
+    dev = devs[0]
     if want_packed and packable:
         kernels = backend == "cuda-packed" or (
             backend == "auto" and dev.type == "cuda"
         )
         return _gens_stepper_packed(rule, dev, height, width, kernels)
     return _gens_stepper(rule, dev)
+
+
+def _make_ring(rule: Rule, height: int, width: int, devs: list,
+               backend: str) -> Stepper:
+    """gol_tpu's Life-like ring choice over `devs` (k > 1 shards): the
+    packed ring on whole-word strips, its balanced split where the
+    word-rows do not divide, the dense ring otherwise ("dense" forces
+    it)."""
+    from gol_tpu_torch.parallel import halo, packed_halo as ph
+
+    k = len(devs)
+    if backend in ("cuda-packed", "cuda-dense"):
+        raise ValueError(f"{backend} backend is single-device only")
+    even = ph.packable_sharded(height, k)
+    uneven = ph.packable_sharded_uneven(height, k)
+    if backend == "packed" and not (even or uneven):
+        raise ValueError(
+            f"grid height {height} over {k} shards is not packable "
+            f"(each shard must own at least one whole 32-row word)"
+        )
+    if backend != "dense" and even:
+        return ph.packed_sharded_stepper(rule, devs, height, width)
+    if backend != "dense" and uneven:
+        return ph.packed_sharded_stepper_uneven(rule, devs, height, width)
+    return halo.sharded_stepper(rule, devs, height, width)
+
+
+def _make_mesh(rule, height: int, width: int, devs: list, backend: str,
+               tile: int, rows: int, cols: int,
+               partition_rules: Optional[str]) -> Stepper:
+    """gol_tpu's mesh branch: an explicit rows x cols mesh selects the
+    2-D family (the degenerate 1xN / Nx1 shapes included), packed only,
+    exclusive with tiling."""
+    from gol_tpu_torch.parallel import mesh2d
+
+    if tile:
+        raise ValueError(
+            "--mesh and --tile are exclusive (the tiled "
+            "backend's dispatch set is its parallelism axis)"
+        )
+    if backend not in ("auto", "packed"):
+        raise ValueError(
+            f"mesh backends are packed-only (backend auto/"
+            f"packed, not {backend!r})"
+        )
+    need = rows * cols
+    if len(devs) < need:
+        raise ValueError(
+            f"mesh {rows}x{cols} needs {need} devices, "
+            f"have {len(devs)}"
+        )
+    build = (mesh2d.mesh2d_packed_gens_stepper if isinstance(rule, GenRule)
+             else mesh2d.mesh2d_packed_stepper)
+    return build(rule, devs[:need], height, width, rows, cols,
+                 partition_rules)
+
+
+def _placed_price(price: dict, world) -> dict:
+    """The price of the state `put` placed: a sharded world prices the
+    rows it holds, a balanced split's padding included (gol_tpu's XLA
+    cost of the padded program does too)."""
+    from gol_tpu_torch.parallel.partition import Sharded
+
+    if not isinstance(world, Sharded):
+        return price
+    rows = world.shape[-2] * (bitlife.WORD if price["layout"] == "packed"
+                              else 1)
+    return {**price, "height": rows}
 
 
 def instrument_stepper(s: Stepper, price: Optional[dict] = None) -> Stepper:
@@ -1010,8 +1141,9 @@ def instrument_stepper(s: Stepper, price: Optional[dict] = None) -> Stepper:
     the engine's Timeline remains the realizing profiler.
 
     Halo traffic: the gol_tpu_halo_* series are registered as in
-    gol_tpu and stay at zero while the stepper publishes no `halo_cost`
-    (every single-device backend).
+    gol_tpu and count what the stepper's `halo_cost` prices for each
+    dispatch (the Life rings and the meshes); they stay at zero for a
+    stepper without one (every single-device backend).
 
     Cost probe: with `price` (`obs.device.cost_of`'s arguments) and the
     probes enabled (`device.enable_cost_probes`, the CLI's default), the
@@ -1088,7 +1220,8 @@ def instrument_stepper(s: Stepper, price: Optional[dict] = None) -> Stepper:
         if price is not None and not probed \
                 and obs_device.cost_probes_enabled():
             probed.append(True)
-            obs_device.publish_cost("engine.step", **price)
+            obs_device.publish_cost("engine.step", **_placed_price(price,
+                                                                  out))
         return out
 
     def step_n(world, k):
@@ -1160,16 +1293,24 @@ def make_stepper(
     tile: int = 0,
     mesh: Optional[tuple | str] = None,
     partition_rules: Optional[str] = None,
+    devices: Optional[list] = None,
 ) -> Stepper:
-    """Build the stepper for the request on one device (`device`: None
-    means the CUDA card; pass "cpu" to run the plain versions on the
-    CPU), wrapped as gol_tpu wraps it: with per-dispatch obs
-    instrumentation unless GOL_TPU_METRICS=0 (the disabled path builds
-    the bare stepper), and with the runtime dispatch-linearity checker
-    when GOL_TPU_CHECK_INVARIANTS=1 (cli --check-invariants;
-    gol_tpu_torch.analysis.invariants) — host-side identity checks
-    only. `threads` is the reference's shard request; one device holds
-    one shard, which never changes results."""
+    """Build the stepper for the request, wrapped as gol_tpu wraps it:
+    with per-dispatch obs instrumentation unless GOL_TPU_METRICS=0 (the
+    disabled path builds the bare stepper), and with the runtime
+    dispatch-linearity checker when GOL_TPU_CHECK_INVARIANTS=1 (cli
+    --check-invariants; gol_tpu_torch.analysis.invariants) — host-side
+    identity checks only.
+
+    Devices (`resolve_devices`): `devices` lists the devices to shard
+    over (a device may repeat); else `device` names one ("cpu" runs the
+    plain versions on the CPU); else every CUDA card. `threads` is the
+    reference's shard request, capped by the device count and the
+    height (`shard_count`): on one card, or on the CPU without a device
+    list, it is one shard, which never changes results. `mesh` ("RxC"
+    or (rows, cols)) selects the 2-D mesh backends (parallel/mesh2d.py,
+    --mesh); `partition_rules` is the operator override string of the
+    partition table (--partition-rule)."""
     from gol_tpu_torch import obs
     from gol_tpu_torch.analysis.invariants import (
         checked_stepper,
@@ -1177,10 +1318,11 @@ def make_stepper(
     )
 
     s = _make_stepper(threads, height, width, rule, device, backend, tile,
-                      mesh, partition_rules)
+                      mesh, partition_rules, devices)
     if obs.enabled():
         rule = get_rule(rule) if isinstance(rule, str) else rule
-        dense = s.name in ("single", "single-cuda-dense", "generations-1")
+        dense = (s.name in ("single", "single-cuda-dense", "generations-1")
+                 or s.name.startswith(("halo-ring", "gens-halo-ring")))
         s = instrument_stepper(s, price={
             "height": height, "width": width, "rule": rule,
             "layout": "dense" if dense else "packed"})
@@ -1199,25 +1341,51 @@ def _make_stepper(
     tile: int = 0,
     mesh: Optional[tuple | str] = None,
     partition_rules: Optional[str] = None,
+    devices: Optional[list] = None,
 ) -> Stepper:
-    """The bare stepper of `make_stepper`."""
+    """The bare stepper of `make_stepper` — gol_tpu's routes: the mesh,
+    the tiled backend, the Generations family, the Life-like rings, then
+    one device."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    if mesh is not None:
-        raise not_yet_ported("2-D device meshes (mesh)")
-    if partition_rules:
-        raise not_yet_ported("partition-rule overrides")
     if threads < 1:
         raise ValueError("threads must be >= 1")
     rule = get_rule(rule) if isinstance(rule, str) else rule
-    dev = resolve_device(device)
+    layout = None
+    if partition_rules:
+        from gol_tpu_torch.parallel import partition
+
+        # Parse once up front: a bad override string fails the build,
+        # not the first dispatch; `layout=NAME` rides to the
+        # single-device packed path below.
+        _, layout = partition.parse_overrides(partition_rules)
+    devs = resolve_devices(device, devices)
+    if mesh is not None:
+        from gol_tpu_torch.parallel import partition
+
+        rows, cols = (
+            partition.parse_mesh(mesh) if isinstance(mesh, str)
+            else (int(mesh[0]), int(mesh[1]))
+        )
+        if rows * cols > 1:
+            return _make_mesh(rule, height, width, devs, backend, tile,
+                              rows, cols, partition_rules)
     if tile:
         from gol_tpu_torch.parallel.tiled import tiled_stepper
 
-        return tiled_stepper(rule, height, width, tile, device=dev)
+        return tiled_stepper(rule, height, width, tile, device=devs[0])
     if isinstance(rule, GenRule):
-        return _make_gens_stepper(rule, height, width, dev, backend)
+        return _make_gens_stepper(rule, height, width, devs, threads,
+                                  backend)
+    k = shard_count(threads, height, len(devs))
+    if k > 1:
+        return _make_ring(rule, height, width, devs[:k], backend)
+    dev = devs[0]
     packable = bitlife.packable(height, width)
+    if layout is not None and backend in ("auto", "packed") and packable:
+        # The operator's kernel layout takes the single-device packed
+        # board on either device.
+        return _single_device_packed(rule, height, dev, layout=layout)
     if backend == "cuda-packed" or (
         backend == "auto" and dev.type == "cuda" and packable
     ):
@@ -1226,7 +1394,7 @@ def _make_stepper(
                 f"grid {height}x{width} does not fit the packed CUDA "
                 "kernels (needs whole 32-row words)"
             )
-        return _single_device_cuda_packed(rule, height, width, dev)
+        return _single_device_cuda_packed(rule, height, dev)
     if backend == "packed" or (backend == "auto" and packable):
         if not packable:
             raise ValueError(f"grid {height}x{width} is not packable")

@@ -1,11 +1,6 @@
 """Run parameters — the analog of the reference's `gol.Params` quadruple
 (ref: gol/gol.go:4-9) plus the knobs of `gol_tpu.params.Params`, with the
 same fields and the same checks.
-
-The fields this port does not run yet (`mesh`, `partition_rules`) are
-accepted by name and rejected with "not yet ported", so a caller moving
-between the two packages gets a clear error instead of a silently
-different run.
 """
 
 from __future__ import annotations
@@ -21,17 +16,15 @@ import dataclasses
 BACKENDS = ("auto", "packed", "dense", "cuda-packed", "cuda-dense")
 
 
-def not_yet_ported(what: str) -> NotImplementedError:
-    """The one error every unported feature raises."""
-    return NotImplementedError(f"{what}: not yet ported to gol_tpu_torch")
-
-
 @dataclasses.dataclass(frozen=True)
 class Params:
     """Parameters of the Game of Life run (see `gol_tpu.params.Params`
-    for the meaning of every field). `threads` is accepted for the
-    reference contract; this package runs on one device, and results
-    are shard-count independent in both packages."""
+    for the meaning of every field). `threads` is the reference's shard
+    request, capped by the devices the run has (one card: one shard);
+    `mesh` ("ROWSxCOLS") selects the 2-D mesh backends and
+    `partition_rules` overrides the partition table
+    (gol_tpu_torch.parallel.partition). Results are shard-count
+    independent in both packages."""
 
     turns: int = 10000000000
     threads: int = 8
@@ -73,9 +66,22 @@ class Params:
                 "tile must be 0 (off) or a positive multiple of 32"
             )
         if self.mesh is not None:
-            raise not_yet_ported("2-D device meshes (mesh)")
+            # Fail fast on malformed geometry (make_stepper re-parses;
+            # this keeps the error at Params construction, where the
+            # CLI can attribute it to the flag).
+            from gol_tpu_torch.parallel import partition
+
+            try:
+                partition.parse_mesh(self.mesh)
+            except partition.PartitionError as e:
+                raise ValueError(str(e)) from None
         if self.partition_rules is not None:
-            raise not_yet_ported("partition-rule overrides (partition_rules)")
+            from gol_tpu_torch.parallel import partition
+
+            try:
+                partition.parse_overrides(self.partition_rules)
+            except partition.PartitionError as e:
+                raise ValueError(str(e)) from None
 
     @property
     def input_name(self) -> str:

@@ -220,9 +220,11 @@ def test_params_fields_and_names_equal():
                                 {"partition_rules": "x=rows"},
                                 {"tile": 64, "mesh": "2x2"}])
 def test_params_unported_features_raise(kw):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tparams.Params(**kw)
-    # Tiled stepping is ported: the same tiles as gol_tpu's Params.
+    # Meshes and partition rules are ported: the same requests build
+    # Params equal to gol_tpu's (make_stepper refuses what it cannot
+    # build, as gol_tpu's does), as tiled stepping does.
+    assert (dataclasses.astuple(tparams.Params(**kw))
+            == dataclasses.astuple(jparams.Params(**kw)))
     assert tparams.Params(tile=64).tile == jparams.Params(tile=64).tile == 64
 
 

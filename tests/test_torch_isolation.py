@@ -69,6 +69,12 @@ def test_scan_covers_every_port_module():
                  "gol_tpu_torch/utils/visualise.py",
                  "gol_tpu_torch/checkpoint.py",
                  "gol_tpu_torch/parallel/tiled.py",
+                 "gol_tpu_torch/parallel/partition.py",
+                 "gol_tpu_torch/parallel/halo.py",
+                 "gol_tpu_torch/parallel/packed_halo.py",
+                 "gol_tpu_torch/parallel/gens_halo.py",
+                 "gol_tpu_torch/parallel/mesh2d.py",
+                 "gol_tpu_torch/ops/lanes.py",
                  "gol_tpu_torch/obs/registry.py",
                  "gol_tpu_torch/obs/device.py",
                  "gol_tpu_torch/obs/freshness.py",
@@ -212,8 +218,12 @@ def test_cli_without_gpu_exits_nonzero(no_cuda, golden_root, tmp_path):
 def test_unported_requests_raise():
     from gol_tpu_torch.parallel import make_stepper
 
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # Meshes and rings are ported: a mesh needs its devices (the CPU
+    # without a device list is one), and builds over a device list.
+    with pytest.raises(ValueError, match="needs 4 devices, have 1"):
         make_stepper(height=64, width=64, device="cpu", mesh="2x2")
+    assert make_stepper(height=64, width=64, devices=["cpu"] * 4,
+                        mesh="2x2").name == "packed-mesh2d-2x2"
     # Tiled stepping is ported (parallel/tiled.py).
     assert make_stepper(height=64, width=64, device="cpu",
                         tile=32).tiled is not None
@@ -227,6 +237,63 @@ def test_unported_requests_raise():
                {"rule": "B2/S/C3", "backend": "cuda-dense"}):
         with pytest.raises(ValueError, match="backend"):
             make_stepper(height=64, width=64, device="cpu", **kw)
+
+
+def test_cpu_ring_run_loads_no_jax(golden_root, tmp_path):
+    """Rings, a mesh and the lane layout run on the CPU — an engine
+    with a packed 2-shard ring injected, the dense and Generations
+    rings, a 2x2 mesh, --partition-rule layout=lane-coupled — load no
+    JAX and nothing of gol_tpu."""
+    code = f"""
+import sys
+sys.path.insert(0, {str(REPO)!r})
+import numpy as np
+import gol_tpu_torch
+from gol_tpu_torch import FinalTurnComplete, Params
+from gol_tpu_torch.engine.distributor import Engine
+from gol_tpu_torch.parallel import make_stepper
+p = Params(turns=100, threads=2, image_width=64, image_height=64,
+           image_dir={str(golden_root / 'images')!r}, out_dir={str(tmp_path)!r},
+           tick_seconds=0.05)
+ring = make_stepper(threads=2, height=64, width=64, devices=["cpu"] * 2)
+assert ring.name == "packed-halo-ring-2", ring.name
+e = Engine(p, stepper=ring).start()
+assert any(isinstance(x, FinalTurnComplete) for x in e.events)
+e.join(60)
+w = (np.arange(100 * 64).reshape(100, 64) % 7 == 0).astype(np.uint8) * 255
+for kw in ({{}}, {{"rule": "B2/S/C3"}}):
+    s = make_stepper(threads=3, height=100, width=64, devices=["cpu"] * 3, **kw)
+    s.fetch(s.step_n(s.put(w), 20)[0])
+s = make_stepper(height=64, width=64, devices=["cpu"] * 4, mesh="2x2")
+s.fetch(s.step_n(s.put(w[:64]), 5)[0])
+q = Params(turns=100, image_width=64, image_height=64,
+           image_dir=p.image_dir, out_dir=p.out_dir + "/lanes",
+           partition_rules="layout=lane-coupled")
+assert any(isinstance(x, FinalTurnComplete)
+           for x in gol_tpu_torch.run(q, device="cpu"))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0].startswith("jax") or m == "gol_tpu"
+             or m.startswith("gol_tpu."))
+print("FORBIDDEN", bad)
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=tmp_path, env=ENV)
+    assert r.returncode == 0, r.stderr
+    assert "FORBIDDEN []" in r.stdout, r.stdout
+    want = (golden_root / "check" / "images" / "64x64x100.pgm").read_bytes()
+    assert (tmp_path / "64x64x100.pgm").read_bytes() == want
+    assert (tmp_path / "lanes" / "64x64x100.pgm").read_bytes() == want
+
+
+def test_cuda_ring_without_gpu_raises(no_cuda):
+    """A ring or mesh asked of CUDA devices refuses without a card, as
+    the single-device entries do; there is no move to the CPU."""
+    from gol_tpu_torch.parallel import make_stepper
+
+    for kw in ({"threads": 4}, {"threads": 4, "devices": ["cuda:0"] * 4},
+               {"mesh": "2x2", "devices": ["cuda:0"] * 4}):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            make_stepper(height=128, width=64, **kw)
 
 
 def test_cpu_serve_connect_round_loads_no_jax(golden_root, tmp_path):
