@@ -68,8 +68,22 @@ padding dead, diff rows stripped; `main-watched-ring`: FlipBatch and
 FlipChunk streams with a forced redo, equal to one device's, one launch
 a watched turn a shard; `main-mesh`: 2x2 meshes and
 `layout=lane-coupled`; `cli-mesh`: `--mesh 2x2` refused on one card,
-`-t 4` one shard), every board against the plain version — and prints
-the `kernels` JSON line, the card's name and power limit, and a last
+`-t 4` one shard), every board against the plain version — runs
+multi-process jobs and the chaos harness last (phase `multihost`: two
+processes over gloo on the one card, each rank `[cuda:0] * 2` in its
+own CUDA context (`--mh-rank`), a 4-shard ring through Life 512² by an
+Engine against the fixture and the CSV, B2/S/C3 512² against the plain
+planes, Life and B2/S/C3 16384² x 256 against the single-device boards,
+the dense ring against `life.step_n` and a watched leg with a forced
+redo against the single device, each rank's launches equal to its
+plan, the job's `step_n` wall beside the one-process ring's, the
+cross-rank halo bytes and host staging; the `--mh-*` CLI pair's PGM
+against the fixture and a mismatched pair failing in both processes;
+phase `chaos`: `ChaosRunner` SIGKILLing a `--serve --sessions` server
+on the card mid-storm, survivors against the plain oracle, the session
+dispatches by path before the kill and after the resume; phase `cli`
+also reads a fresh process's compile watcher from /metrics) — and
+prints the `kernels` JSON line, the card's name and power limit, and a last
 line `{"ok": true, "device": {...}}`. Any failed phase raises, so the
 script exits nonzero and prints no result. Without a CUDA device, or
 without the repository beside it, it exits nonzero at once.
@@ -1901,6 +1915,542 @@ def cli_tiled(tmp: pathlib.Path, card: str) -> dict:
     return walls
 
 
+# --- multi-process jobs and the chaos harness ----------------------------
+
+#: Processes of phase `multihost`'s job, each holding MH_SHARDS shards of
+#: cuda:0 in its own CUDA context: a 4-shard round-robin ring.
+MH_RANKS = 2
+MH_SHARDS = 2
+#: The dense ring of phase `multihost` (kernel E): 100 rows over the
+#: job's 4 shards, 25 each.
+MH_DENSE = (100, 512)
+#: Seconds a process of phase `multihost` may take (a CUDA context and a
+#: gloo rendezvous are ~8-12 s; the 16384² legs pack on the host).
+MH_DEADLINE = 420
+
+
+def free_port() -> int:
+    """A free port below the kernel's ephemeral range, so that no
+    server binding port 0 can take it before the job's rendezvous."""
+    import socket
+
+    while True:
+        port = random.randrange(20000, 32000)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
+
+
+class _Chunks(list):
+    """Recorded `step_n` chunks, and the latest world it returned."""
+
+    last = None
+
+
+def own_blocks_equal(world, want) -> bool:
+    """Every block of a sharded `world` that this process holds equal
+    to the same block of the global tensor `want` (no collective: in a
+    job each rank checks its own shards)."""
+    import torch
+
+    sh = world.sharding
+    return all(torch.equal(part, want[sh.index(world.shape, r, c)])
+               for part, (r, c) in zip(world.parts, sh.cells())
+               if part is not None)
+
+
+def recording_all(stepper) -> tuple:
+    """The stepper with `step_n` recording its chunks and every
+    single-turn and scan entry its turns: (stepper, chunks, scanned)."""
+    import dataclasses
+
+    ks, scanned = _Chunks(), []
+
+    def chunk(fn):
+        def wrapper(world, k):
+            ks.append(int(k))
+            out = fn(world, k)
+            ks.last = out[0]
+            return out
+        return wrapper
+
+
+    def turns(fn, k_of):
+        def wrapper(world, *args):
+            scanned.append(k_of(args))
+            return fn(world, *args)
+        return wrapper
+
+    repl = {"step_n": chunk(stepper.step_n)}
+    for name in ("step", "step_with_diff"):
+        repl[name] = turns(getattr(stepper, name), lambda a: 1)
+    for name in ("step_n_with_diffs", "step_n_with_diffs_sparse",
+                 "step_n_with_diffs_redo", "step_n_with_diffs_compact"):
+        if getattr(stepper, name) is not None:
+            repl[name] = turns(getattr(stepper, name), lambda a: int(a[0]))
+    return dataclasses.replace(stepper, **repl), ks, scanned
+
+
+def mh_plan(leg: dict, ks: list, scanned: list) -> dict:
+    """{kernel: launches} one rank's MH_SHARDS shards make for the
+    recorded dispatches of `leg`: a packed ring's plan (`ring_launches`)
+    for its chunks and one launch a shard a scanned turn; the dense
+    ring's kernel-E passes (`dense_step_n`: deep blocks of `deep` turns,
+    then single turns)."""
+    from gol_tpu_torch.models.rules import get_rule
+    from gol_tpu_torch.ops import cuda_life
+    from gol_tpu_torch.parallel import halo
+
+    h, w, k4 = leg["h"], leg["w"], MH_RANKS * MH_SHARDS
+    if leg["kernel"] == "life_dense":
+        deep = halo.dense_deep(h, k4)
+        size = h // k4
+        per_deep = -(-deep // cuda_life._dense_plan(size + 2 * deep, w)[4])
+        n = 0
+        for k in ks:
+            blocks, rem = divmod(k, deep)
+            n += blocks * per_deep + rem
+        return {"life_dense": MH_SHARDS * (n + sum(scanned))}
+    plan = ring_plan(get_rule(leg["rule"]), h, w, k4)
+    n = sum(ring_launches(plan, k, MH_SHARDS) for k in ks)
+    return {leg["kernel"]: n + MH_SHARDS * sum(scanned)}
+
+
+#: Phase `multihost`'s legs, in the order both ranks run them.
+MH_LEGS = (
+    {"name": "life-512", "rule": "B3/S23", "h": 512, "w": 512,
+     "kernel": "bitlife_resident"},
+    {"name": "gens-512", "rule": "B2/S/C3", "h": 512, "w": 512,
+     "kernel": "bitgens_resident"},
+    {"name": "life-16384", "rule": "B3/S23", "h": 16384, "w": 16384,
+     "kernel": "bitlife_tiled"},
+    {"name": "gens-16384", "rule": "B2/S/C3", "h": 16384, "w": 16384,
+     "kernel": "bitgens_tiled"},
+    {"name": "dense", "rule": "B3/S23", "h": MH_DENSE[0], "w": MH_DENSE[1],
+     "kernel": "life_dense"},
+    {"name": "watched-512", "rule": "B3/S23", "h": 512, "w": 512,
+     "kernel": "bitlife_resident"},
+)
+
+
+def mh_coordinator_leg(leg: dict, st, tmp: pathlib.Path) -> dict:
+    """The coordinator's part of one leg on the job's ring `st` (its
+    dispatches mirrored to the worker): the checks, and what it prints.
+    Returns what the parent reports for the leg."""
+    import numpy as np
+    import torch
+
+    from gol_tpu_torch import AliveCellsCount, FinalTurnComplete, Params
+    from gol_tpu_torch.engine.distributor import Engine
+    from gol_tpu_torch.io.pgm import read_pgm
+    from gol_tpu_torch.ops import bitlife, life
+    from gol_tpu_torch.parallel import make_stepper, multihost
+
+    name, h, w, rule = leg["name"], leg["h"], leg["w"], leg["rule"]
+    job = multihost.job()
+    stats0 = dict(job.stats)
+    out: dict = {"stepper": st.name}
+    halo0 = halo_counters(st.name)
+    if name == "life-512":
+        with open(FIXTURES / "check/alive/512x512.csv") as f:
+            csv_alive = {int(r["completed_turns"]): int(r["alive_cells"])
+                         for r in csv.DictReader(f)}
+        world = read_pgm(FIXTURES / "images/512x512.pgm")
+        csv_alive[0] = int((world != 0).sum())
+        params = Params(image_width=512, image_height=512, turns=100,
+                        threads=4, chunk=0, tick_seconds=0.002,
+                        image_dir=str(FIXTURES / "images"),
+                        out_dir=str(tmp / "mh-ring512"))
+        t0 = time.perf_counter()
+        engine = Engine(params, stepper=st, emit_flips=False).start()
+        evs = drain(engine.events)
+        out["engine_s"] = time.perf_counter() - t0
+        engine.join(timeout=60)
+        if engine.error is not None:
+            raise engine.error
+        final = [e for e in evs if isinstance(e, FinalTurnComplete)]
+        ticks = [(e.completed_turns, e.cells_count) for e in evs
+                 if isinstance(e, AliveCellsCount)]
+        bad = [(t, c) for t, c in ticks if csv_alive.get(t) != c]
+        if (not final or final[0].completed_turns != 100 or bad
+                or len(final[0].alive) != csv_alive[100]):
+            raise AssertionError(f"multihost {name}: counts {bad}")
+        if (tmp / "mh-ring512/512x512x100.pgm").read_bytes() != (
+                FIXTURES / "check/images/512x512x100.pgm").read_bytes():
+            raise AssertionError(f"multihost {name}: PGM differs")
+    elif name in ("gens-512", "dense"):
+        world = (read_pgm(FIXTURES / "images/512x512.pgm") if h == 512
+                 else life.random_world(h, w, seed=h))
+        chunks = (64, 36) if h == 512 else (100,)
+        p = st.put(world)
+        for k in chunks:
+            p, c = st.step_n(p, k)
+        got = st.fetch(p)
+        if name == "dense":
+            want = life.step_n(torch.from_numpy(world).cuda(), 100,
+                               ).cpu().numpy()
+            alive = int((want != 0).sum())
+        else:
+            ref = make_stepper(height=h, width=w, rule=rule,
+                               backend="packed", devices=ring_devices(1))
+            q, d = ref.step_n(ref.put(world), 100)
+            want, alive = ref.fetch(q), int(d.item())
+        if not np.array_equal(got, want) or int(c.item()) != alive:
+            raise AssertionError(f"multihost {name}: board or count "
+                                 "differs from the plain version")
+    elif name in ("life-16384", "gens-16384"):
+        world = life.random_world(h, w, seed=0)
+        want = torch.from_numpy(np.load(tmp / f"mh-{name}.npy")).cuda()
+        t0 = time.perf_counter()
+        p = st.put(world)
+        torch.cuda.synchronize()
+        out["put_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for k in (64, 64, 64, 64):
+            p, c = st.step_n(p, k)
+        alive = int(c.item())
+        out["chunks_s"] = time.perf_counter() - t0
+        if not own_blocks_equal(p, want):
+            raise AssertionError(f"multihost {name}: rank 0's words differ "
+                                 "from the single-device run")
+        want_alive = int(bitlife.count_packed(
+            want if want.dim() == 2 else want[0]).item())
+        if alive != want_alive:
+            raise AssertionError(f"multihost {name}: count {alive} != "
+                                 f"{want_alive}")
+        out["alive"] = alive
+    elif name == "watched-512":
+        world = read_pgm(FIXTURES / "images/512x512.pgm")
+        # The plain packed stepper on the card: no kernel, so the
+        # coordinator's launches stay the job ring's alone.
+        ref = make_stepper(height=512, width=512, backend="packed",
+                           devices=ring_devices(1))
+        got, want = {}, {}
+        for s, r in ((st, got), (ref, want)):
+            p = s.put(world)
+            p, c = s.step_n(p, 40)
+            r["count40"] = int(c.item())
+            p, mask, c = s.step_with_diff(p)
+            r["mask"], r["c_mask"] = s.fetch(mask), int(c.item())
+            p, diffs, c = s.step_n_with_diffs(p, 5)
+            r["diffs"] = halo_host(s.fetch_diffs(diffs) if s.fetch_diffs
+                                   else diffs)
+            prev = p
+            p, rows, c = s.step_n_with_diffs_sparse(prev, 3, 4)
+            r["sparse"], r["c_sparse"] = halo_host(rows), int(c.item())
+            if int(halo_host(rows)[:, 0].max()) <= 4:
+                raise AssertionError("multihost watched: the sparse chunk "
+                                     "did not overflow its cap")
+            redo = s.step_n_with_diffs_redo or s.step_n_with_diffs
+            p, diffs, c = redo(prev, 3)
+            r["redo"] = halo_host(s.fetch_diffs(diffs) if s.fetch_diffs
+                                  else diffs)
+            p, hdr, vals, c = s.step_n_with_diffs_compact(p, 4, 1 << 16)
+            hdr = halo_host(hdr)
+            total = int(hdr[:, 0].sum())
+            r["headers"] = hdr
+            r["values"] = (s.fetch_compact_values(vals, total)
+                           if s.fetch_compact_values
+                           else halo_host(vals))[:total]
+            p, c = s.step_n(p, 20)
+            r["board"], r["count"] = s.fetch(p), int(c.item())
+        for key in want:
+            a, b = np.asarray(got[key]), np.asarray(want[key])
+            if a.shape != b.shape or a.tobytes() != b.tobytes():
+                raise AssertionError(f"multihost watched: {key} differs "
+                                     "from the single device's")
+        out["scanned"] = 16
+    out["halo"] = [a - b for a, b in zip(halo_counters(st.name), halo0)]
+    out["sent"] = {k: job.stats[k] - stats0[k] for k in job.stats}
+    return out
+
+
+def halo_host(a):
+    """A tensor or array on the host, int32 words viewed as uint32."""
+    import numpy as np
+
+    host = a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+    return host.view(np.uint32) if host.dtype == np.int32 else host
+
+
+def linear_wall(stepper, world, chunks, reps: int) -> float:
+    """Best seconds of `reps` runs of `chunks` through `step_n`, each
+    ended by reading the count and each from a fresh `put` (outside the
+    timing): a job's dispatches must be linear in the current world
+    (`multihost.spmd_stepper`), so no run restarts from an old one."""
+    import torch
+
+    best = float("inf")
+    for _ in range(reps):
+        p = stepper.put(world)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in chunks:
+            p, count = stepper.step_n(p, k)
+        int(count.item())
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def mh_wall_run(leg: dict) -> tuple:
+    """(world, chunks, reps) of a leg's `step_n` walls: the 512²
+    engine's chunks, or four of 64 at 16384²."""
+    from gol_tpu_torch.io.pgm import read_pgm
+    from gol_tpu_torch.ops import life
+
+    if leg["h"] == 512:
+        return read_pgm(FIXTURES / "images/512x512.pgm"), (64, 36), 5
+    return life.random_world(leg["h"], leg["w"], seed=0), (64,) * 4, 2
+
+
+def mh_one_process_wall(leg: dict) -> float:
+    """The same walls on the one-process 4-shard ring of the card."""
+    import torch
+
+    from gol_tpu_torch.parallel import make_stepper
+
+    one = make_stepper(threads=4, height=leg["h"], width=leg["w"],
+                       rule=leg["rule"], devices=ring_devices(4))
+    wall = linear_wall(one, *mh_wall_run(leg))
+    del one
+    torch.cuda.empty_cache()
+    return wall
+
+
+def mh_rank(rank: int, port: int, tmp: pathlib.Path) -> int:
+    """`--mh-rank RANK PORT TMP`: one process of phase `multihost`'s job.
+    Joins the 2-process gloo job with [cuda:0] * 2, then runs every leg
+    of MH_LEGS: the coordinator drives the job's ring (walls and checks,
+    then `notify_stop`), the worker replays it (`spmd_worker_loop`).
+    Each rank prints one `MH {json}` line a leg: its launches by kernel
+    and the count its plan gives for the dispatches it made."""
+    import numpy as np
+    import torch
+
+    from gol_tpu_torch.parallel import make_stepper, multihost
+
+    multihost.initialize(f"127.0.0.1:{port}", MH_RANKS, rank,
+                         local_devices=[torch.device("cuda", 0)] * MH_SHARDS)
+    _build_load()
+    for leg in MH_LEGS:
+        st = make_stepper(threads=4, height=leg["h"], width=leg["w"],
+                          rule=leg["rule"])
+        st, ks, scanned = recording_all(st)
+        reset_launches()
+        report: dict = {"rank": rank, "leg": leg["name"],
+                        "stepper": st.name}
+        timed = leg["name"] in ("life-512", "gens-512", "life-16384")
+        if multihost.is_coordinator():
+            report.update(mh_coordinator_leg(leg, st, tmp))
+            if timed:
+                report["walls"] = {"job": linear_wall(st,
+                                                      *mh_wall_run(leg))}
+            launched = {k: v for k, v in read_launches().items() if v}
+            plan = mh_plan(leg, ks, scanned)
+            if timed:
+                report["walls"]["one_process"] = mh_one_process_wall(leg)
+            multihost.notify_stop()
+        else:
+            multihost.spmd_worker_loop(st, leg["h"], leg["w"])
+            launched = {k: v for k, v in read_launches().items() if v}
+            plan = mh_plan(leg, ks, scanned)
+            if leg["h"] == 16384:
+                # The worker holds its own shards: it checks them.
+                want = torch.from_numpy(
+                    np.load(tmp / f"mh-{leg['name']}.npy")).cuda()
+                report["own_blocks_equal"] = own_blocks_equal(ks.last, want)
+                del want
+        report.update(launches=launched, plan=plan, chunks=ks,
+                      scanned=sum(scanned))
+        print("MH " + json.dumps(report), flush=True)
+        del st
+        torch.cuda.empty_cache()
+    return 0
+
+
+def _build_load() -> None:
+    from gol_tpu_torch.ops import _build
+
+    _build.load()
+
+
+def multihost_phase(tmp: pathlib.Path, card: str) -> dict:
+    """Phase `multihost`: a 2-process gloo job on the one card, each
+    rank [cuda:0] * 2 in its own CUDA context (`--mh-rank`), through
+    every leg of MH_LEGS — Life 512² through an Engine against the
+    fixture and the CSV, B2/S/C3 512² against the plain planes, Life and
+    B2/S/C3 16384² x 256 against the single-device boards of phases
+    `main-16384` / `main-gens-16384`, the dense ring against
+    `life.step_n`, a watched leg (step_with_diff, step_n_with_diffs,
+    sparse with a forced redo, compact) byte for byte against the
+    single device — each rank's launches equal to its plan; then the CLI
+    pair (`--mh-*`, PGM byte-equal to the fixture) and a mismatched pair
+    that both exit nonzero. Returns {kernel: {leg: [rank 0, rank 1]}}."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    for key, name in (("life", "life-16384"), ("gens", "gens-16384")):
+        _, want = REUSE.pop(key)
+        np.save(tmp / f"mh-{name}.npy", want.cpu().numpy())
+        del want
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--mh-rank", str(r),
+         str(port), str(tmp)], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(MH_RANKS)]
+    try:
+        outs = [p.communicate(timeout=MH_DEADLINE)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    job_wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"multihost rank {r}: exit {p.returncode}\n"
+                                 + text[-4000:])
+    reports = [[json.loads(ln[3:]) for ln in text.splitlines()
+                if ln.startswith("MH ")] for text in outs]
+    launches: dict = {}
+    if [len(r) for r in reports] != [len(MH_LEGS)] * MH_RANKS:
+        raise AssertionError(f"multihost: legs reported {reports}")
+    for leg, r0, r1 in zip(MH_LEGS, *reports):
+        if r1.get("own_blocks_equal") is False:
+            raise AssertionError(f"multihost {leg['name']}: rank 1's words "
+                                 "differ from the single-device run")
+        for r in (r0, r1):
+            if r["launches"] != r["plan"]:
+                raise AssertionError(
+                    f"multihost {leg['name']} rank {r['rank']}: launches "
+                    f"{r['launches']}, its plan {r['plan']}")
+        kernel = leg["kernel"]
+        launches.setdefault(kernel, {})[leg["name"]] = [
+            r0["launches"].get(kernel, 0), r1["launches"].get(kernel, 0)]
+        extra = ""
+        if "walls" in r0:
+            wl = r0["walls"]
+            extra = (f"; step_n over chunks {r0['chunks'][:4]}...: "
+                     f"{wl['job'] * 1e3:.3f} ms on the 2-process ring, "
+                     f"{wl['one_process'] * 1e3:.3f} ms on the one-process "
+                     f"4-shard ring (best of runs, same card)")
+        if "put_s" in r0:
+            extra += (f"; put {r0['put_s']:.3f} s, 4 x 64-turn chunks "
+                      f"{r0['chunks_s']:.4f} s, {r0['alive']} alive")
+        sent = r0["sent"]
+        phase("multihost", f"{leg['name']} {r0['stepper']} (worker: "
+              f"{r1['stepper']}): launches rank 0 {r0['launches']}, rank "
+              f"1 {r1['launches']} (= each rank's plan); halo counters "
+              f"+{r0['halo'][0]} exchanges, +{r0['halo'][1]} bytes across "
+              f"ranks; rank 0 sent {sent['exchanges']} slabs, "
+              f"{sent['bytes']} bytes, host staging {sent['staging_s']:.4f} "
+              f"s, gloo wait {sent['wire_s']:.4f} s{extra}")
+    phase("multihost", f"2-process job: {job_wall:.1f} s wall for both "
+          f"processes and {len(MH_LEGS)} legs; every board equal to its "
+          f"reference; {card}")
+    mh_cli_pair(tmp)
+    phase("multihost", f"{time.perf_counter() - t_phase:.1f} s for the "
+          "phase")
+    return launches
+
+
+def mh_cli_pair(tmp: pathlib.Path) -> None:
+    """The CLI pair: `--mh-coordinator 127.0.0.1:P --mh-procs 2 --mh-id
+    {0,1} -t 8 -w 512 -h 512 -turns 100 -noVis` on the card (one shard a
+    process), the PGM byte-equal to the fixture; then a pair with
+    different `-w` that both exit nonzero within the deadline."""
+    def pair(widths, out, deadline):
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "gol_tpu_torch", "-w", str(w), "-h",
+             "512", "-t", "8", "-turns", "100", "-noVis", "--images",
+             str(FIXTURES / "images"), "--out", str(out),
+             "--mh-coordinator", f"127.0.0.1:{port}", "--mh-procs", "2",
+             "--mh-id", str(r)], cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for r, w in enumerate(widths)]
+        t0 = time.perf_counter()
+        try:
+            outs = [p.communicate(timeout=deadline)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        return ([p.returncode for p in procs], outs,
+                time.perf_counter() - t0)
+
+    rcs, outs, wall = pair((512, 512), tmp / "mhcli", 300)
+    if rcs != [0, 0]:
+        raise AssertionError(f"--mh-* pair: exits {rcs}\n" + outs[0][-2000:]
+                             + outs[1][-2000:])
+    if (tmp / "mhcli/512x512x100.pgm").read_bytes() != (
+            FIXTURES / "check/images/512x512x100.pgm").read_bytes():
+        raise AssertionError("--mh-* pair: PGM differs from the fixture")
+    worker = [ln for ln in outs[1].splitlines()
+              if ln.startswith("kernel launches")]
+    phase("multihost", f"CLI pair -t 8 512² x 100 (--mh-procs 2, one "
+          f"shard a process): PGM byte-equal to 512x512x100.pgm; "
+          f"{wall:.2f} s wall; worker {worker}")
+    deadline = 120
+    rcs, outs, wall = pair((512, 256), tmp / "mhbad", deadline)
+    if 0 in rcs or not all("config mismatch" in o for o in outs):
+        raise AssertionError(f"mismatched pair: exits {rcs}\n"
+                             + outs[0][-1000:] + outs[1][-1000:])
+    phase("multihost", f"mismatched pair (-w 512 / 256): both exit "
+          f"nonzero ({rcs}) with the config mismatch in {wall:.2f} s, "
+          f"deadline {deadline} s")
+
+
+def session_dispatches(text: str) -> dict:
+    """gol_tpu_session_dispatches_total by path in a /metrics text."""
+    out = {}
+    for line in text.splitlines():
+        m = re.match(r'gol_tpu_session_dispatches_total\{path="(\w+)"\} '
+                     r'(\S+)', line)
+        if m:
+            out[m.group(1)] = float(m.group(2))
+    return out
+
+
+def chaos_phase(tmp: pathlib.Path, card: str) -> int:
+    """Phase `chaos`: `ChaosRunner(platform="gpu")` — a `--serve
+    --sessions` server on the card SIGKILLed mid-storm and restarted
+    with `--resume latest`, judged against the plain oracle (the CPU):
+    every survivor bit-identical, the ledger equal to the live set, the
+    invariant counters 0. Prints the report, both boot walls and the
+    server's session dispatches by path before the kill and after the
+    resume; the fused path (kernel A's batched entry in the child) must
+    be above 0. Returns the fused dispatches of both boots."""
+    from gol_tpu_torch.testing.chaos import ChaosRunner
+
+    workdir = tmp / "chaos"
+    workdir.mkdir()
+    runner = ChaosRunner(seed=16, workdir=str(workdir), platform="gpu",
+                         image_dir=str(FIXTURES / "images"))
+    t0 = time.perf_counter()
+    report = runner.run()
+    wall = time.perf_counter() - t0
+    before = session_dispatches(runner.metrics_before_kill[0]) \
+        if runner.metrics_before_kill else {}
+    after = session_dispatches(runner.metrics_after)
+    if report["kills"] != 1 or report["invariant_violations"] \
+            or report["lockcheck_violations"] \
+            or report["sessions_verified"] < 2:
+        raise AssertionError(f"chaos: {report}")
+    if before.get("fused", 0) <= 0 or after.get("fused", 0) <= 0:
+        raise AssertionError(f"chaos: fused dispatches {before} / {after}")
+    phase("chaos", "report " + json.dumps(report, sort_keys=True))
+    phase("chaos", f"boot walls {[round(b, 3) for b in runner.boot_walls]} "
+          f"s; session dispatches before the kill {before}, after the "
+          f"resume {after}; {wall:.1f} s for the scenario; {card}")
+    return int(before.get("fused", 0) + after.get("fused", 0))
+
+
 def cli(tmp: pathlib.Path) -> float:
     """Phase 6: the CLI writes the golden PGM; returns the process's
     wall seconds."""
@@ -1919,6 +2469,78 @@ def cli(tmp: pathlib.Path) -> float:
     phase("cli", "python -m gol_tpu_torch -w 512 -h 512 -turns 100 -noVis: "
                  f"PGM byte-equal to the fixture; {wall:.3f} s wall")
     return wall
+
+
+def cli_watcher(tmp: pathlib.Path, cli_wall: float) -> dict:
+    """Phase `cli`, the compile watcher: a fresh `python -m gol_tpu_torch
+    -w 512 -h 512 -noVis --metrics-port 0` process (a run of 10^9 turns,
+    ended with SIGTERM) whose /metrics shows
+    `gol_tpu_device_compiles_total` and `gol_tpu_device_compile_seconds`
+    for its kernel library's load; the load's seconds beside the
+    process's wall to the scrape that saw it, and the headless CLI's
+    whole wall (`cli`)."""
+    import signal
+    import urllib.request
+
+    out = tmp / "cliwatch"
+    log = tmp / "cliwatch.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "gol_tpu_torch", "-w", "512", "-h", "512",
+             "-turns", str(10 ** 9), "-noVis", "--metrics-port", "0",
+             "--images", str(FIXTURES / "images"), "--out", str(out)],
+            cwd=REPO, stdout=f, stderr=subprocess.STDOUT)
+    try:
+        port = t_metrics = None
+        deadline = time.monotonic() + 120
+        while port is None:
+            m = re.search(r"metrics serving on http://[\d.]+:(\d+)/",
+                          log.read_text())
+            if m:
+                port, t_metrics = int(m.group(1)), time.perf_counter() - t0
+            elif proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError("watcher CLI: no metrics sidecar\n"
+                                     + log.read_text()[-2000:])
+            time.sleep(0.05)
+        compiles = None
+        while compiles is None:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+                text = r.read().decode()
+            got = re.findall(r'gol_tpu_device_compiles_total\{cause="([^"]*)"'
+                             r'\} (\S+)', text)
+            if got:
+                compiles = {c: float(v) for c, v in got}
+                t_seen = time.perf_counter() - t0
+            elif time.monotonic() > deadline:
+                raise AssertionError("watcher CLI: no compile recorded")
+            else:
+                time.sleep(0.05)
+        load_s = float(re.search(r"gol_tpu_device_compile_seconds_sum (\S+)",
+                                 text).group(1))
+        count = float(re.search(r"gol_tpu_device_compile_seconds_count "
+                                r"(\S+)", text).group(1))
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    if sum(compiles.values()) != 1 or count != 1:
+        raise AssertionError(f"watcher CLI: compiles {compiles}, {count} "
+                             "observations; want one load")
+    wall = time.perf_counter() - t0
+    phase("cli", f"compile watcher: a fresh CLI process's /metrics shows "
+          f"gol_tpu_device_compiles_total {compiles} and "
+          f"gol_tpu_device_compile_seconds {load_s:.4f} s (its library "
+          f"load from the build cache); the sidecar up {t_metrics:.3f} s "
+          f"after spawn, the compile seen {t_seen:.3f} s after spawn, the "
+          f"process {wall:.3f} s to its SIGTERM exit; the headless 512² x "
+          f"100 CLI took {cli_wall:.3f} s whole")
+    return {"load_s": load_s, "sidecar_s": t_metrics, "seen_s": t_seen}
 
 
 def board_frame(board):
@@ -4725,7 +5347,7 @@ def main_ring_16384(card: str) -> dict:
     out = {}
     for notation, key, kernel in (("B3/S23", "life", "bitlife_tiled"),
                                   ("B2/S/C3", "gens", "bitgens_tiled")):
-        world, want = REUSE.pop(key)
+        world, want = REUSE[key]  # phase multihost pops it
         plan = ring_plan(get_rule(notation), side, side, 4)
         walls = {}
         for tag, devs in (("ring", ring_devices(4)), ("single", None)):
@@ -5513,6 +6135,9 @@ def main() -> int:
         print(json.dumps(ab_time(sys.argv[2])))
         return 0
     sys.path.insert(0, str(REPO))
+    if sys.argv[1:2] == ["--mh-rank"]:
+        return mh_rank(int(sys.argv[2]), int(sys.argv[3]),
+                       pathlib.Path(sys.argv[4]))
     t_start = time.perf_counter()
 
     # Phase 1: environment.
@@ -5568,6 +6193,7 @@ def main() -> int:
         launches["bitlife_resident_batch"], slab = main_tiled_16384(tmp, card)
         watched["bitlife_resident_batch"] = main_watched_tiled(tmp, card)
         cli_wall = cli(tmp)
+        cli_watcher(tmp, cli_wall)
         cli_tiled(tmp, card)
         # The session bucket's main path: its kernel A launches are the
         # row's; kernels B and E step the buckets with no cluster plan.
@@ -5600,6 +6226,13 @@ def main() -> int:
         phase("fleet", f"{time.perf_counter() - t_fleet:.1f} s for "
               "relay-fanout, main-relay-16384, main-telemetry and "
               "cli-fleet")
+        # Multi-process jobs and the chaos harness, each phase's
+        # launches counted in its own processes.
+        mh = multihost_phase(tmp, card)
+        t_chaos = time.perf_counter()
+        chaos_fused = chaos_phase(tmp, card)
+        phase("chaos", f"{time.perf_counter() - t_chaos:.1f} s for the "
+              "phase")
     for row in kernels:
         # Launches of the watched phases (one a turn), of `diffs` and of
         # the visualised CLI runs.
@@ -5626,6 +6259,13 @@ def main() -> int:
         row["ring_launches"] = {
             ph: got[row["name"]] for ph, got in ring.items()
             if row["name"] in got} or None
+        # Launches of each rank of the 2-process job, by leg.
+        row["multihost_launches"] = mh.get(row["name"])
+        # The chaos server's fused session dispatches (kernel A's batched
+        # entry in the child), both boots.
+        row["chaos_fused_dispatches"] = (
+            chaos_fused if row["name"] == "bitlife_resident_sessions"
+            else None)
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

@@ -61,7 +61,16 @@ local runs, `--serve` (with or without `--sessions`), `--replay` and
 one instead of moving to the CPU. `--connect`, `--collector` and
 `--control` step nothing, on any device, and need no card (nor do
 `python -m gol_tpu_torch.obs.console`, `.obs.report` and
-`.obs.canary`). gol_tpu's multi-host flags are absent.
+`.obs.canary`).
+
+Multi-process jobs, as in gol_tpu: `--mh-coordinator HOST:PORT
+--mh-procs N --mh-id I` (or torchrun's MASTER_ADDR / MASTER_PORT /
+WORLD_SIZE / RANK) joins a gloo job before anything touches the
+device (`parallel/multihost.py`); every process checks that all were
+launched with the same board flags, the coordinator (id 0) runs the
+mode as usual on a ring of every process's devices, and the others
+step their shards of it, replaying its dispatches until it releases
+them or exits.
 """
 
 from __future__ import annotations
@@ -389,6 +398,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "link failure — long enough to ride out a "
                          "server crash-restart with --resume "
                          "(default 60)")
+    # Multi-process job membership (parallel/multihost.py). All three
+    # default to torchrun's MASTER_ADDR + MASTER_PORT / WORLD_SIZE /
+    # RANK; unset means single-process.
+    ap.add_argument("--mh-coordinator", default=None, metavar="HOST:PORT",
+                    help="torch.distributed (gloo) coordinator address; "
+                         "non-zero process ids run as SPMD workers "
+                         "mirroring the coordinator's dispatches")
+    ap.add_argument("--mh-procs", type=int, default=None, metavar="N",
+                    help="total process count in the multi-host job")
+    ap.add_argument("--mh-id", type=int, default=None, metavar="I",
+                    help="this process's id (0 = coordinator)")
     return ap
 
 
@@ -412,6 +432,29 @@ def main(argv: Optional[list[str]] = None) -> int:
 
         enable()
 
+    # Join (or create) the multi-process job before anything touches
+    # the device; a no-op unless flags or variables name a coordinator.
+    from gol_tpu_torch.parallel import multihost
+
+    try:
+        multihost.initialize(
+            args.mh_coordinator, args.mh_procs, args.mh_id,
+            device=None if args.platform == "gpu" else PLATFORMS[
+                args.platform])
+    except (ValueError, RuntimeError) as e:
+        raise SystemExit(f"error: {e}") from None
+    # A flag mismatch between job processes would build divergent rings
+    # whose first exchange hangs; fail fast instead.
+    try:
+        multihost.verify_job_config(
+            args.w, args.h, args.t, args.rule, args.backend,
+            args.mesh, args.partition_rule,
+        )
+    except ValueError as e:
+        raise SystemExit(f"error: {e}") from None
+    if not multihost.is_coordinator():
+        return _mh_worker(args)
+
     from gol_tpu_torch.models.rules import GenRule, get_rule
     from gol_tpu_torch.obs import device, flight, tracing
 
@@ -429,8 +472,10 @@ def main(argv: Optional[list[str]] = None) -> int:
     )
     flight.configure(args.out)
     flight.install_sigterm_handler()
-    # Every real run publishes its programs' price (the port's own
-    # operation count; library embedders opt in).
+    # Every real run watches its kernel library's build and load and
+    # publishes its programs' price (the port's own operation count);
+    # library embedders opt in.
+    device.install_compile_watcher()
     device.enable_cost_probes()
     if args.profile_dir:
         if device.start_profile(args.profile_dir,
@@ -675,6 +720,30 @@ def main(argv: Optional[list[str]] = None) -> int:
             print(f"torch profiler trace written to {trace}")
 
 
+def _mh_worker(args) -> int:
+    """A worker process of a multi-process job: no IO, no events, no
+    server — it steps its shards of the coordinator's ring, replaying
+    the coordinator's dispatches until released (0), or until the
+    coordinator is gone (1)."""
+    from gol_tpu_torch.parallel import multihost
+    from gol_tpu_torch.parallel.stepper import make_stepper
+
+    try:
+        s = make_stepper(threads=args.t, height=args.h, width=args.w,
+                         rule=args.rule, backend=args.backend,
+                         mesh=args.mesh,
+                         partition_rules=args.partition_rule)
+    except (ValueError, RuntimeError) as e:
+        raise SystemExit(f"error: {e}") from None
+    try:
+        multihost.spmd_worker_loop(s, args.h, args.w)
+    except RuntimeError as e:  # JobError, or a collective's own failure
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    _print_launches()
+    return 0
+
+
 def _with_card(args, mode, *mode_args) -> int:
     """Run a mode that steps or serves boards: on the card (resolved
     here, so that a run without one fails before it writes anything)
@@ -783,6 +852,13 @@ def _local(args, params: Params, keypresses: queue.Queue,
         keypresses.put("q")
     finally:
         engine.join(timeout=60)
+        # Release a job's workers — not on an exception path: the same
+        # error raised on them too (identical configs fail identically),
+        # and a broadcast to exited peers would hide this traceback.
+        if sys.exc_info()[0] is None:
+            from gol_tpu_torch.parallel import multihost
+
+            multihost.notify_stop()
         if metrics is not None:
             metrics.close()
 
@@ -912,6 +988,9 @@ def _serve(args, params: Params, resume_path: Optional[str] = None) -> int:
     except KeyboardInterrupt:
         server.shutdown()
     finally:
+        from gol_tpu_torch.parallel import multihost
+
+        multihost.notify_stop()
         if metrics is not None:
             metrics.close()
     _print_launches()

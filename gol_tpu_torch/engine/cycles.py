@@ -39,6 +39,15 @@ class CycleDetector:
         self._next_check = time.monotonic() + interval_seconds
 
     def observe(self, turn: int, world: torch.Tensor) -> int | None:
+        # In a multi-process job every exchange of a sharded world needs
+        # every process, and the workers replay only the stepper's
+        # dispatches (parallel/multihost.py): the compare below is not
+        # one of them, so it would strand them — no detection there, as
+        # in gol_tpu.
+        from gol_tpu_torch.parallel import multihost
+
+        if multihost.process_count() > 1:
+            return None
         now = time.monotonic()
         if now < self._next_check:
             return None

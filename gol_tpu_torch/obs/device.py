@@ -2,6 +2,13 @@
 
 - `cause()` labels WHY device work happened inside a block (the kernel
   build records it — see ops/_build.py);
+- `install_compile_watcher()` records every load of the kernels'
+  library (`ops/_build.load`: on a cache miss the `nvcc` build and the
+  `ctypes` load, on a hit the load alone) as gol_tpu records a backend
+  compile: `gol_tpu_device_compiles_total{cause}`,
+  `gol_tpu_device_compile_seconds`, a `device.compile` span with the
+  cause and a flight note saying whether the library came from the
+  cache (`cached=`);
 - `observe_split()` records a dispatch's device-vs-host time split;
 - `memory_census()` / `observe_memory()` read the CUDA caching
   allocator's statistics (bytes in use, live blocks, the device's
@@ -27,8 +34,7 @@
   the same board; the mechanism (price x turns, split by the bucket
   rule) is the same.
 
-gol_tpu's compile watcher has no counterpart here yet. Host-side only: nothing here synchronises the device (the
-allocator's statistics and `cudaMemGetInfo` read host state). torch is
+Host-side only: nothing here synchronises the device (the allocator's statistics and `cudaMemGetInfo` read host state). torch is
 imported inside the functions that need it.
 """
 
@@ -52,6 +58,7 @@ __all__ = [
     "device_budget",
     "enable_cost_probes",
     "fits",
+    "install_compile_watcher",
     "max_resident_tiles",
     "memory_census",
     "observe_memory",
@@ -123,6 +130,51 @@ def observe_split(enqueue_s: Optional[float] = None,
         total = enqueue_s + sync_s + host_s
         if total > 0:
             _DEVICE_FRACTION.set(round(sync_s / total, 5))
+
+
+# --- compile watcher -----------------------------------------------------
+
+_WATCHER_INSTALLED = False
+_compiles: dict = {}
+_COMPILE_SECONDS = obs.histogram(
+    "gol_tpu_device_compile_seconds",
+    "Kernel library build (nvcc, on a cache miss) and load wall seconds "
+    "per load",
+)
+
+
+def install_compile_watcher() -> bool:
+    """Record every load of the kernels' library from now on (count by
+    cause, duration histogram, `device.compile` span, flight note).
+    Idempotent; always True (the hook is `ops/_build.load`'s own). The
+    record is host-side code at the load — a dispatch boundary — and
+    no-ops behind the registry flag when the plane is disabled."""
+    global _WATCHER_INSTALLED
+    _WATCHER_INSTALLED = True
+    return True
+
+
+def record_compile(seconds: float, cached: bool) -> None:
+    """One load of the kernels' library that took `seconds` (`cached`:
+    the library came from the build cache, so no `nvcc` ran), under the
+    current cause; nothing unless the watcher is installed and the
+    registry enabled."""
+    if not (_WATCHER_INSTALLED and obs.enabled()):
+        return
+    why = current_cause()
+    c = _compiles.get(why)
+    if c is None:
+        c = _compiles[why] = obs.counter(
+            "gol_tpu_device_compiles_total",
+            "Kernel library builds and loads by declared cause",
+            {"cause": why},
+        )
+    c.inc()
+    _COMPILE_SECONDS.observe(seconds)
+    tracing.add_span("device.compile", "device", time.time() - seconds,
+                     seconds, {"cause": why, "cached": cached})
+    flight.note("device.compile", cause=why, seconds=round(seconds, 4),
+                cached=cached)
 
 
 # --- cost model ----------------------------------------------------------

@@ -23,7 +23,7 @@ import tempfile
 import threading
 import time
 
-from gol_tpu_torch.obs import device, flight
+from gol_tpu_torch.obs import device
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -120,23 +120,23 @@ def _compile(nvcc: str, objdir: str) -> tuple:
 
 def load() -> ctypes.CDLL:
     """The kernels' library: built on the first call of the process if
-    the cache has no library for these sources, then loaded once."""
+    the cache has no library for these sources, then loaded once. The
+    load (build included) is what `obs.device`'s compile watcher
+    records."""
     global _lib, build_log, build_seconds
     with _lock:
         if _lib is not None:
             return _lib
+        t0 = time.perf_counter()
         path = library_path()
-        if not path.exists():
+        cached = path.exists()
+        if not cached:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             nvcc = _nvcc()
-            t0 = time.perf_counter()
             with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
                 lib, build_log = _compile(nvcc, objdir)
                 os.replace(lib, path)
             build_seconds = time.perf_counter() - t0
-            flight.note("kernels.build", library=path.name,
-                        seconds=round(build_seconds, 3),
-                        cause=device.current_cause())
         lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
@@ -144,6 +144,7 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.bitlife_error_string.argtypes = [ctypes.c_int]
         lib.bitlife_error_string.restype = ctypes.c_char_p
+        device.record_compile(time.perf_counter() - t0, cached)
         _lib = lib
         return lib
 

@@ -37,8 +37,15 @@ thread, which the CPU executes in order and a CUDA stream executes in
 the order issued (cross-device copies are ordered on both devices' current
 streams). There is no collective to rendezvous, so nothing blocks.
 
-The alive count is the sum of the shards' counts on the first device
-(`psum`'s counterpart).
+The alive count is the sum of the shards' counts on the ring's home
+device (`psum`'s counterpart).
+
+In a multi-process job (`parallel/multihost.py`) each process holds
+and steps only its own shards (the others' parts are None); the edge
+exchange's slabs that cross processes travel through the host over
+gloo, all of one exchange posted at once (`partition.move`), the count
+is an all-reduce and the gathered diff an all-gather, so every process
+ends a dispatch with the same count and diff.
 
 gol_tpu's per-turn and deep-block functions are one routine here:
 `halo_step_bits` / `halo_step_bits_uneven` are `ring_block` at depth 1
@@ -71,37 +78,51 @@ def ring_perms(n: int) -> tuple[list, list]:
     return down, up
 
 
-def edge_exchange(parts: Sequence[torch.Tensor], devices: Sequence,
-                  depth: int = 1, real: Optional[Sequence[int]] = None):
+def edge_exchange(parts: Sequence, mesh: partition.Mesh, depth: int = 1,
+                  real: Optional[Sequence[int]] = None):
     """Each shard's ghost slabs: [(rows owned by the shard above, rows
-    owned by the shard below)], `depth` rows each along axis -2, copied
-    to the shard's device. Shard i's slab sent down the ring is its
-    last `depth` REAL rows (`real[i]`, all its rows by default). Works
-    for dense rows, packed word-rows and plane stacks alike."""
+    owned by the shard below)], `depth` rows each along axis -2, on the
+    shard's device (None for a shard another process owns). Shard i's
+    slab sent down the ring is its last `depth` REAL rows (`real[i]`,
+    all its rows by default). Works for dense rows, packed word-rows and
+    plane stacks alike. Every slab moves in one `partition.move`, so a
+    multi-process ring posts all its sends and receives at once."""
     n = len(parts)
-    real = [p.shape[-2] for p in parts] if real is None else real
+    if real is None:
+        rows = next(p for p in parts if p is not None).shape[-2]
+        real = [rows] * n
     down, up = ring_perms(n)
+
+    def bottom(src):
+        return lambda p: p[..., real[src] - depth:real[src], :]
+
+    slabs = partition.move(
+        mesh, parts,
+        [(src, dst, bottom(src)) for src, dst in down]
+        + [(src, dst, lambda p: p[..., :depth, :]) for src, dst in up])
     above: list = [None] * n
     below: list = [None] * n
-    for src, dst in down:
-        above[dst] = parts[src][..., real[src] - depth:real[src], :].to(
-            devices[dst])
-    for src, dst in up:
-        below[dst] = parts[src][..., :depth, :].to(devices[dst])
+    for (_, dst), slab in zip(down, slabs[:n]):
+        above[dst] = slab
+    for (_, dst), slab in zip(up, slabs[n:]):
+        below[dst] = slab
     return list(zip(above, below))
 
 
-def ring_block(parts: Sequence[torch.Tensor], devices: Sequence,
-               real: Sequence[int], depth: int,
-               step_ext: Callable) -> list:
-    """One `depth`-row ghost exchange and `step_ext(ext)` on every
+def ring_block(parts: Sequence, mesh: partition.Mesh, real: Sequence[int],
+               depth: int, step_ext: Callable) -> list:
+    """One `depth`-row ghost exchange and `step_ext(ext)` on every own
     shard's ghost-extended block [above, real rows, below, padding];
-    returns the new parts with the padding rows zero. `step_ext` steps
-    the block's turns (at most `depth` per ghost row of light cone)."""
+    returns the new parts with the padding rows zero (None for the
+    shards of other processes). `step_ext` steps the block's turns (at
+    most `depth` per ghost row of light cone)."""
     out = []
     for p, r, (above, below) in zip(parts, real,
-                                    edge_exchange(parts, devices, depth,
+                                    edge_exchange(parts, mesh, depth,
                                                   real)):
+        if p is None:
+            out.append(None)
+            continue
         size = p.shape[-2]
         pieces = [above, p[..., :r, :], below]
         if r < size:  # the padding rows, zero, behind the spliced ghost
@@ -114,10 +135,14 @@ def ring_block(parts: Sequence[torch.Tensor], devices: Sequence,
     return out
 
 
-def ring_sum(values: Sequence[torch.Tensor], device) -> torch.Tensor:
-    """The shards' int32 scalars summed on `device` (`psum`)."""
-    return torch.stack([v.to(device) for v in values]).sum(
-        dtype=torch.int32)
+def ring_sum(values: Sequence, mesh: partition.Mesh) -> torch.Tensor:
+    """The shards' int32 scalars summed on the mesh's home device
+    (`psum`); None entries are other processes' shards, whose values an
+    all-reduce adds."""
+    own = [v.to(mesh.home) for v in values if v is not None]
+    total = (torch.stack(own).sum(dtype=torch.int32) if own else
+             torch.zeros((), dtype=torch.int32, device=mesh.home))
+    return total if mesh.job is None else mesh.job.allreduce_sum(total)
 
 
 def strip_padding(arr, size: int, real_list, axis: int = -2):
@@ -189,6 +214,12 @@ class Ring:
         self.shape = tuple(shape)
         self.size = shape[-2] // self.n
         self.real = list(real)
+        #: The ring boundaries whose slabs the halo counters price: all
+        #: n in one process; in a multi-process job only those between
+        #: shards of different processes (the bytes that cross ranks).
+        owners = self.mesh.owners
+        self.links = self.n if owners is None else sum(
+            owners[i] != owners[(i + 1) % self.n] for i in range(self.n))
 
     def place(self, host: np.ndarray) -> partition.Sharded:
         """A host array in the canonical layout -> the padded world."""
@@ -199,17 +230,23 @@ class Ring:
         return strip_padding(world.numpy(), self.size, self.real)
 
     def block(self, world, depth: int, step_ext) -> partition.Sharded:
-        return world.replace(ring_block(world.parts, self.devices,
-                                        self.real, depth, step_ext))
+        return world.replace(ring_block(world.parts, self.mesh, self.real,
+                                        depth, step_ext))
 
     def count(self, world, count_fn) -> torch.Tensor:
-        return ring_sum([count_fn(p) for p in world.parts], self.devices[0])
+        return ring_sum([None if p is None else count_fn(p)
+                         for p in world.parts], self.mesh)
 
     def diff(self, old, new, diff_fn) -> torch.Tensor:
         """`diff_fn` of each shard's old and new block, gathered on the
-        first device in the canonical layout."""
-        glued = torch.cat([diff_fn(a, b).to(self.devices[0])
-                           for a, b in zip(old.parts, new.parts)], dim=-2)
+        home device in the canonical layout (in every process of a
+        multi-process job)."""
+        parts = [None if a is None else diff_fn(a, b)
+                 for a, b in zip(old.parts, new.parts)]
+        if self.mesh.job is not None:
+            parts = self.mesh.job.allgather_parts(self.mesh, parts)
+        home = self.mesh.home
+        glued = torch.cat([p.to(home) for p in parts], dim=-2)
         return strip_padding(glued, self.size, self.real)
 
 
@@ -255,10 +292,12 @@ def _ring_stepper(name: str, shards: int, put, fetch, step_n, one_turn,
 
 
 def dense_ring_halo_cost(n: int, deep: int):
-    """Ring-traffic accounting for a dense ring of `n` shards with deep
-    depth `deep` — the `Stepper.halo_cost` hook (gol_tpu's formula over
-    the same block plan `step_n` runs; bytes are uint8 rows, both
-    directions, summed over all shards). `per_turn=True` prices the
+    """Ring-traffic accounting for a dense ring priced over `n` ring
+    boundaries (its shard count; in a multi-process job the boundaries
+    between processes, `Ring.links`) with deep depth `deep` — the
+    `Stepper.halo_cost` hook (gol_tpu's formula over the same block plan
+    `step_n` runs; bytes are uint8 rows, both directions, summed over
+    the boundaries). `per_turn=True` prices the
     single-turn entries and the diff scans, which exchange one edge row
     a turn."""
 
@@ -345,5 +384,5 @@ def sharded_stepper(rule: Rule, devices: list, height: int, width: int):
         diff=lambda old, new: ring.diff(old, new, torch.ne),
         mask=lambda old, new: ring.diff(old, new, torch.ne),
         packed=False,
-        halo_cost=dense_ring_halo_cost(n, deep),
+        halo_cost=dense_ring_halo_cost(ring.links, deep),
     )

@@ -59,54 +59,85 @@ def packable_mesh2d(height: int, width: int, rows: int, cols: int) -> bool:
 
 
 def _extend(parts, mesh: partition.Mesh) -> list:
-    """Every cell's block extended by one ghost word-row and column a
-    side: column ghosts first, then the corner-complete row ghosts."""
+    """Every own cell's block extended by one ghost word-row and column
+    a side: column ghosts first, then the corner-complete row ghosts;
+    None for the cells of other processes. Each round of ghosts is one
+    `partition.move`."""
     R, C = mesh.rows, mesh.cols
-    cols_ext = []
-    for r in range(R):
-        for c in range(C):
-            dev = mesh.device(r, c)
-            left = parts[r * C + (c - 1) % C][..., -1:].to(dev)
-            right = parts[r * C + (c + 1) % C][..., :1].to(dev)
-            cols_ext.append(torch.cat([left, parts[r * C + c], right],
-                                      dim=-1))
-    out = []
-    for r in range(R):
-        for c in range(C):
-            dev = mesh.device(r, c)
-            above = cols_ext[((r - 1) % R) * C + c][..., -1:, :].to(dev)
-            below = cols_ext[((r + 1) % R) * C + c][..., :1, :].to(dev)
-            out.append(torch.cat([above, cols_ext[r * C + c], below],
-                                 dim=-2))
-    return out
+    cells = range(R * C)
+
+    def routes(src_of, take):
+        return [(src_of(i), i, take) for i in cells]
+
+    def left(i):
+        return (i // C) * C + (i % C - 1) % C
+
+    def right(i):
+        return (i // C) * C + (i % C + 1) % C
+
+    ghosts = partition.move(
+        mesh, parts,
+        routes(left, lambda p: p[..., -1:])
+        + routes(right, lambda p: p[..., :1]))
+    cols_ext = [None if parts[i] is None else
+                torch.cat([ghosts[i], parts[i], ghosts[R * C + i]], dim=-1)
+                for i in cells]
+    ghosts = partition.move(
+        mesh, cols_ext,
+        routes(lambda i: ((i // C - 1) % R) * C + i % C,
+               lambda p: p[..., -1:, :])
+        + routes(lambda i: ((i // C + 1) % R) * C + i % C,
+                 lambda p: p[..., :1, :]))
+    return [None if cols_ext[i] is None else
+            torch.cat([ghosts[i], cols_ext[i], ghosts[R * C + i]], dim=-2)
+            for i in cells]
 
 
 def mesh_halo_step(parts, mesh: partition.Mesh, turn) -> list:
-    """One turn of every cell's block: extend, step `turn`, slice."""
-    return [turn(ext)[..., 1:-1, 1:-1].contiguous()
+    """One turn of every own cell's block: extend, step `turn`, slice."""
+    return [None if ext is None else turn(ext)[..., 1:-1, 1:-1].contiguous()
             for ext in _extend(parts, mesh)]
 
 
-def mesh2d_halo_cost(rows: int, cols: int, hw: int, width: int):
+def mesh2d_halo_cost(rows: int, cols: int, hw: int, width: int,
+                     links: tuple | None = None):
     """Traffic accounting of a rows x cols mesh stepping a (hw, width)
     word board per-turn — the `Stepper.halo_cost` hook, gol_tpu's
     formula: every turn each device sends 2 ghost word-columns (HwL
     words each) and 2 ghost word-rows (WL+2 words each);
     `bytes_per_host` prices the ``rows``-axis traffic ONE mesh row
-    emits."""
+    emits. `links` = (column ghosts, row ghosts) a turn that the
+    counters price: 2·rows·cols each by default; in a multi-process job
+    only those that cross processes (`mesh_links`)."""
     col_words = 2 * (hw // rows)
     row_words = 2 * (width // cols + 2)
+    cells = rows * cols
+    col_links, row_links = links or (2 * cells, 2 * cells)
 
     def halo_cost(world, k, per_turn: bool = False) -> dict:
         del world, per_turn  # always per-turn
         k = max(int(k), 0)
         return {
-            "exchanges": 4 * rows * cols * k,
-            "bytes": (col_words + row_words) * 4 * rows * cols * k,
+            "exchanges": (col_links + row_links) * k,
+            "bytes": (col_words * col_links + row_words * row_links)
+            * 2 * k,
             "bytes_per_host": row_words * 4 * cols * k,
         }
 
     return halo_cost
+
+
+def mesh_links(mesh: partition.Mesh) -> tuple | None:
+    """(column, row) ghost slabs a turn that cross processes in a
+    multi-process job's mesh; None in one process."""
+    if mesh.owners is None:
+        return None
+    R, C, own = mesh.rows, mesh.cols, mesh.owners
+    col = sum(own[r * C + c] != own[r * C + (c + d) % C]
+              for r in range(R) for c in range(C) for d in (-1, 1))
+    row = sum(own[r * C + c] != own[((r + d) % R) * C + c]
+              for r in range(R) for c in range(C) for d in (-1, 1))
+    return col, row
 
 
 def _mesh_stepper(name: str, rule, devices: list, height: int, width: int,
@@ -145,14 +176,14 @@ def _mesh_stepper(name: str, rule, devices: list, height: int, width: int,
     owners = [r * cols + c for r, c in sharding.cells()
               if (full[-2] or r == 0) and (full[-1] or c == 0)]
     turn = turn_stepper(rule, "kernel")
-    dev0 = mesh.devices[0]
 
     def one_turn(world):
         return world.replace(mesh_halo_step(world.parts, mesh, turn))
 
     def count(world):
-        return halo.ring_sum([count_fn(world.parts[i]) for i in owners],
-                             dev0)
+        return halo.ring_sum([None if world.parts[i] is None
+                              else count_fn(world.parts[i])
+                              for i in owners], mesh)
 
     def step_n(world, k):
         for _ in range(max(int(k), 0)):
@@ -160,7 +191,8 @@ def _mesh_stepper(name: str, rule, devices: list, height: int, width: int,
         return world, count(world)
 
     def diff(old, new):
-        parts = [diff_fn(a, b) for a, b in zip(old.parts, new.parts)]
+        parts = [None if a is None else diff_fn(a, b)
+                 for a, b in zip(old.parts, new.parts)]
         return diff_sharding.gather(parts, old.shape[-2:])
 
     def fetch(a):
@@ -178,7 +210,8 @@ def _mesh_stepper(name: str, rule, devices: list, height: int, width: int,
         diff=diff,
         mask=lambda old, new: bitlife.unpack(diff(old, new), height) != 0,
         packed=True,
-        halo_cost=mesh2d_halo_cost(rows, cols, height // WORD, width),
+        halo_cost=mesh2d_halo_cost(rows, cols, height // WORD, width,
+                                   mesh_links(mesh)),
         alive_mask=_gens_alive_mask if isinstance(rule, GenRule) else None,
     )
 

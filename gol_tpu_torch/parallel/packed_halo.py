@@ -255,7 +255,9 @@ def packed_ring_halo_cost(n: int, plan: tuple):
     hook: gol_tpu's formula over the (h, mode) plan `step_n` runs, so
     the priced exchanges are the dispatched ones; bytes are int32
     word-rows (4W per word-row per direction), both directions, summed
-    over all shards. `per_turn=True` prices the single-turn entries and
+    over `n` ring boundaries (all shards; in a multi-process job those
+    between processes, `halo.Ring.links`). `per_turn=True` prices the
+    single-turn entries and
     the diff scans, one edge word-row a turn."""
     h, mode = plan
 
@@ -307,7 +309,7 @@ def _packed_ring(rule: Rule, devices: list, height: int, width: int,
         diff=xor,
         mask=lambda old, new: bitlife.unpack(xor(old, new), height) != 0,
         packed=True,
-        halo_cost=packed_ring_halo_cost(n, plan),
+        halo_cost=packed_ring_halo_cost(ring.links, plan),
     )
 
 

@@ -24,6 +24,17 @@ torch has no `jax.sharding`, so the placement is this package's own:
   cell's device, plus the global (padded) shape. It is the state the
   ring and mesh steppers' entries take and return.
 
+Across processes (`parallel/multihost.py`): a device list of
+`JobDevice`s — every process's devices in rank order, each with its
+owner — makes a mesh of a multi-process job. A `Sharded` then holds
+tensors only for the cells its process owns (None for the others), and
+the seams that reach another cell go through the job: `move` (a
+neighbour's ghost slab; cross-process slabs are staged through the host
+and sent over gloo), `Sharding.gather` (an all-gather: every process
+gets the whole array, `spmd_fetch`'s contract), `Sharded.equal` (an
+all-reduce of the local verdicts) and the count (`halo.ring_sum`, an
+all-reduce). Every process calls them together, in the same order.
+
 Layouts: a ``layout=NAME`` override selects a KERNEL layout rather than
 a sharding. ``lane-coupled`` (`gol_tpu_torch/ops/lanes.py`) registers on
 import, as in gol_tpu.
@@ -71,23 +82,63 @@ def parse_mesh(text: str) -> Tuple[int, int]:
 
 
 @dataclasses.dataclass(frozen=True)
+class JobDevice:
+    """One entry of a multi-process job's device list: a device and the
+    rank of the process that owns it (`multihost.global_devices`)."""
+
+    device: torch.device
+    rank: int
+
+
+@dataclasses.dataclass(frozen=True)
 class Mesh:
     """A ``rows x cols`` grid of torch devices, row-major: cell (r, c) is
     ``devices[r * cols + c]``. Ring neighbours along ``rows`` are cells
-    (r ± 1) mod rows, along ``cols`` (c ± 1) mod cols."""
+    (r ± 1) mod rows, along ``cols`` (c ± 1) mod cols. In a multi-process
+    job `owners` names each cell's rank and `job` is the job
+    (`multihost.Job`); both None when this process owns every cell."""
 
     devices: tuple
     rows: int
     cols: int = 1
+    owners: Optional[tuple] = None
+    job: Optional[object] = dataclasses.field(default=None, compare=False)
 
     def device(self, r: int, c: int = 0) -> torch.device:
         return self.devices[r * self.cols + c]
 
+    def owns(self, i: int) -> bool:
+        """True when this process holds cell i's tensors."""
+        return self.owners is None or self.owners[i] == self.job.rank
+
+    @property
+    def home(self) -> torch.device:
+        """Where results of the whole mesh land in this process: its
+        first own cell's device."""
+        return next(d for i, d in enumerate(self.devices) if self.owns(i))
+
+
+def _placed(devices: Sequence, rows: int, cols: int) -> Mesh:
+    """The mesh of `devices`: torch devices (or their names), or a
+    multi-process job's `JobDevice`s."""
+    if any(isinstance(d, JobDevice) for d in devices):
+        from gol_tpu_torch.parallel import multihost
+
+        job = multihost.job()
+        owners = tuple(d.rank for d in devices)
+        if job.rank not in owners:
+            raise PartitionError(
+                f"mesh {rows}x{cols} gives process {job.rank} no cell — "
+                "every process of the job must own at least one shard"
+            )
+        return Mesh(tuple(d.device for d in devices), rows, cols, owners,
+                    job)
+    return Mesh(tuple(torch.device(d) for d in devices), rows, cols)
+
 
 def ring_mesh(devices: Sequence) -> Mesh:
     """The 1-D row ring over `devices` in order: an ``n x 1`` mesh."""
-    devs = tuple(torch.device(d) for d in devices)
-    return Mesh(devs, len(devs), 1)
+    return _placed(devices, len(devices), 1)
 
 
 def mesh2d(devices: Sequence, rows: int, cols: int) -> Mesh:
@@ -97,7 +148,19 @@ def mesh2d(devices: Sequence, rows: int, cols: int) -> Mesh:
             f"mesh {rows}x{cols} needs {rows * cols} devices, "
             f"got {len(devices)}"
         )
-    return Mesh(tuple(torch.device(d) for d in devices), rows, cols)
+    return _placed(devices, rows, cols)
+
+
+def move(mesh: Mesh, parts: Sequence, routes: Sequence) -> list:
+    """Ghost slabs between cells: for each route ``(src, dst, take)``
+    the slab ``take(parts[src])`` on cell dst's device (None where this
+    process does not own dst). Within a process a slab is a `.to` of a
+    slice; across processes the job stages it through the host and
+    sends it over gloo (`multihost.Job.move`)."""
+    if mesh.job is None:
+        return [take(parts[src]).to(mesh.devices[dst])
+                for src, dst, take in routes]
+    return mesh.job.move(mesh, parts, routes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,14 +206,18 @@ class Sharding:
             torch.from_numpy(np.array(
                 host[self.index(host.shape, r, c)])).to(
                     self.mesh.device(r, c))
-            for r, c in self.cells())
+            if self.mesh.owns(i) else None
+            for i, (r, c) in enumerate(self.cells()))
         return Sharded(parts, self, tuple(host.shape))
 
     def gather(self, parts: Sequence[torch.Tensor], shape: Sequence[int],
                device=None) -> torch.Tensor:
-        """The blocks back as one global tensor on `device` (the first
-        mesh device by default)."""
-        dev = self.mesh.devices[0] if device is None else device
+        """The blocks back as one global tensor on `device` (the mesh's
+        home device by default); in a multi-process job every process
+        gets the whole array (an all-gather)."""
+        if self.mesh.job is not None:
+            parts = self.mesh.job.allgather_parts(self.mesh, parts)
+        dev = self.mesh.home if device is None else device
         out = torch.empty(tuple(shape), dtype=parts[0].dtype, device=dev)
         for (r, c), part in zip(self.cells(), parts):
             out[self.index(shape, r, c)] = part.to(dev)
@@ -169,12 +236,17 @@ class Sharded:
         self.shape = tuple(shape)
 
     @property
+    def local(self) -> list:
+        """The tensors this process holds (every part in one process)."""
+        return [p for p in self.parts if p is not None]
+
+    @property
     def dtype(self):
-        return self.parts[0].dtype
+        return self.local[0].dtype
 
     @property
     def device(self) -> torch.device:
-        return self.parts[0].device
+        return self.local[0].device
 
     def replace(self, parts) -> "Sharded":
         """A world of the same placement holding `parts`."""
@@ -190,10 +262,14 @@ class Sharded:
 
     def equal(self, other) -> bool:
         """Exact equality, part by part on the parts' devices (one scalar
-        a part comes back) — `torch.equal`'s contract."""
-        return (isinstance(other, Sharded) and other.shape == self.shape
+        a part comes back) — `torch.equal`'s contract; in a
+        multi-process job every process's verdict is all-reduced."""
+        same = (isinstance(other, Sharded) and other.shape == self.shape
                 and all(torch.equal(a, b)
-                        for a, b in zip(self.parts, other.parts)))
+                        for a, b in zip(self.parts, other.parts)
+                        if a is not None))
+        job = self.sharding.mesh.job
+        return same if job is None else job.all_true(same)
 
 
 # --- rule tables ---------------------------------------------------------

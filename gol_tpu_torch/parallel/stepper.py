@@ -53,6 +53,12 @@ dense Generations backend does). They offer gol_tpu's capability sets,
 device list may repeat a device: ``devices=["cpu"] * 4`` is a 4-shard
 ring on the CPU, ``[cuda:0] * 4`` one on a single card.
 
+In a multi-process job (`parallel/multihost.py`) a ring or mesh built
+without a device list spans every process's devices, round-robin; the
+coordinator's is wrapped by `multihost.spmd_stepper`, which broadcasts
+each dispatch's opcode from `ENTRY_TABLE` so the workers replay it on
+their shards.
+
 `make_batch_stepper` builds the backend of one session bucket
 (`BatchStepper`): S boards of one shape stepped together, each k-turn
 chunk of a packable bucket one launch of kernel A's batched entry
@@ -1008,6 +1014,18 @@ def _gens_stepper_packed(rule: GenRule, device, height: int, width: int,
     )
 
 
+def _spmd(s: Stepper, devs: list) -> Stepper:
+    """A ring or mesh over `devs`: on the coordinator of a job it spans,
+    wrapped to mirror its dispatches to the workers (gol_tpu's rule);
+    the workers get the ring itself and replay it
+    (`multihost.spmd_worker_loop`)."""
+    from gol_tpu_torch.parallel import multihost
+
+    if multihost.is_multiprocess_mesh(devs) and multihost.is_coordinator():
+        return multihost.spmd_stepper(s)
+    return s
+
+
 def _make_gens_stepper(rule: GenRule, height: int, width: int, devs: list,
                        threads: int, backend: str) -> Stepper:
     """gol_tpu's GenRule branch of `make_stepper`, with "cuda-packed"
@@ -1321,8 +1339,9 @@ def make_stepper(
                       mesh, partition_rules, devices)
     if obs.enabled():
         rule = get_rule(rule) if isinstance(rule, str) else rule
-        dense = (s.name in ("single", "single-cuda-dense", "generations-1")
-                 or s.name.startswith(("halo-ring", "gens-halo-ring")))
+        name = s.name.removeprefix("spmd-")
+        dense = (name in ("single", "single-cuda-dense", "generations-1")
+                 or name.startswith(("halo-ring", "gens-halo-ring")))
         s = instrument_stepper(s, price={
             "height": height, "width": width, "rule": rule,
             "layout": "dense" if dense else "packed"})
@@ -1359,7 +1378,15 @@ def _make_stepper(
         # not the first dispatch; `layout=NAME` rides to the
         # single-device packed path below.
         _, layout = partition.parse_overrides(partition_rules)
-    devs = resolve_devices(device, devices)
+    from gol_tpu_torch.parallel import multihost
+
+    multiprocess = devices is None and multihost.process_count() > 1
+    # A job's shards are every process's devices, round-robin so a
+    # k-shard prefix spans every process; each process builds the same
+    # ring and steps its own shards, and the coordinator's stepper
+    # mirrors its dispatches to the workers (multihost.spmd_stepper).
+    devs = (multihost.round_robin_devices() if multiprocess
+            else resolve_devices(device, devices))
     if mesh is not None:
         from gol_tpu_torch.parallel import partition
 
@@ -1368,18 +1395,32 @@ def _make_stepper(
             else (int(mesh[0]), int(mesh[1]))
         )
         if rows * cols > 1:
-            return _make_mesh(rule, height, width, devs, backend, tile,
-                              rows, cols, partition_rules)
+            return _spmd(_make_mesh(rule, height, width, devs, backend,
+                                    tile, rows, cols, partition_rules),
+                         devs[:rows * cols])
     if tile:
+        if multiprocess:
+            raise ValueError(
+                "tiled stepping is single-process (the dispatch set is "
+                "its parallelism axis; multi-chip composes at the "
+                "partition-rule layer, not here)"
+            )
         from gol_tpu_torch.parallel.tiled import tiled_stepper
 
         return tiled_stepper(rule, height, width, tile, device=devs[0])
-    if isinstance(rule, GenRule):
-        return _make_gens_stepper(rule, height, width, devs, threads,
-                                  backend)
     k = shard_count(threads, height, len(devs))
+    if multiprocess and k < multihost.process_count():
+        raise ValueError(
+            f"threads={threads} shards cannot span the "
+            f"{multihost.process_count()}-process job — every process "
+            "must own at least one shard (raise -t or shrink the job)"
+        )
+    if isinstance(rule, GenRule):
+        return _spmd(_make_gens_stepper(rule, height, width, devs, threads,
+                                        backend), devs[:k])
     if k > 1:
-        return _make_ring(rule, height, width, devs[:k], backend)
+        return _spmd(_make_ring(rule, height, width, devs[:k], backend),
+                     devs[:k])
     dev = devs[0]
     packable = bitlife.packable(height, width)
     if layout is not None and backend in ("auto", "packed") and packable:

@@ -6,8 +6,10 @@ Production code imports this lazily and only consults it when
 the package costs nothing on the happy path. See `faults.py` for the
 spec grammar and the FaultySocket wrapper. `leaks.py` adds the per-test
 concurrency guard: lockcheck forced ON plus a thread/socket leak census
-around each distributed test. The seeded chaos harness (`chaos.py`) is
-not ported yet."""
+around each distributed test. `chaos.py` is the seeded chaos harness
+(verb storms, stalled observers and a SIGKILLed `--serve --sessions`
+process, judged against the plain oracle); import it as
+`gol_tpu_torch.testing.chaos`."""
 
 from gol_tpu_torch.testing.faults import (
     FaultPlan,

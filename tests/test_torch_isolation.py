@@ -588,3 +588,47 @@ print("FORBIDDEN", bad)
                        text=True, timeout=120, cwd=tmp_path, env=ENV)
     assert r.returncode == 0, r.stderr
     assert "FORBIDDEN []" in r.stdout, r.stdout
+
+
+def test_multihost_and_chaos_load_no_jax(tmp_path):
+    """The multi-process job (a one-process gloo job, the global device
+    list, the config check, the SPMD mirror over a CPU ring) and the
+    chaos harness (a recipe's oracle, the runner's server argv) load no
+    JAX and nothing of gol_tpu, and both modules are in the scans
+    above; the runner spawns `-m gol_tpu_torch`."""
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    assert {"gol_tpu_torch/parallel/multihost.py",
+            "gol_tpu_torch/testing/chaos.py"} <= names
+    code = f"""
+import socket, sys
+sys.path.insert(0, {str(REPO)!r})
+import numpy as np
+from gol_tpu_torch.parallel import multihost
+from gol_tpu_torch.parallel.stepper import make_stepper
+from gol_tpu_torch.testing import chaos
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+multihost.initialize(f"127.0.0.1:{{port}}", 1, 0, local_devices=["cpu"] * 2)
+assert multihost.process_count() == 1 and multihost.is_coordinator()
+assert [d.rank for d in multihost.global_devices()] == [0, 0]
+multihost.verify_job_config(64, 64, 2)
+ring = make_stepper(threads=2, height=64, width=64, devices=["cpu"] * 2)
+s = multihost.spmd_stepper(ring)
+w = (np.arange(64 * 64).reshape(64, 64) % 5 == 0).astype(np.uint8) * 255
+p, c = s.step_n(s.put(w), 7)
+assert s.fetch(p).shape == (64, 64)
+multihost.notify_stop()
+board = chaos.oracle_board(chaos.Recipe("x", seed=3), 40)
+assert board.shape == (64, 64)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0].startswith("jax") or m == "gol_tpu"
+             or m.startswith("gol_tpu."))
+print("FORBIDDEN", bad)
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=tmp_path, env=ENV)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "FORBIDDEN []" in r.stdout, r.stdout
+    src = (REPO / "gol_tpu_torch" / "testing" / "chaos.py").read_text()
+    assert '"-m", "gol_tpu_torch"' in src
