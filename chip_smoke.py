@@ -7,7 +7,10 @@ builds the hand-written CUDA kernels from `gol_tpu_torch/csrc`, holds
 each kernel bit-exact against its plain PyTorch version, holds every
 diff scan of the CUDA steppers (dense, sparse and compact rows, one
 kernel launch a scanned turn) byte-identical to the plain steppers'
-(phase `diffs`), drives the port's paths through `gol_tpu_torch.run` —
+(phase `diffs`), runs the port's strict lint gate and race corpus and
+calls the main path's hot entries under CUDA's sync-debug mode (phase
+`analysis`: an entry the linter calls sync-free must not synchronize),
+drives the port's paths through `gol_tpu_torch.run` —
 Life at 512² against the golden fixtures and at 16384² against the
 plain version; Generations (B/S/C) rules at 64² against the rules
 fixtures, at 512² against the plain planes and at 16384² against the
@@ -5630,6 +5633,206 @@ def rings(tmp: pathlib.Path, card: str) -> dict:
     return out
 
 
+def lint_gate(argv: list, what: str) -> dict:
+    """One gate of the analysis plane in a subprocess from the checkout:
+    its exit code (0 required), its seconds, and its summary line."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *argv], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"{what} exited {proc.returncode}:\n"
+                             f"{proc.stdout}{proc.stderr}")
+    return {"seconds": secs, "out": proc.stdout.strip().splitlines()}
+
+
+#: The hot entries the `analysis` phase calls under CUDA's sync-debug
+#: mode: (name, the `kernels` row it launches, the kernel it must
+#: launch, the linter's hot scopes it runs, and the allowlisted
+#: host-sync scope its call reaches, if any).
+SYNC_ENTRIES = (
+    ("engine-512 step_n (A, 64 turns)", "bitlife_resident",
+     "bitlife_resident", "_packed_state_stepper._step_n", None),
+    ("life-16384 step_n (B 2-D entry, 32 turns)", "bitlife_tiled",
+     "bitlife_tiled", "_packed_state_stepper._step_n", None),
+    ("gens-512 B2/S/C3 step_n (C, 64 turns)", "bitgens_resident",
+     "bitgens_resident", "_gens_stepper_packed._step_n", None),
+    ("gens-16384 B2/S/C3 step_n (D 2-D entry, 32 turns)", "bitgens_tiled",
+     "bitgens_tiled", "_gens_stepper_packed._step_n", None),
+    ("dense-512 cuda-dense step_n (E, 64 turns)", "life_dense",
+     "life_dense", "step_n_counted_cuda_dense", None),
+    ("slab of 16 ext blocks, T = 1024 (A batched, 32 turns)",
+     "bitlife_resident_batch", "bitlife_resident",
+     "step_n_packed_batch_cuda_raw", None),
+    ("bucket 64 x 256² step_n (A batched, 16 turns)",
+     "bitlife_resident_sessions", "bitlife_resident",
+     "make_batch_stepper.step_n", None),
+    ("ring 4 x 512² step_n (A a shard, 64 turns)", "bitlife_resident",
+     "bitlife_resident", "packed_step_n.step_n, ring_block", None),
+    ("tiled 16384², T = 1024 step_n (A batched, 32 turns)",
+     "bitlife_resident_batch", "bitlife_resident", "(none: a method)",
+     ("gol_tpu_torch/parallel/tiled.py", "TiledStepper._step_slab")),
+)
+
+
+#: What ATen says at a sync point under the sync-debug mode (raised in
+#: "error", warned in "warn"); its one-time notice that the mode is a
+#: prototype is not a sync.
+SYNC_TEXT = "called a synchronizing CUDA operation"
+
+
+def sync_calls() -> list:
+    """A zero-argument call of each hot entry of SYNC_ENTRIES, in its
+    order, at the main path's shapes, every input already on the card
+    (the puts run here, outside the sync-debug window)."""
+    import torch
+
+    from gol_tpu_torch.models.rules import get_rule
+    from gol_tpu_torch.ops import bitlife, life
+    from gol_tpu_torch.ops import cuda_bitlife as cb
+    from gol_tpu_torch.parallel import stepper
+
+    cuda = torch.device("cuda")
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    brain = get_rule("B2/S/C3")
+
+    def board(side):
+        return (torch.randint(0, 2, (side, side), generator=gen,
+                              device=cuda, dtype=torch.uint8) * 255)
+
+    def bare(**kw):
+        return stepper._make_stepper(device=cuda, **kw)
+
+    life512 = bare(height=512, width=512)
+    life16k = bare(height=16384, width=16384)
+    gens512 = bare(height=512, width=512, rule=brain)
+    gens16k = bare(height=16384, width=16384, rule=brain)
+    dense = bare(height=512, width=512, backend="cuda-dense")
+    ring = stepper._make_stepper(threads=4, height=512, width=512,
+                                 devices=[cuda] * 4)
+    tiled = bare(height=16384, width=16384, tile=1024)
+    bucket = stepper.make_batch_stepper(64, 256, 256, device=cuda)
+    cpu_gen = torch.Generator().manual_seed(5)
+    p512 = bitlife.pack(life.to_bits(board(512)))
+    p16k = bitlife.pack(life.to_bits(board(16384)))
+    g512 = gens_planes(brain, 512, 512, cpu_gen)
+    g16k = gens_planes(brain, 16384, 16384, cpu_gen)
+    w512 = board(512)
+    rows, cols = ext_shape(1024)
+    slab = torch.randint(-2**31, 2**31 - 1, (16, rows, cols), generator=gen,
+                         device=cuda, dtype=torch.int32)
+    stack = bucket.put_all([life.random_world(256, 256, seed=i)
+                            for i in range(64)])
+    rworld = ring.put(life.random_world(512, 512, seed=3))
+    tworld = tiled.put(soup_world(16384))
+    return [lambda: life512.step_n(p512, 64),
+            lambda: life16k.step_n(p16k, 32),
+            lambda: gens512.step_n(g512, 64),
+            lambda: gens16k.step_n(g16k, 32),
+            lambda: dense.step_n(w512, 64),
+            lambda: cb.step_n_packed_batch_cuda_raw(slab, 32),
+            lambda: bucket.step_n(stack, 16),
+            lambda: ring.step_n(rworld, 64),
+            lambda: tiled.step_n(tworld, 32)]
+
+
+def sync_site(frames) -> str:
+    """The innermost frame of the package or this script among
+    `frames` (a traceback's or a stack's): the call that synchronized."""
+    ours = [f for f in frames if "gol_tpu_torch" in f.filename
+            or f.filename.endswith("chip_smoke.py")]
+    f = (ours or list(frames))[-1]
+    where = pathlib.Path(f.filename)
+    if where.is_relative_to(REPO):
+        where = where.relative_to(REPO)
+    return f"{where}:{f.lineno} `{f.line}`"
+
+
+def analysis_phase(card: str) -> dict:
+    """Phase `analysis`: the port's strict lint gate and the race corpus
+    in subprocesses from the checkout (both must exit 0), then the
+    linter's claim tested on the card. Each hot entry of SYNC_ENTRIES is
+    called once at the main path's shapes to warm up (library loaded,
+    every kernel launched), then once under
+    `torch.cuda.set_sync_debug_mode("error")`: an entry the static
+    host-sync / tracer-branch checks call clean that synchronizes fails
+    the phase, naming the entry and the call — a blind spot of the
+    linter. An entry whose call reaches an allowlisted host sync runs
+    under "warn" and is listed with whether it synced. The mode sees
+    ATen's sync points only (`.item()`, device-to-host copies, stream
+    and device synchronizes), not a sync inside a ctypes launcher.
+    Returns {kernels row: sync_free}."""
+    import traceback
+    import warnings
+
+    import torch
+
+    from gol_tpu_torch.analysis.core import Allowlist
+
+    gate = lint_gate(["gol_tpu_torch.analysis", "--strict"], "the lint gate")
+    summary = next(ln for ln in gate["out"] if "grandfathered" in ln)
+    phase("analysis", f"python -m gol_tpu_torch.analysis --strict: exit 0, "
+                      f"{summary.lstrip('# ')}, {gate['seconds']:.2f} s")
+    corpus = lint_gate(["gol_tpu_torch.analysis.concurrency.corpus",
+                        "tests/fixtures/concurrency"], "the race corpus")
+    phase("analysis", f"corpus: exit 0, {corpus['out'][-1]}, "
+                      f"{corpus['seconds']:.2f} s")
+
+    allow = Allowlist.load(REPO / "gol_tpu_torch" / "analysis"
+                           / "allowlist.txt")
+    calls = sync_calls()
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    rows: dict = {}
+    for (name, row, kernel, scopes, allowed), call in zip(SYNC_ENTRIES,
+                                                          calls):
+        if allowed is not None and ("host-sync", *allowed) not in {
+                e.key for e in allow.entries}:
+            raise AssertionError(f"{name}: {allowed} is not an allowlisted "
+                                 "host-sync scope")
+        mode = "warn" if allowed else "error"
+        reset_launches()
+        prev = torch.cuda.get_sync_debug_mode()
+        syncs = []
+
+        def record(message, *_):
+            if SYNC_TEXT in str(message):
+                syncs.append(sync_site(traceback.extract_stack()[:-1]))
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode(mode)
+            try:
+                call()
+            except RuntimeError as e:
+                if SYNC_TEXT not in str(e):
+                    raise
+                raise AssertionError(
+                    f"{name}: the linter calls {scopes} sync-free, but the "
+                    f"call synchronized at "
+                    f"{sync_site(traceback.extract_tb(e.__traceback__))}: "
+                    f"{e}") from e
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        if syncs and not allowed:
+            raise AssertionError(
+                f"{name}: the linter calls {scopes} sync-free, but the call "
+                f"synchronized: {syncs}")
+        torch.cuda.synchronize()
+        launched = read_launches()[kernel]
+        if launched <= 0:
+            raise AssertionError(f"{name}: {kernel} never launched")
+        rows[row] = rows.get(row, True) and not syncs
+        what = (f"allowlisted sync in {allowed[1]} ({allowed[0]}): "
+                f"{f'synced at {syncs[0]}' if syncs else 'did not sync'}"
+                if allowed else "sync-free")
+        phase("analysis", f"{name}: {what} under \"{mode}\" (hot: "
+                          f"{scopes}); {kernel} launched {launched}; {card}")
+    return rows
+
+
 def measure(errs: dict, launches: dict, int_ops_per_s: float,
             slab: int) -> list:
     """Phase 7: ms per launch of each kernel at its main-path shape, the
@@ -6174,6 +6377,7 @@ def main() -> int:
     check_session_kernels(errs)
     check_ring_kernels(errs)
     diffs_launches = check_diffs()
+    sync_free = analysis_phase(card)
     (REPO / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as d:
         tmp = pathlib.Path(d)
@@ -6234,6 +6438,9 @@ def main() -> int:
         phase("chaos", f"{time.perf_counter() - t_chaos:.1f} s for the "
               "phase")
     for row in kernels:
+        # Whether every hot entry of phase `analysis` that launches the
+        # row's kernel ran without a host sync (null: none launches it).
+        row["sync_free"] = sync_free.get(row["name"])
         # Launches of the watched phases (one a turn), of `diffs` and of
         # the visualised CLI runs.
         row["watched_launches"] = watched.get(row["name"])

@@ -170,7 +170,7 @@ def _mesh_stepper(name: str, rule, devices: list, height: int, width: int,
             f"and columns on {AXIS_COLS!r}; the table gives {array!r} "
             f"the spec {sharding.spec}"
         )
-    diff_sharding = partition.Sharding(mesh, full[-2:])
+    diff_sharding = partition.named_sharding(mesh, full[-2:])
     # One copy of each block counts: the cells at index 0 of every mesh
     # axis the world is not split on.
     owners = [r * cols + c for r, c in sharding.cells()

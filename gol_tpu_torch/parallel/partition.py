@@ -224,6 +224,13 @@ class Sharding:
         return out
 
 
+def named_sharding(mesh: Mesh, axes: tuple) -> Sharding:
+    """``Sharding`` constructor for the parallel layer, monopolized here
+    (the partition-spec lint flags construction anywhere else), as
+    gol_tpu's ``partition.named_sharding``."""
+    return Sharding(mesh, tuple(axes))
+
+
 class Sharded:
     """A world placed on a mesh: `parts[r * cols + c]` is mesh cell
     (r, c)'s block, on that cell's device; `shape` is the global layout

@@ -52,7 +52,9 @@ def test_scan_covers_every_port_module():
     replay plane (log, recorder, server), the broadcast tier (relay
     node, WebSocket gateway), the telemetry planes (scrape, console,
     tsdb, collector, report, canary), the fleet controller (spec,
-    manifest, controller) and chip_smoke.py among them; the native
+    manifest, controller), the static analysis plane (core, torchlint,
+    the CLI, the eight checks, the concurrency passes, the corpus
+    runner) and chip_smoke.py among them; the native
     core's directory holds its sources only (it builds under
     build/gol_tpu_torch/)."""
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
@@ -86,6 +88,24 @@ def test_scan_covers_every_port_module():
                  "gol_tpu_torch/testing/faults.py",
                  "gol_tpu_torch/testing/leaks.py",
                  "gol_tpu_torch/analysis/concurrency/lockcheck.py",
+                 "gol_tpu_torch/analysis/core.py",
+                 "gol_tpu_torch/analysis/torchlint.py",
+                 "gol_tpu_torch/analysis/__main__.py",
+                 "gol_tpu_torch/analysis/checks/__init__.py",
+                 "gol_tpu_torch/analysis/checks/host_sync.py",
+                 "gol_tpu_torch/analysis/checks/tracer_branch.py",
+                 "gol_tpu_torch/analysis/checks/recompile.py",
+                 "gol_tpu_torch/analysis/checks/dtype_drift.py",
+                 "gol_tpu_torch/analysis/checks/donation.py",
+                 "gol_tpu_torch/analysis/checks/obs_in_jit.py",
+                 "gol_tpu_torch/analysis/checks/blocking_io.py",
+                 "gol_tpu_torch/analysis/checks/partition_spec.py",
+                 "gol_tpu_torch/analysis/concurrency/graph.py",
+                 "gol_tpu_torch/analysis/concurrency/lock_order.py",
+                 "gol_tpu_torch/analysis/concurrency/lock_blocking.py",
+                 "gol_tpu_torch/analysis/concurrency/guarded_field.py",
+                 "gol_tpu_torch/analysis/concurrency/ownership.py",
+                 "gol_tpu_torch/analysis/concurrency/corpus.py",
                  "gol_tpu_torch/obs/accounting.py",
                  "gol_tpu_torch/sessions/__init__.py",
                  "gol_tpu_torch/sessions/manager.py",
