@@ -5672,6 +5672,10 @@ SYNC_ENTRIES = (
     ("tiled 16384², T = 1024 step_n (A batched, 32 turns)",
      "bitlife_resident_batch", "bitlife_resident", "(none: a method)",
      ("gol_tpu_torch/parallel/tiled.py", "TiledStepper._step_slab")),
+    ("engine fused chunk with its chunk clock (B 2-D entry, 32 turns)",
+     "bitlife_tiled", "bitlife_tiled",
+     "ChunkClock.{drained,begin,end,poll,run_ahead}, "
+     "_packed_state_stepper._step_n", None),
 )
 
 
@@ -5687,6 +5691,7 @@ def sync_calls() -> list:
     (the puts run here, outside the sync-debug window)."""
     import torch
 
+    from gol_tpu_torch.engine.distributor import ChunkClock, _cuda_timing
     from gol_tpu_torch.models.rules import get_rule
     from gol_tpu_torch.ops import bitlife, life
     from gol_tpu_torch.ops import cuda_bitlife as cb
@@ -5725,6 +5730,21 @@ def sync_calls() -> list:
                             for i in range(64)])
     rworld = ring.put(life.random_world(512, 512, seed=3))
     tworld = tiled.put(soup_world(16384))
+    # The engine's fused chunk as the engine times it: an anchor, the
+    # chunk between its two timing events, then the poll that reads the
+    # previous call's complete chunk and the run-ahead.
+    clock = ChunkClock(*_cuda_timing(p16k))
+    turns = iter(range(32, 1 << 30, 32))
+
+    def clocked():
+        clock.drained()
+        clock.begin()
+        out = life16k.step_n(p16k, 32)
+        clock.end(next(turns), 32)
+        clock.poll()
+        clock.run_ahead()
+        return out
+
     return [lambda: life512.step_n(p512, 64),
             lambda: life16k.step_n(p16k, 32),
             lambda: gens512.step_n(g512, 64),
@@ -5733,7 +5753,8 @@ def sync_calls() -> list:
             lambda: cb.step_n_packed_batch_cuda_raw(slab, 32),
             lambda: bucket.step_n(stack, 16),
             lambda: ring.step_n(rworld, 64),
-            lambda: tiled.step_n(tworld, 32)]
+            lambda: tiled.step_n(tworld, 32),
+            clocked]
 
 
 def sync_site(frames) -> str:

@@ -37,7 +37,11 @@ A caller may inject the stepper (an instrumented or invariant-checked
 one, say), the IO service and a `utils.trace.Timeline`, which records
 one span per dispatch; with a Timeline attached each fused chunk's
 count is realized, so its span measures device time — the observer tax
-is opt-in, and a run without one adds no synchronisation.
+is opt-in, and a run without one adds no synchronisation. Without one,
+a `ChunkClock` times each fused chunk on the card by two CUDA events,
+read only once the card has passed them, on the stream the world's
+kernels launch on; the waits the engine thread does make (`_drain`)
+and the calibration's part of the set-up are counted beside it.
 
 Serving hooks (`gol_tpu_torch.distributed.server`): `health()` reads
 host state only, and `request_board_sync` asks the engine thread for a
@@ -51,7 +55,10 @@ Not ported yet: the sharded steppers' redo entries.
 from __future__ import annotations
 
 import atexit
+import collections
 import contextlib
+import functools
+import inspect
 import queue
 import threading
 import time
@@ -132,6 +139,28 @@ def _host_array(t, started=None) -> np.ndarray:
         t = t.cpu().numpy()
     t = np.ascontiguousarray(t)
     return t.view(np.uint32) if t.dtype == np.int32 else t
+
+
+def _cuda_timing(world) -> tuple:
+    """(a factory of CUDA events with timing, the stream the world's
+    kernels launch on: the current stream of its card) when `world`
+    lives on a CUDA card, else (None, None)."""
+    dev = getattr(world, "device", None)
+    if getattr(dev, "type", None) != "cuda":
+        return None, None
+    import torch
+
+    return (functools.partial(torch.cuda.Event, enable_timing=True),
+            torch.cuda.current_stream(dev))
+
+
+def _takes_census(step_n) -> bool:
+    """Whether `step_n` leaves its memory census to the caller when
+    asked (`census=False`: the instrumented stepper's entry)."""
+    try:
+        return "census" in inspect.signature(step_n).parameters
+    except (TypeError, ValueError):
+        return False
 
 
 def _charge_legacy(seconds: float, turns: int) -> None:
@@ -272,9 +301,191 @@ class _EngineMetrics:
             "gol_tpu_engine_skipped_turns_total",
             "Turns collapsed by the exact cycle fast-forward",
         )
+        self.drain_seconds = obs.counter(
+            "gol_tpu_engine_thread_seconds",
+            "Seconds the engine thread spent in a phase: drain = blocked "
+            "realising a count or fetching a board (the calibration's "
+            "realisations too); the census has its own counter, "
+            "gol_tpu_device_census_seconds",
+            {"phase": "drain"},
+        )
 
 
 _METRICS = _EngineMetrics()
+
+
+def _setup_calibrate(wall: float, seconds: float) -> None:
+    """The auto-chunk calibration's part of the engine's set-up, from
+    its first measurement to convergence:
+    `gol_tpu_engine_setup_seconds{phase="calibrate"}`, made on its first
+    use so a run that never calibrates shows no series, and an
+    `engine.setup` span. (The board's upload is the stepper's `put`
+    span, the first chunk the first `engine.drain{kind=calibrate}`.)"""
+    if not obs.enabled():
+        return
+    obs.counter("gol_tpu_engine_setup_seconds",
+                "Seconds of the engine's set-up by phase: calibrate (the "
+                "auto-chunk measurements)",
+                {"phase": "calibrate"}).inc(seconds)
+    tracing.add_span("engine.setup", "engine", wall, seconds,
+                     {"phase": "calibrate"})
+
+
+#: Most fused chunks whose timing events may be outstanding at once;
+#: past it a chunk records none (`gol_tpu_engine_chunk_events_skipped_
+#: total`). The calibration's 64-turn chunks can queue hundreds.
+CHUNK_CLOCK_CAP = 64
+
+
+class _Chunk:
+    """One fused chunk whose timing events are outstanding."""
+
+    __slots__ = ("start", "end", "turn", "turns", "after", "anchor")
+
+    def __init__(self, start, end, turn, turns, after, anchor):
+        self.start, self.end = start, end
+        self.turn, self.turns = turn, turns
+        self.after, self.anchor = after, anchor
+
+
+class ChunkClock:
+    """The fused chunks' intervals on the card, by timing events (CUDA
+    events with `enable_timing`; the tests pass fakes): one recorded
+    before a chunk's first launch and one after its last, drawn from a
+    pool of reused events, every one recorded on `stream` (the stream the
+    world's kernels launch on; None: the current one). Nothing here
+    waits for the card: `poll` queries the oldest outstanding chunks in
+    order and reads `elapsed_time` only of events already complete. For
+    each complete chunk it notes its device seconds per turn
+    (`seconds_per_turn`) and observes
+
+    - the card's idle gap since the chunk before it
+      (`gol_tpu_engine_device_gap_seconds{after}`), labelled by what the
+      engine thread did between the two enqueues: `drain` (it waited out
+      the queue), else `census`, else `enqueue`; only between chunks
+      whose turns follow on, so work between them on another path, or a
+      chunk that recorded no events, makes no gap;
+    - once an anchor precedes it, an `engine.dispatch` span (kind
+      "chunk") on the tracer's `device` track, its interval on the card
+      mapped onto the tracer's wall clock.
+
+    An anchor is an event recorded right after a drain, when the queue
+    is empty, beside `time.time()`: the card reaches it at that wall
+    instant, so a later event's wall time is the anchor's plus the
+    `elapsed_time` between them. `run_ahead` turns the outstanding turns
+    into seconds of queued card work. Per chunk and per drain, never per
+    launch; the engine keeps none while the registry is off."""
+
+    def __init__(self, new_event, stream=None,
+                 cap: int = CHUNK_CLOCK_CAP):
+        self._new_event = new_event
+        self._stream = stream
+        self.cap = cap
+        self._free: list = []
+        self._out: collections.deque = collections.deque()
+        self._out_turns = 0
+        #: (end event, end turn) of the newest complete chunk.
+        self._prev = None
+        #: (event, wall seconds) of the newest drain.
+        self._anchor = None
+        self._after = "enqueue"
+        self._start = None
+        #: Device seconds per turn of the newest complete chunk.
+        self.seconds_per_turn: Optional[float] = None
+        self._gap_s = {a: obs.counter(
+            "gol_tpu_engine_device_gap_seconds",
+            "Seconds the card idled between two fused chunks, by what "
+            "the engine thread did between their enqueues",
+            {"after": a}) for a in ("drain", "census", "enqueue")}
+        self._ahead_s = obs.histogram(
+            "gol_tpu_engine_run_ahead_seconds",
+            "Card seconds queued ahead of the host at a fused boundary: "
+            "turns enqueued and not yet complete times the newest "
+            "complete chunk's device seconds per turn")
+        self._skipped = obs.counter(
+            "gol_tpu_engine_chunk_events_skipped_total",
+            "Fused chunks that recorded no timing events, the "
+            "outstanding list being full")
+
+    def _recorded(self, event=None):
+        """`event` (else one from the pool) recorded on the stream."""
+        if event is None:
+            event = self._free.pop() if self._free else self._new_event()
+        event.record(self._stream)
+        return event
+
+    def drained(self) -> None:
+        """The engine thread has waited out the launch queue: the next
+        gap is a drain's, and a fresh anchor is recorded."""
+        self._after = "drain"
+        self._anchor = (self._recorded(self._new_event()), time.time())
+
+    def census(self) -> None:
+        """A census ran since the last chunk's enqueue."""
+        if self._after == "enqueue":
+            self._after = "census"
+
+    def begin(self) -> None:
+        """Before a chunk's first launch."""
+        if len(self._out) >= self.cap:
+            self._start = None
+            self._skipped.inc()
+            return
+        self._start = self._recorded()
+
+    def end(self, turn: int, turns: int) -> bool:
+        """After the last launch of the chunk that ends at `turn`.
+        True when the chunk's `engine.dispatch` span will follow: it
+        recorded its events and an anchor dates them."""
+        timed = self._start is not None
+        if timed:
+            self._out.append(_Chunk(self._start, self._recorded(), turn,
+                                    turns, self._after, self._anchor))
+            self._out_turns += turns
+            self._start = None
+        self._after = "enqueue"
+        return timed and self._anchor is not None
+
+    def poll(self) -> None:
+        """Account every complete chunk at the head of the outstanding
+        list, oldest first."""
+        while self._out and self._out[0].end.query():
+            c = self._out.popleft()
+            self._out_turns -= c.turns
+            dev = c.start.elapsed_time(c.end) / 1e3
+            self.seconds_per_turn = dev / c.turns
+            prev = self._prev
+            if prev is not None and prev[1] == c.turn - c.turns:
+                gap = prev[0].elapsed_time(c.start) / 1e3
+                self._gap_s[c.after].inc(max(gap, 0.0))
+            if c.anchor is not None:
+                event, wall = c.anchor
+                tracing.add_span(
+                    "engine.dispatch", "engine",
+                    wall + event.elapsed_time(c.start) / 1e3, dev,
+                    {"kind": "chunk", "turn": c.turn, "turns": c.turns},
+                    tid=tracing.DEVICE_TID)
+            if prev is not None:
+                self._free.append(prev[0])
+            self._free.append(c.start)
+            self._prev = (c.end, c.turn)
+
+    def run_ahead(self) -> None:
+        """At a fused boundary, after the enqueue: the card seconds
+        queued, the turns enqueued and not yet complete (the oldest
+        outstanding chunk, once the card has started it and an anchor
+        dates its start, less the turns it has done since) times the
+        newest complete chunk's seconds per turn."""
+        spt = self.seconds_per_turn
+        if spt is None or not self._out:
+            return
+        turns = float(self._out_turns)
+        head = self._out[0]
+        if head.anchor is not None and head.start.query():
+            event, wall = head.anchor
+            began = wall + event.elapsed_time(head.start) / 1e3
+            turns -= min(head.turns, max(0.0, (time.time() - began) / spt))
+        self._ahead_s.observe(turns * spt)
 
 
 class EventQueue:
@@ -513,6 +724,16 @@ class Engine:
         # True while a diff chunk's per-turn rows are being emitted.
         self._emitting = False
         self._last_diff_span_end = 0.0
+        #: Zero-argument factory of the timing events the fused chunks'
+        #: ChunkClock records; None: CUDA events with timing, when the
+        #: world lives on a CUDA card (tests inject fakes here).
+        self.timing_event = None
+        # The fused chunks' ChunkClock, set up in _run (None without a
+        # timing event, or with a Timeline, which realises every chunk).
+        self._clock: Optional[ChunkClock] = None
+        # True when the fused path takes the stepper's memory census
+        # itself, after the chunk's closing event (set up in _run).
+        self._census_here = False
 
     # --- public api ---
 
@@ -629,6 +850,12 @@ class Engine:
         ticker.start()
 
         world = self.stepper.put(host_world)
+        new_event, stream = _cuda_timing(world)
+        new_event = self.timing_event or new_event
+        if (new_event is not None and self.timeline is None
+                and obs.enabled()):
+            self._clock = ChunkClock(new_event, stream)
+            self._census_here = _takes_census(self.stepper.step_n)
 
         self._seed_gens_states(host_world)
 
@@ -668,6 +895,8 @@ class Engine:
         # realizations below are the only synchronisations.
         chunk = 64 if p.chunk == 0 else p.chunk
         cal = {"phase": "warm", "since": self.start_turn} if p.chunk == 0 else None
+        # (wall, perf_counter) when the first measurement began.
+        cal_began = None
         self.effective_chunk = chunk
 
         turn = self.start_turn
@@ -739,13 +968,20 @@ class Engine:
                     # Calibration only advances on an undisturbed engine.
                     if cal["phase"] == "warm":
                         if turn > cal["since"]:
-                            _realize(self._committed[2])  # build + 1st chunk
+                            # The kernel build and the first chunk.
+                            self._drain("calibrate", _realize,
+                                        self._committed[2])
+                            if cal_began is None:
+                                cal_began = (time.time(),
+                                             time.perf_counter())
                             cal = {"phase": "measure", "since": turn,
                                    "t0": time.monotonic(),
                                    "deadline": time.monotonic() + 0.3,
                                    "retries": cal.get("retries", 0)}
                     elif time.monotonic() >= cal["deadline"]:
-                        _realize(self._committed[2])  # drain the queue
+                        # Drain the queue.
+                        self._drain("calibrate", _realize,
+                                    self._committed[2])
                         elapsed = time.monotonic() - cal["t0"]
                         retries = cal.get("retries", 0)
                         if elapsed > 1.5:
@@ -764,6 +1000,9 @@ class Engine:
                                        "retries": retries + 1}
                             else:
                                 cal = None  # converged
+                                _setup_calibrate(
+                                    cal_began[0],
+                                    time.perf_counter() - cal_began[1])
                 # An attached per-turn consumer caps the dispatch size
                 # (bounded TurnComplete bursts, sub-second verb response).
                 emit_now = self.emit_turns
@@ -773,14 +1012,35 @@ class Engine:
                     k = max(1, min(
                         k, self._autosave_turn + p.autosave_turns - turn
                     ))
+                clock = self._clock if obs.enabled() else None
+                spanned = False
                 tick = time.perf_counter()
                 with device.cause("fused-chunk"):
-                    world, count = self.stepper.step_n(world, k)
+                    if clock is None:
+                        world, count = self.stepper.step_n(world, k)
+                    elif self._census_here:
+                        # The stepper's census runs after the chunk's
+                        # closing event, so its stall shows between
+                        # chunks on the card, labelled as a census's.
+                        clock.begin()
+                        world, count = self.stepper.step_n(world, k,
+                                                           census=False)
+                        spanned = clock.end(turn + k, k)
+                        if device.observe_memory(
+                                getattr(world, "device", None)) is not None:
+                            clock.census()
+                    else:
+                        clock.begin()
+                        world, count = self.stepper.step_n(world, k)
+                        spanned = clock.end(turn + k, k)
                 device.observe_split(enqueue_s=time.perf_counter() - tick)
                 _METRICS.dispatches["chunk"].inc()
                 _METRICS.turns["chunk"].inc(k)
                 _METRICS.effective_chunk.set(self.effective_chunk)
                 _charge_legacy(time.perf_counter() - tick, k)
+                if clock is not None:
+                    clock.poll()
+                    clock.run_ahead()
                 if self.timeline:
                     _realize(count)  # spans measure true device time
                     elapsed = time.perf_counter() - tick
@@ -793,10 +1053,10 @@ class Engine:
                                      {"kind": "chunk", "turn": turn + k,
                                       "turns": k})
                     self.timeline.record(turn + k, k, elapsed, "chunk")
-                else:
-                    # An instant mark, not a measured span: timing the
-                    # chunk would need a realization, the observer tax
-                    # this path avoids.
+                elif not spanned:
+                    # An instant mark where no clock span will follow (no
+                    # timing events, a chunk past the cap, no anchor yet):
+                    # timing the chunk here would need a realization.
                     tracing.event("engine.dispatch", "engine",
                                   kind="chunk", turn=turn + k, turns=k)
                 first = turn + 1
@@ -829,6 +1089,8 @@ class Engine:
         self._ticker_stop.set()
         self._last_pair = (turn, _realize(self._committed[2]))
         _METRICS.alive_cells.set(self._last_pair[1])
+        if self._clock is not None and obs.enabled():
+            self._clock.poll()  # the card has passed every chunk
         # Serve a sync request that arrived during the last dispatch
         # BEFORE the tail events are queued, so a just-attached
         # subscriber gets its BoardSync and then the final events.
@@ -1455,6 +1717,22 @@ class Engine:
         # of the committed turn — this line is that contract.
         flight.note("engine.commit", turn=turn)
 
+    def _drain(self, kind: str, fn, *args) -> tuple:
+        """(fn(*args), seconds) for a call that waits out the launch
+        queue (a count realised, a board fetched): its seconds go to
+        `gol_tpu_engine_thread_seconds{phase="drain"}` and an
+        `engine.drain` span of `kind` ("count", "sync", "calibrate"),
+        and the chunk clock learns that the queue is empty."""
+        wall, tick = time.time(), time.perf_counter()
+        out = fn(*args)
+        seconds = time.perf_counter() - tick
+        _METRICS.drain_seconds.inc(seconds)
+        tracing.add_span("engine.drain", "engine", wall, seconds,
+                         {"kind": kind})
+        if self._clock is not None and obs.enabled():
+            self._clock.drained()
+        return out, seconds
+
     def _service_requests(self) -> None:
         """Engine thread: answer all pending cross-thread requests from
         the COMMITTED world (never the in-flight diff chunk's): a count
@@ -1473,12 +1751,13 @@ class Engine:
             return
         turn, world, count = self._committed
         if count is not None:
-            self._last_pair = (turn, _realize(count))
-            _METRICS.alive_cells.set(self._last_pair[1])
+            alive, _ = self._drain("count", _realize, count)
+            self._last_pair = (turn, alive)
+            _METRICS.alive_cells.set(alive)
         for kind, ev, box in reqs:
             if kind == "sync":
                 if world is not None and not self._finished.is_set():
-                    host = self.stepper.fetch(world)
+                    host, _ = self._drain("sync", self.stepper.fetch, world)
                     self._seed_gens_states(host)
                     self.events.put(BoardSync(turn, host, box["token"]))
                     if box["enable_flips"]:

@@ -12,10 +12,13 @@
 - `observe_split()` records a dispatch's device-vs-host time split;
 - `memory_census()` / `observe_memory()` read the CUDA caching
   allocator's statistics (bytes in use, live blocks, the device's
-  total memory) into gauges and a process-peak watermark;
+  total memory) into gauges and a process-peak watermark; each census
+  `observe_memory` runs is timed into `gol_tpu_device_census_seconds`
+  and a `device.census` span;
 - `start_profile()` / `stop_profile()` drive the opt-in
   `--profile-dir` capture with `torch.profiler` and export it as a
-  Chrome trace;
+  Chrome trace, with the span tracer's records of the capture's window
+  on its clock;
 - `device_budget()`, `tile_ext_bytes()`, `max_resident_tiles()` and
   `fits()` answer capacity questions from arithmetic alone — the tiled
   stepper's slab bound and the capacity answer price one per-slot
@@ -42,6 +45,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import json
 import os
 import threading
 import time
@@ -293,6 +297,12 @@ _WATERMARK = obs.gauge(
     "caching allocator's allocated bytes at each census)",
 )
 
+_CENSUS_SECONDS = obs.counter(
+    "gol_tpu_device_census_seconds",
+    "Seconds the calling threads spent in the memory censuses that "
+    "observe_memory ran",
+)
+
 _census_lock = threading.Lock()
 _last_census = 0.0
 _peak_bytes = 0.0
@@ -340,20 +350,28 @@ def memory_census(dev=None) -> dict:
     }
 
 
-def observe_memory(dev=None, min_interval: float = 0.5) -> None:
+def observe_memory(dev=None, min_interval: float = 0.5) -> Optional[float]:
     """Rate-limited census for dispatch boundaries: the instrumented
     stepper calls this once per multi-turn dispatch; the census itself
     runs at most every `min_interval` seconds, so a fast fused run pays
-    one clock read per dispatch and two censuses per second."""
+    one clock read per dispatch and two censuses per second. Each
+    census that runs adds its seconds to
+    `gol_tpu_device_census_seconds` and records a `device.census` span;
+    returns those seconds, or None when no census ran."""
     global _last_census
     if not obs.enabled():
-        return
+        return None
     now = time.monotonic()
     if now - _last_census < min_interval:
-        return
+        return None
     _last_census = now
+    wall, t0 = time.time(), time.perf_counter()
     with contextlib.suppress(Exception):
         memory_census(dev)
+    dt = time.perf_counter() - t0
+    _CENSUS_SECONDS.inc(dt)
+    tracing.add_span("device.census", "device", wall, dt)
+    return dt
 
 
 # --- capacity estimation -------------------------------------------------
@@ -496,7 +514,8 @@ def fits(height: int, width: int, *, sessions: int = 1,
 
 # --- profiler driver (--profile-dir) -------------------------------------
 
-_profile: Optional[tuple] = None  # (torch.profiler.profile, directory)
+#: (torch.profiler.profile, directory, wall seconds at its start)
+_profile: Optional[tuple] = None
 _profile_lock = threading.Lock()
 
 
@@ -544,7 +563,7 @@ def start_profile(directory: str, cuda: Optional[bool] = None) -> bool:
         except Exception as e:
             flight.note("device.profile_failed", error=repr(e))
             return False
-        _profile = (prof, str(directory))
+        _profile = (prof, str(directory), time.time())
     tracing.set_metadata("profile_dir", str(directory))
     tracing.event("device.profile", "device", dir=str(directory))
     flight.note("device.profile", dir=str(directory))
@@ -553,20 +572,54 @@ def start_profile(directory: str, cuda: Optional[bool] = None) -> bool:
 
 
 def stop_profile() -> Optional[str]:
-    """Stop the capture and export it as `<dir>/trace-<pid>.json`;
-    returns that path (None when no capture ran). Idempotent."""
+    """Stop the capture and export it as `<dir>/trace-<pid>.json`, with
+    the span tracer's records of the capture's window appended
+    (`_append_spans`); returns that path (None when no capture ran).
+    Idempotent."""
     global _profile
     with _profile_lock:
         if _profile is None:
             return None
-        prof, directory = _profile
+        prof, directory, t_start = _profile
         _profile = None
         prof.stop()
+        t_stop = time.time()
         os.makedirs(directory, exist_ok=True)
         path = os.path.join(directory, f"trace-{os.getpid()}.json")
         prof.export_chrome_trace(path)
+        _append_spans(path, t_start, t_stop)
     flight.note("device.profile_stopped", path=path)
     return path
+
+
+def _append_spans(path: str, t_start: float, t_stop: float) -> None:
+    """Append to the exported capture at `path` the span tracer's
+    records that overlap [t_start, t_stop] (wall seconds), on the
+    capture's clock: the profiler's `ts` is wall time less its
+    `baseTimeNanoseconds`, so a record at wall `w` lands at
+    `w * 1e6 - base / 1e3` µs. The records keep their thread ids, each
+    named by a `thread_name` record (`gol-engine`, `gol-ticker`,
+    `device` for the card's chunk intervals, ...), so one file shows the
+    kernels beside the engine's drains, censuses and enqueues."""
+    spans = tracing.TRACER.chrome_trace()["traceEvents"]
+    with open(path) as f:
+        trace = json.load(f)
+    base_us = trace.get("baseTimeNanoseconds", 0) / 1e3
+    lo, hi = t_start * 1e6, t_stop * 1e6
+    events = trace.setdefault("traceEvents", [])
+    tids = set()
+    for ev in spans:
+        if ev["ph"] == "M" or ev["ts"] + ev.get("dur", 0.0) < lo \
+                or ev["ts"] > hi:
+            continue
+        events.append({**ev, "ts": ev["ts"] - base_us})
+        tids.add(ev["tid"])
+    names = tracing.TRACER.thread_names
+    events.extend({"name": "thread_name", "ph": "M", "pid": os.getpid(),
+                   "tid": tid, "args": {"name": names.get(tid, str(tid))}}
+                  for tid in sorted(tids))
+    with open(path, "w") as f:
+        json.dump(trace, f)
 
 
 def profile_window(name: str):

@@ -61,6 +61,7 @@ from gol_tpu_torch.obs.registry import atomic_write_text
 _registry = importlib.import_module("gol_tpu_torch.obs.registry")
 
 __all__ = [
+    "DEVICE_TID",
     "TRACER",
     "Tracer",
     "add_span",
@@ -77,6 +78,11 @@ __all__ = [
 #: distributed session (a watched 512² run records a handful of spans
 #: per turn) in a few MB of tuples.
 DEFAULT_CAPACITY = 65_536
+
+#: The thread id of the `device` track: spans of work on the card (the
+#: engine's fused chunks, timed by CUDA events) rather than of a host
+#: thread. No thread's `threading.get_ident()` is this small.
+DEVICE_TID = 1
 
 
 class _NullSpan:
@@ -147,6 +153,11 @@ class Tracer:
         #: the device plane's profile-capture directory) — merged
         #: reports surface them next to the timeline.
         self.extra_metadata: dict = {}
+        #: Thread id -> the name of the newest thread that recorded
+        #: under it ("device" for DEVICE_TID), kept past the thread's
+        #: end so an export after the run can still label its track.
+        self.thread_names: dict = {DEVICE_TID: "device"}
+        self._local = threading.local()
 
     # -- writers (hot path) --
 
@@ -157,18 +168,28 @@ class Tracer:
             # deque; the losing one's record lands in the winner's ring
             # on its next append at worst — bounded-loss, lock-free.
             ring = self._ring = collections.deque(maxlen=self.capacity)
+        if not hasattr(self._local, "named"):
+            # A thread's first record names its id (ids are reused, so
+            # the newest thread under an id names it).
+            self._local.named = True
+            self.thread_names[threading.get_ident()] = (
+                threading.current_thread().name)
         self._recorded += 1
         ring.append(record)
 
     def add_span(self, name: str, cat: str, ts: float, dur: float,
-                 args: Optional[dict] = None) -> None:
+                 args: Optional[dict] = None,
+                 tid: Optional[int] = None) -> None:
         """Record one completed span: `ts` wall seconds at start,
-        `dur` seconds. For callers that already measured (the engine's
-        dispatch bookkeeping) — `span()` is the measuring form."""
+        `dur` seconds, on the calling thread's track or on `tid`'s
+        (DEVICE_TID: the card's). For callers that already measured
+        (the engine's dispatch bookkeeping) — `span()` is the measuring
+        form."""
         if not _registry._ENABLED:
             return
         self._rec(("X", name, cat, ts, dur,
-                   threading.get_ident(), args or None))
+                   threading.get_ident() if tid is None else tid,
+                   args or None))
 
     def add_event(self, name: str, cat: str, ts: Optional[float] = None,
                   args: Optional[dict] = None) -> None:
@@ -269,8 +290,8 @@ def event(name: str, cat: str = "", **args) -> None:
 
 
 def add_span(name: str, cat: str, ts: float, dur: float,
-             args: Optional[dict] = None) -> None:
-    TRACER.add_span(name, cat, ts, dur, args)
+             args: Optional[dict] = None, tid: Optional[int] = None) -> None:
+    TRACER.add_span(name, cat, ts, dur, args, tid)
 
 
 def set_clock_offset(offset_seconds: float) -> None:

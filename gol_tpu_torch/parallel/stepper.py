@@ -1242,7 +1242,7 @@ def instrument_stepper(s: Stepper, price: Optional[dict] = None) -> Stepper:
                                                                   out))
         return out
 
-    def step_n(world, k):
+    def step_n(world, k, census=True):
         dispatches["step_n"].inc()
         cost = _charge_halo(world, int(k), False)
         wall0 = time.time()
@@ -1254,8 +1254,11 @@ def instrument_stepper(s: Stepper, price: Optional[dict] = None) -> Stepper:
             halo_seconds.observe(dt)
         _span("step_n", wall0, dt, cost)
         # Memory census at the dispatch boundary (rate-limited inside):
-        # the watermark tracks every dispatching run.
-        obs_device.observe_memory(getattr(world, "device", None))
+        # the watermark tracks every dispatching run. A caller that
+        # takes it itself (the engine's timed fused chunk, after its
+        # closing event) passes census=False.
+        if census:
+            obs_device.observe_memory(getattr(world, "device", None))
         return out
 
     def _diffy(entry, fn):
