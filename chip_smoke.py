@@ -562,9 +562,15 @@ def check_kernels(errs: dict) -> None:
                         f"bitlife_resident {h}x{w} n={n} {rule}: mismatch")
                 checked += 1
         # Kernel B's seams: tile shapes, the deepest halo (768-column
-        # tiles, more column walkers than threads) and a ragged board
-        # (its last tile 160 of 256 columns), the last two at 4096² only.
-        for h, w in ((4096, 4096), (16384, 16384), (4096, 4000)):
+        # tiles, 192 strips x 3 segments) and a ragged board (its last
+        # tile 160 of 256 columns), the last two at 4096² only; for
+        # B3/S23, whose strip walkers pad the tile's pitch to whole
+        # strips of 4 columns, also the benchmark's 5120² and a 4096 x
+        # 131 board (195 extended columns, 643 at h = 8: padded).
+        boards = [(4096, 4096), (16384, 16384), (4096, 4000)]
+        if rule == rules[0]:
+            boards += [(5120, 5120), (4096, 131)]
+        for h, w in boards:
             side = f"{h}x{w}"
             p = board(h, w)
             variants = [
@@ -576,7 +582,7 @@ def check_kernels(errs: dict) -> None:
                     ("tiled2d", {"tile_rows": 8}, 32),
                     ("tiled", {"strip_rows": 8, "halo_words": 2}, 64),
                 ]
-            if h == 4096 and w == h:
+            if h == 4096 and w in (4096, 131):
                 variants.append(("tiled", {"strip_rows": 8, "halo_words": 8},
                                  256))
             want = plain_turns(
@@ -6251,7 +6257,7 @@ def ab_time(root: str) -> dict:
     def planes(rule, side):
         return gens_planes(rule, side, side, torch.Generator().manual_seed(3))
 
-    x, p = board(16384), board(512)
+    x, x5, p = board(16384), board(5120), board(512)
     q, q4 = planes(brain, 16384), planes(star_wars, 16384)
     r, r4 = planes(brain, 512), planes(star_wars, 512)
     w, big = (torch.from_numpy(life.random_world(side, side, seed=1)).cuda()
@@ -6260,6 +6266,8 @@ def ab_time(root: str) -> dict:
         "package": str(pathlib.Path(cb.__file__).resolve().parents[2]),
         "A B3/S23": time_ms(lambda: cb.step_n_packed_cuda_raw(p, 64), 20),
         "B B3/S23": time_ms(lambda: cb.step_n_packed_tiled2d_raw(x, 32), 20),
+        "B B3/S23 5120x5120": time_ms(
+            lambda: cb.step_n_packed_tiled2d_raw(x5, 32), 200),
         "B B36/S23": time_ms(
             lambda: cb.step_n_packed_tiled2d_raw(x, 32, highlife), 20),
         "C B2/S/C3": time_ms(
@@ -6289,8 +6297,9 @@ def ab_time(root: str) -> dict:
 def sass(library: str) -> dict:
     """{kernel instantiation: its SASS} of a built library, by the CUDA
     toolkit's `cuobjdump`, with the per-build hash of anonymous
-    namespaces taken out of the names, so that two builds of one source
-    compare equal."""
+    namespaces and the parameter list taken out of the names, so that
+    two builds of one source compare equal, and an instantiation whose
+    parameter types changed is compared with its old self."""
     tool = pathlib.Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda")
     out = subprocess.run([str(tool / "bin" / "cuobjdump"), "-sass", library],
                          capture_output=True, text=True, check=True).stdout
@@ -6298,17 +6307,39 @@ def sass(library: str) -> dict:
     funcs, name = {}, None
     for ln in out.splitlines():
         if "Function : " in ln:
-            name = ln.split("Function : ", 1)[1].strip()
+            name = re.sub(r"EEv.*$", "EE",
+                          ln.split("Function : ", 1)[1].strip())
             funcs[name] = []
         elif name:
             funcs[name].append(ln.strip())
     return funcs
 
 
-def ab(other: str, card: str) -> int:
+#: Kernel B's 32-turn passes of `ab_time`: (key, packed rows, width).
+AB_TILED = (("B B3/S23", 512, 16384), ("B B3/S23 5120x5120", 160, 5120))
+
+
+def word_turn_slots(ms: float, rows: int, width: int, turns: int,
+                    int_ops_per_s: float, sms: int) -> float:
+    """Issue slots kernel B spends a word of its extended tiles a turn: a
+    pass of `ms` at the card's INT32 rate on the SMs its blocks hold (all
+    of them once the grid has as many blocks as the card has SMs) over
+    the extended words (the 2-D entry's tiles with their ghost frame)
+    times `turns`."""
+    from gol_tpu_torch.ops import cuda_bitlife as cb
+
+    g = cb._tiled2d_geometry(rows, width, None)
+    blocks = -(-rows // g.tile_rows) * -(-width // g.tile_cols)
+    words = blocks * (g.tile_rows + 2 * g.halo) * (g.tile_cols + 2 * g.ghost)
+    return (ms * 1e-3 * int_ops_per_s * min(blocks, sms) / sms
+            / (words * turns))
+
+
+def ab(other: str, card: str, int_ops_per_s: float, sms: int) -> int:
     """`--ab OTHER`: `ab_time` of the other checkout and of this one in
     the order other, this, this, other; then each kernel's mean per
-    checkout and this one's ratio to the other's; then, for each kernel
+    checkout and this one's ratio to the other's, and kernel B's issue
+    slots a word-turn (`word_turn_slots`); then, for each kernel
     instantiation, whether the two builds compiled it to the same
     SASS."""
     times: dict = {}
@@ -6331,6 +6362,13 @@ def ab(other: str, card: str) -> int:
         theirs = sum(by_root[other]) / 2
         phase("ab", f"{k}: this {mine:.4f} ms, other {theirs:.4f} ms "
                     f"(means of two), ratio {mine / theirs:.4f}; {card}")
+    for k, rows, width in AB_TILED:
+        mine, theirs = (sum(times[k][root]) / 2 for root in (str(REPO), other))
+        slots = [word_turn_slots(ms, rows, width, 32, int_ops_per_s, sms)
+                 for ms in (mine, theirs)]
+        phase("ab", f"{k}: {slots[0]:.2f} issue slots a word-turn, other "
+                    f"{slots[1]:.2f} ({sms} SMs, INT32 peak "
+                    f"{int_ops_per_s / 1e12:.3f} Tops/s)")
     theirs, mine = sass(libraries[other]), sass(libraries[str(REPO)])
     for name in sorted(set(theirs) | set(mine)):
         same = ("same SASS" if theirs.get(name) == mine.get(name) else
@@ -6373,7 +6411,8 @@ def main() -> int:
                  f"{torch.version.cuda}; {sms} SMs at {clock_mhz:.0f} MHz max "
                  f"-> INT32 peak {int_ops_per_s / 1e12:.2f} Tops/s")
     if sys.argv[1:2] == ["--ab"]:
-        return ab(str(pathlib.Path(sys.argv[2]).resolve()), card)
+        return ab(str(pathlib.Path(sys.argv[2]).resolve()), card,
+                  int_ops_per_s, sms)
 
     # Phase 2: build.
     from gol_tpu_torch.ops import _build
@@ -6383,9 +6422,9 @@ def main() -> int:
             if "registers" in ln]
     phase("build", f"nvcc {_build.build_seconds:.2f} s -> "
                    f"{_build.library_path().name}; {regs}")
-    # The two instantiations of kernels A-E (ILi0E: A's, B's and E's
-    # B3/S23 and C's and D's B2/S/C3 column walkers, ILi1E: the run-time
-    # masks, E's table), registers and spills.
+    # The two instantiations of kernels A-E (ILi0E: A's and E's B3/S23
+    # and C's and D's B2/S/C3 column walkers, B's B3/S23 strip walkers,
+    # ILi1E: the run-time masks, E's table), registers and spills.
     for name in ("bitlife_resident", "bitlife_tiled", "bitgens_resident",
                  "bitgens_tiled", "life_dense"):
         phase("build", f"{name}: {kernel_resources(_build.build_log, name)}")

@@ -15,9 +15,9 @@
 //    the blocks refresh their ghost rows from their neighbours' edge
 //    rows through distributed shared memory (two cluster barriers, and
 //    two ghost word-rows of each of a block's two copies, a round). Each
-//    round runs kernel B's block body on the slab: B3/S23 by the column
-//    walkers (3 LDS, 1 STS and 20 LOP3/SHF a word-turn, plus the walk's
-//    index steps), every other rule by the run-time masks (9 LDS and
+//    round steps the slab: B3/S23 by the column walkers of walk.cuh (3
+//    LDS, 1 STS and 20 LOP3/SHF a word-turn, plus the walk's index
+//    steps), every other rule by kernel B's run-time masks (9 LDS and
 //    about 35 operations for the count, then the rule's mask loop). A
 //    board that no split into 2..8 slabs fits (one word-row, say) runs
 //    as one slab, its wrap the torus, with no ghost rows and no
@@ -37,38 +37,47 @@
 //    columns per side (toroidal indices modulo the board) into shared
 //    memory, runs n <= min(32*halo, ghost) turns there, and writes only
 //    the interior to a second buffer (other blocks read this tile's
-//    ghosts from the input). Light cone: the extended tile wraps onto
-//    itself, which feeds garbage into its outermost bit-row and column;
-//    the garbage advances one bit-row and one column per turn, so the
-//    interior stays exact for 32*halo turns vertically and `ghost`
-//    turns horizontally.
-//    Within a turn, column walkers (walk.cuh, shared with kernels A, C
-//    and D): a work item is one column of the extended tile and a
-//    segment of its word-rows; the walker keeps a 3x3 window of words in
-//    registers and walks down the segment, loading only the row below
-//    each step, so a word costs 3 shared-memory loads and 1 store, not 9
-//    and 1; the turn loop divides nothing. This is the B3/S23 instantiation,
-//    summing all nine cells in the LOP3/SHF form (swar.cuh life_next).
-//    Every other rule runs kernel A's per-word run-time masks on the
-//    same tile (512 threads): the masks fed from the walkers' window
-//    were slower than that body, not faster.
+//    ghosts from the input). Light cone: whatever the extended tile's
+//    outermost bit-row and column read beyond it, they are garbage after
+//    one turn; the garbage advances one bit-row and one column per turn,
+//    so the interior stays exact for 32*halo turns vertically and
+//    `ghost` turns horizontally.
+//    B3/S23 runs on strip walkers (strip.cuh, kernel B's own): a work
+//    item is a strip of 4 adjacent columns of the extended tile and a
+//    segment of its word-rows; each step loads one new row of the strip
+//    (one LDS.128, and two LDS.32 for the edge columns), forms each of
+//    the 6 columns' vertical sum once (swar.cuh col_sum), finishes the 4
+//    words from the three column sums around each and stores them with
+//    one STS.128. The tile's row pitch is padded to whole strips (the
+//    extra columns are more ghost columns), so every geometry of the two
+//    entry points takes this body. Every other rule runs kernel A's
+//    per-word run-time masks on the same tile (512 threads): the masks
+//    fed from a walker's window were slower than that body, not faster.
 //    Bound on the H100: integer operations, 12 LOP3/SHF per word-turn
 //    (chip_smoke.life_fewest_instructions); the bytes are 8 per word per
-//    launch. Spent per word by the walkers: 3 LDS, 1 STS, and 20
-//    LOP3/SHF (the form with each column's sum formed three times, once
-//    by each walker that reads it) plus the walk's index steps, on the
-//    extended tile's words (34x320 per 32x256 interior, a third more, at
-//    h=1, g=32). Still left: column sums shared across lanes (shuffles)
-//    and the ghost overhead.
+//    launch. Spent per word by the strip walkers: 14 LOP3/SHF (12 + 8/4:
+//    the two edge columns' sums are formed again by the strips beside
+//    them) and, once for 4 words, the shared-memory accesses above, two
+//    pointer steps and the loop count: 65 instructions a step of 4 words,
+//    56 of them on the LOP3/SHF pipe, which bounds the step. Measured on
+//    an H100 (PERF.md §6): ~66 µs a 32-turn launch at 5120^2, 23.8 issue
+//    slots a word-turn of the extended tile (walk.cuh's column walkers
+//    spend 34.5), of which ~12 µs is the tile's load and store; the turn
+//    loop runs at about three quarters of the pipe's issue rate. Still
+//    left: the load and store (a modulo per word on the way in), the
+//    ghost frame (34 x 320 extended words a 32 x 256 interior at h=1,
+//    g=32: 0.75 of the words stepped are kept) and the fill of the card
+//    (a 5120^2 board is 100 blocks on 132 SMs).
 //
 // Shared arithmetic: the column-sum CSA count and the run-time rule
 // masks of swar.cuh, combined in the form the rule compiler classified
-// (ops/bitlife.py _combine_masks); the B3/S23 form of kernels A and B,
-// also there.
+// (ops/bitlife.py _combine_masks); the B3/S23 form of kernel A, and the
+// column sums of kernel B's strip walkers, also there.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "strip.cuh"
 #include "swar.cuh"
 #include "walk.cuh"
 
@@ -109,15 +118,21 @@ __device__ __forceinline__ u32* run_turns(u32* cur, u32* nxt, int rows,
   return cur;
 }
 
-// Kernel B's rule forms: B3/S23 by column walkers summing nine cells,
-// or any rule by kernel A's per-word run-time masks.
+// Kernel B's rule forms: B3/S23 by strip walkers summing nine cells,
+// or any rule by kernel A's per-word run-time masks. Kernel A runs the
+// same two forms, B3/S23 by column walkers.
 enum { FORM_LIFE = 0, FORM_MASKS = 1 };
 
-// Threads per block of kernels B (two blocks per SM) and A: the walkers
-// take up to gol::kWalkThreads (walk.cuh), the masks form kMaskThreads.
+// Threads per block of kernel B (two blocks per SM): the strip walkers
+// take up to gol::kStripThreads (strip.cuh), the masks form kMaskThreads.
 constexpr int kMaskThreads = 512;
 template <int kForm>
 constexpr int kTiledThreads =
+    kForm == FORM_LIFE ? gol::kStripThreads : kMaskThreads;
+// Threads per block of kernel A: its column walkers take up to
+// gol::kWalkThreads (walk.cuh), the masks form kMaskThreads.
+template <int kForm>
+constexpr int kResidentThreads =
     kForm == FORM_LIFE ? gol::kWalkThreads : kMaskThreads;
 
 template <int kForm>
@@ -125,16 +140,14 @@ __global__ void __launch_bounds__(kTiledThreads<kForm>, 2)
     bitlife_tiled(const u32* __restrict__ in, u32* __restrict__ out,
                   int rows, int cols, int tile_rows, int tile_cols, int halo,
                   int ghost, int n, u32 birth, u32 survive, int combine,
-                  const gol::Walk k) {
+                  const gol::Strips k) {
   if constexpr (kForm == FORM_LIFE) {
     using gol::smem;
-    load_tile(in, smem, rows, cols, tile_rows, tile_cols, halo, ghost, k.ec,
-              k.words);
-    const int cur = gol::walk_turns(
-        k, n, [](const u32(&nn)[3], const u32(&mm)[3], const u32(&ss)[3],
-                 int at) { smem[at] = gol::life_next(nn, mm, ss); });
+    load_tile(in, smem + gol::strip_copy(k, 0), rows, cols, tile_rows,
+              tile_cols, halo, ghost, k.pitch, k.words);
+    const int cur = gol::strip_turns(k, n);
     store_interior(smem + cur, out, rows, cols, tile_rows, tile_cols, halo,
-                   ghost, k.ec);
+                   ghost, k.pitch);
   } else {
     extern __shared__ u32 smem[];
     const int er = tile_rows + 2 * halo;
@@ -149,13 +162,13 @@ __global__ void __launch_bounds__(kTiledThreads<kForm>, 2)
   }
 }
 
-// Kernel A: the forms and block sizes of kernel B, run by the resident
-// cluster (walk.cuh) on row slabs with `halo` ghost word-rows and no
-// ghost columns. A batch of boards of one shape, stored one after the
+// Kernel A: the forms of kernel B, B3/S23 on column walkers, run by the
+// resident cluster (walk.cuh) on row slabs with `halo` ghost word-rows
+// and no ghost columns. A batch of boards of one shape, stored one after the
 // other, runs as one launch: the grid's z index picks the board, and
 // each board is its own cluster.
 template <int kForm>
-__global__ void __launch_bounds__(kTiledThreads<kForm>, 1)
+__global__ void __launch_bounds__(kResidentThreads<kForm>, 1)
     bitlife_resident(const u32* __restrict__ in, u32* __restrict__ out,
                      int rows, int cols, int slab_rows, int halo, int n,
                      u32 birth, u32 survive, int combine, const gol::Walk k) {
@@ -222,22 +235,27 @@ int bitlife_resident_launch(const void* in, void* out, int batch, int rows,
 }
 
 // Kernel B picks its instantiation from the rule: B3/S23 (birth {3},
-// survive {2, 3}) runs the walkers on `threads` (at most
-// gol::kWalkThreads) and `seg_rows`, every other rule the masks on
-// kMaskThreads.
+// survive {2, 3}) runs the strip walkers on `threads` (at most
+// gol::kStripThreads) in `segs` segments a strip, every other rule the
+// masks on kMaskThreads.
 int bitlife_tiled_launch(const void* in, void* out, int rows, int cols,
                          int tile_rows, int tile_cols, int halo, int ghost,
                          int n, unsigned birth, unsigned survive, int combine,
-                         int threads, int seg_rows, void* stream) {
+                         int threads, int segs, void* stream) {
   const bool life = birth == (1u << 3) && survive == ((1u << 2) | (1u << 3));
   void (*kernel)(const u32*, u32*, int, int, int, int, int, int, int, u32,
-                 u32, int, const gol::Walk) =
+                 u32, int, const gol::Strips) =
       life ? bitlife_tiled<FORM_LIFE> : bitlife_tiled<FORM_MASKS>;
   if (!life) threads = kMaskThreads;
-  if (threads > gol::kWalkThreads) return (int)cudaErrorInvalidValue;
-  const gol::Walk k = gol::make_walk(tile_rows, tile_cols, halo, ghost,
-                                     threads, seg_rows);
-  const size_t smem = 2 * sizeof(u32) * (size_t)k.words;
+  if (threads > gol::kStripThreads || segs < 1 ||
+      segs > tile_rows + 2 * halo)
+    return (int)cudaErrorInvalidValue;
+  const gol::Strips k = gol::make_strips(tile_rows, tile_cols, halo, ghost,
+                                         threads, segs);
+  const size_t smem =
+      life ? gol::strip_smem_bytes(k)
+           : 2 * sizeof(u32) * (size_t)(tile_rows + 2 * halo) *
+                 (tile_cols + 2 * ghost);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;

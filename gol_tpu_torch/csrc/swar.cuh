@@ -11,7 +11,8 @@
 // ANDed from the 4 count bits and ORed into the survive / birth masks.
 // One build serves every rule. `life_next` is B3/S23 alone and
 // `brain_next` B2/S/C3 alone, each as a nine-cell sum over a 3x3 window
-// in registers (the column walkers of walk.cuh).
+// in registers (the column walkers of walk.cuh); `col_sum` is one
+// column's vertical sum, kernel B's strip walkers' (strip.cuh).
 
 #pragma once
 
@@ -101,6 +102,23 @@ __device__ __forceinline__ u32 maj(u32 a, u32 b, u32 c) {
   return (a & b) | (a & c) | (b & c);
 }
 
+// Bits 0 and 1 of a column's vertical triple sums: for each bit of the
+// centre word m, the cell above it, itself and the cell below it (n and
+// s bring in the words above and below), in 2 SHF and 2 LOP3: the column
+// sums of sum9 below, one column at a time (kernel B's strip walkers,
+// strip.cuh). sum9 keeps its own loop, the code kernels A, C and D are
+// measured with.
+struct ColSum {
+  u32 s, c;
+};
+
+__device__ __forceinline__ ColSum col_sum(u32 n, u32 m, u32 s) {
+  const u32 up = __funnelshift_l(n, m, 1);    // SHF: row y-1
+  const u32 down = __funnelshift_r(m, s, 1);  // SHF: row y+1
+  return {up ^ m ^ down,                      // column sum, bit 0
+          maj(up, m, down)};                  // column sum, bit 1
+}
+
 // Bits 0..2 of the sum of all nine cells of a 3x3 window (n, m, s: rows
 // north, mid, south; [0..2]: columns west, centre, east), in the LOP3/SHF
 // form of chip_smoke.life_fewest_instructions, line for line. Bit 3 (a
@@ -131,7 +149,8 @@ __device__ __forceinline__ Sum9 sum9(const u32 (&n)[3], const u32 (&m)[3],
 // Next B3/S23 value of the centre word of a 3x3 window: it sums all
 // nine cells, so next = [sum9 == 3] | (alive & [sum9 == 4]). Each
 // column's sum is formed here, so a walker spends 20 instructions a word
-// where the form, sharing column sums across words, spends 12.
+// where the form, sharing column sums across words, spends 12 (kernel
+// B's strip walkers, strip.cuh, which form each once for 4 words: 14).
 __device__ __forceinline__ u32 life_next(const u32 (&n)[3], const u32 (&m)[3],
                                          const u32 (&s)[3]) {
   const Sum9 q = sum9(n, m, s);

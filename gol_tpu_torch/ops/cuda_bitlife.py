@@ -19,7 +19,7 @@ version `ops.bitlife.step_n_packed_raw`:
 - `step_n_packed_tiled_raw` / `step_n_packed_tiled2d_raw`: kernel B
   (`bitlife_tiled`), temporally blocked tiles with ghost word-rows and
   ghost columns, k <= min(32*halo, ghost) turns per launch; B3/S23 is
-  stepped by column walkers (`_walk_plan`), every other rule word by
+  stepped by strip walkers (`_strip_plan`), every other rule word by
   word as in kernel A. Replaces
   `step_n_packed_pallas_tiled_raw` and
   `step_n_packed_pallas_tiled2d_raw`; both keep their names and
@@ -50,16 +50,25 @@ from gol_tpu_torch.ops.life import from_bits, to_bits
 
 #: Dynamic shared memory one block may use on the H100 (227 KB).
 SMEM_BYTES = 232_448
-#: The most column walkers of a block of kernels A-D (`kWalkThreads` in
-#: csrc/walk.cuh, whose launchers refuse more; their other rules run a
+#: The most column walkers of a block of kernels A, C and D (`kWalkThreads`
+#: in csrc/walk.cuh, whose launchers refuse more; their other rules run a
 #: fixed 512).
 WALK_THREADS = 640
+#: Columns of a kernel-B strip walker's work item (`kStripCols` in
+#: csrc/strip.cuh): one 16-byte shared-memory access a row.
+STRIP_COLS = 4
+#: The most strip walkers of a block of kernel B (`kStripThreads` in
+#: csrc/strip.cuh, whose launcher refuses more).
+STRIP_THREADS = 640
+#: Shortest segment of a strip walker that is not a whole strip, in
+#: word-rows (its three-row prologue spread over at least 4).
+MIN_STRIP_ROWS = 4
 #: The most blocks of kernel A's and C's cluster: the portable cluster
 #: size, which every sm_90 card schedules (`kClusterBlocks` in
 #: csrc/walk.cuh, whose launchers refuse more).
 CLUSTER_BLOCKS = 8
-#: Shortest segment of a kernel-B column walker that is not a whole
-#: column, in word-rows (its two-row prologue spread over at least 8).
+#: Shortest segment of a column walker that is not a whole column, in
+#: word-rows (its two-row prologue spread over at least 8).
 MIN_SEG_ROWS = 8
 #: Default tile of kernel B: 32 word-rows (1024 cells) x 256 columns.
 TILE_ROWS = 32
@@ -266,19 +275,43 @@ class TileGeometry:
                 * (self.tile_cols + 2 * self.ghost))
 
 
+def _strip_pitch(geom: TileGeometry) -> int:
+    """Row pitch in words of kernel B's extended tile for its strip
+    walkers: the width rounded up to whole strips of STRIP_COLS."""
+    ec = geom.tile_cols + 2 * geom.ghost
+    return -(-ec // STRIP_COLS) * STRIP_COLS
+
+
+def _strip_smem_bytes(geom: TileGeometry) -> int:
+    """Shared memory of kernel B's strip layout (csrc/strip.cuh): two
+    copies of the extended tile at the strip pitch, and three pads of a
+    row and a strip each."""
+    pitch = _strip_pitch(geom)
+    er = geom.tile_rows + 2 * geom.halo
+    return 4 * (2 * er * pitch + 3 * (pitch + STRIP_COLS))
+
+
+def _smem_need(geom: TileGeometry) -> int:
+    """Shared memory a block of the tiled kernel takes: kernel B's (two
+    copies) the strip layout, which holds its masks form's too; kernel
+    D's its `copies` copies."""
+    return _strip_smem_bytes(geom) if geom.copies == 2 else geom.smem_bytes
+
+
 def _geometry(rows: int, width: int, tile_rows: int, halo: int,
               ghost: int, copies: int = 2) -> TileGeometry:
     """Widest tile (TILE_COLS, halved down to 32 columns) whose `copies`
-    shared-memory copies of the ghost-extended tile fit one block."""
+    shared-memory copies of the ghost-extended tile fit one block
+    (`_smem_need`)."""
     tc = min(TILE_COLS, width)
     geom = TileGeometry(tile_rows, tc, halo, ghost, copies)
-    while geom.smem_bytes > SMEM_BYTES and tc > 32:
+    while _smem_need(geom) > SMEM_BYTES and tc > 32:
         tc //= 2
         geom = TileGeometry(tile_rows, tc, halo, ghost, copies)
-    if geom.smem_bytes > SMEM_BYTES:
+    if _smem_need(geom) > SMEM_BYTES:
         raise ValueError(
             f"a {tile_rows}-row tile with halo {halo} and {ghost} ghost "
-            f"columns needs {geom.smem_bytes} bytes of shared memory for "
+            f"columns needs {_smem_need(geom)} bytes of shared memory for "
             f"{copies} copies, over the {SMEM_BYTES} one block has"
         )
     if -(-rows // tile_rows) > _MAX_GRID_Y:
@@ -317,7 +350,7 @@ def _tile_plan(rows: int, width: int, strip_rows: int | None,
 
 
 def _walk_plan(geom: TileGeometry) -> tuple:
-    """(threads, seg_rows) of the column walkers of kernels B and D on
+    """(threads, seg_rows) of the column walkers of kernels A, D and E on
     `geom`'s extended tile: a work item is one column and a segment of
     seg_rows word-rows (the last segment takes the rest). Whole columns
     where they fill the block; else the rows split into as many equal
@@ -333,6 +366,21 @@ def _walk_plan(geom: TileGeometry) -> tuple:
     return threads, -(-er // segs)
 
 
+def _strip_plan(geom: TileGeometry) -> tuple:
+    """(threads, segs) of kernel B's strip walkers on `geom`'s extended
+    tile at the strip pitch (`_strip_pitch`): a work item is one strip
+    of STRIP_COLS columns and one of `segs` segments of its word-rows,
+    the first er % segs of them one row longer than the rest. The rows
+    split into as many segments as fill STRIP_THREADS, each at least
+    MIN_STRIP_ROWS long, or whole strips. The kernel strides the items
+    over `threads`, so any count of items runs."""
+    er = geom.tile_rows + 2 * geom.halo
+    strips = _strip_pitch(geom) // STRIP_COLS
+    segs = max(1, min(STRIP_THREADS // strips, er // MIN_STRIP_ROWS))
+    return min(STRIP_THREADS, -(-strips * segs // 32) * 32), segs
+
+
+
 def _tiled_pass(src: torch.Tensor, dst: torch.Tensor, k: int, rule: Rule,
                 geom: TileGeometry) -> torch.Tensor:
     """One pass of k <= geom.turns turns from `src` into `dst` (never the
@@ -345,7 +393,7 @@ def _tiled_pass(src: torch.Tensor, dst: torch.Tensor, k: int, rule: Rule,
     rows, cols = src.shape
     _launch(LAUNCHES, "bitlife_tiled", src, src.data_ptr(), dst.data_ptr(),
             rows, cols, geom.tile_rows, geom.tile_cols, geom.halo,
-            geom.ghost, k, *rule_args(rule), *_walk_plan(geom))
+            geom.ghost, k, *rule_args(rule), *_strip_plan(geom))
     return dst
 
 

@@ -1,10 +1,14 @@
-"""The walk plan of kernels B and D (ops/cuda_bitlife._walk_plan) on
-the CPU: the column walkers' work items, enumerated as csrc/walk.cuh
-and the launchers enumerate them, cover every word of the extended
-tile exactly once at every geometry the entry points build; the block
-size and segment lengths keep the kernel's limits; the wrapper hands
-the plan to the launcher in the C signature's order. The kernels
-themselves run on the card (chip_smoke.py)."""
+"""The walk plans of kernels B and D on the CPU: kernel B's strip
+walkers (ops/cuda_bitlife._strip_plan) and kernel D's column walkers
+(ops/cuda_bitlife._walk_plan), their work items enumerated as
+csrc/strip.cuh, csrc/walk.cuh and the launchers enumerate them, cover
+every word of the extended tile exactly once at every geometry the
+entry points build; the block size and segment lengths keep the
+kernels' limits; kernel B's shared-memory layout (strip pitch, pads that
+nothing writes, no wrap within the tile), emulated word for word, keeps
+a launch's interior exact; the wrapper hands the plan to the launcher in
+the C signature's order. The kernels themselves run on the card
+(chip_smoke.py)."""
 
 import dataclasses
 import importlib.util
@@ -21,11 +25,12 @@ from gol_tpu_torch.ops import cuda_bitlife as cb
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 #: (name, geometry) of every shape class the two entry points build:
-#: the 16384² main path, each strip halo depth (h = 8 is 768 columns,
-#: more work items than threads), a remainder pass's shortened halo, a
-#: ragged board (its last tile 160 of 256 columns) and boards narrower
-#: than one tile; then kernel D's B2/S/C3 tiles, planned for three
-#: copies.
+#: the 16384² main path, each strip halo depth (h = 8 is 768 columns), a
+#: remainder pass's shortened halo, a ragged board (its last tile 160 of
+#: 256 columns), boards narrower than one tile, the benchmark's 5120²
+#: board and a 4096 x 131 one, whose extended width (195 columns; 643 at
+#: h = 8) is no whole number of strips; then kernel D's B2/S/C3 tiles,
+#: planned for three copies.
 GEOMETRIES = [
     ("main-2d", cb._tiled2d_geometry(512, 16384, None)),
     *((f"strip-h{h}", cb._tile_plan(512, 16384, 8, h)) for h in range(1, 9)),
@@ -37,11 +42,21 @@ GEOMETRIES = [
     ("narrow-2d", cb._tiled2d_geometry(16, 64, None)),
     ("narrow-strip", cb._tile_plan(24, 100, 8, 2)),
     ("short-board", cb._tiled2d_geometry(3, 300, None)),
+    ("cell-5120-2d", cb._tiled2d_geometry(160, 5120, None)),
+    ("padded-pitch-2d", cb._tiled2d_geometry(128, 131, None)),
+    ("padded-pitch-strip", cb._tile_plan(128, 131, None, None)),
+    ("padded-pitch-strip-h8", cb._tile_plan(128, 131, 8, 8)),
     ("gens-main-2d", cb._tiled2d_geometry(512, 16384, None, 3)),
     ("gens-strip-h8", cb._tile_plan(128, 4096, 8, 8, 3)),
     ("gens-ragged-2d", cb._tiled2d_geometry(128, 4000, None, 3)),
     ("gens-ragged-strip", cb._tile_plan(128, 4000, None, None, 3)),
 ]
+
+
+#: Kernel B's geometries (two copies: the strip walkers) and kernel D's
+#: (the column walkers).
+LIFE = [g for g in GEOMETRIES if g[1].copies == 2]
+GENS = [g for g in GEOMETRIES if g[1].copies != 2]
 
 
 def extended(geom):
@@ -71,7 +86,67 @@ def walk_cover(geom, threads, seg_rows):
     return hits, lengths
 
 
-@pytest.mark.parametrize("name,geom", GEOMETRIES, ids=[g[0] for g in GEOMETRIES])
+def strip_cover(geom, threads, segs):
+    """How often each word of the extended tile at the strip pitch is
+    written in one turn, and the segment lengths, with the strip
+    walkers' loop (csrc/strip.cuh strip_turns): each thread starts at
+    item threadIdx.x and steps by the launcher's (dstrip, dseg), no
+    division inside the turn; segment g starts at word-row g * q +
+    min(g, rem); an item writes STRIP_COLS columns of each row of its
+    segment."""
+    er = extended(geom)[0]
+    pitch = cb._strip_pitch(geom)
+    strips = pitch // cb.STRIP_COLS
+    q, rem = er // segs, er % segs
+    dstrip, dseg = threads % strips, threads // strips
+    hits = np.zeros((er, pitch), dtype=np.int64)
+    lengths = set()
+    for tid in range(threads):
+        s, g = tid % strips, tid // strips
+        while g < segs:
+            r0 = g * q + min(g, rem)
+            r1 = r0 + q + (g < rem)
+            hits[r0:r1, cb.STRIP_COLS * s:cb.STRIP_COLS * (s + 1)] += 1
+            lengths.add(r1 - r0)
+            s += dstrip
+            g += dseg
+            if s >= strips:
+                s -= strips
+                g += 1
+    return hits, lengths
+
+
+@pytest.mark.parametrize("name,geom", LIFE, ids=[g[0] for g in LIFE])
+def test_strip_plan_covers_tile_once(name, geom):
+    threads, segs = cb._strip_plan(geom)
+    er, ec = extended(geom)
+    pitch = cb._strip_pitch(geom)
+    assert pitch % cb.STRIP_COLS == 0 and ec <= pitch < ec + cb.STRIP_COLS
+    assert threads % 32 == 0 and 32 <= threads <= cb.STRIP_THREADS
+    hits, lengths = strip_cover(geom, threads, segs)
+    assert (hits == 1).all(), name
+    # Whole strips, or segments of at least MIN_STRIP_ROWS word-rows,
+    # their lengths within one row of each other.
+    assert lengths == {er} or min(lengths) >= cb.MIN_STRIP_ROWS
+    assert max(lengths) - min(lengths) <= 1
+    # Never a whole warp of idle threads.
+    items = pitch // cb.STRIP_COLS * segs
+    assert threads - items < 32 or items > cb.STRIP_THREADS
+    # The layout of two copies and three pads fits one block.
+    assert cb._strip_smem_bytes(geom) <= cb.SMEM_BYTES
+
+
+@pytest.mark.parametrize("threads", [32, 96, 160])
+def test_strip_walkers_stride_over_more_items_than_threads(threads):
+    """The strip walkers' stride, forced below the item count (deepest
+    halo, 192 strips x 3 segments), still writes each word once."""
+    geom = cb._tile_plan(512, 16384, 8, 8)
+    _, segs = cb._strip_plan(geom)
+    hits, _ = strip_cover(geom, threads, segs)
+    assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("name,geom", GENS, ids=[g[0] for g in GENS])
 def test_walk_plan_covers_tile_once(name, geom):
     threads, seg_rows = cb._walk_plan(geom)
     er, ec = extended(geom)
@@ -86,20 +161,128 @@ def test_walk_plan_covers_tile_once(name, geom):
 
 
 def test_walk_plan_main_geometry():
-    """34 x 320 words: 320 columns x 2 segments of 17 word-rows, 640
-    threads, two blocks of 87,040 bytes per SM."""
-    geom = cb._tiled2d_geometry(512, 16384, None)
-    assert extended(geom) == (34, 320)
-    assert cb._walk_plan(geom) == (640, 17)
-    assert 2 * geom.smem_bytes <= 232_448 - 2 * 1024
-    assert cb._walk_plan(cb._tile_plan(512, 16384, None, None)) == (640, 17)
+    """34 x 320 words at 16384² and 5120²: kernel B's strip walkers take
+    80 strips x 8 segments (2 of 5 word-rows, 6 of 4), 640 threads, two
+    blocks of 90,928 bytes per SM (two copies of 34 x 320 words and three
+    pads of 324); the column walkers' plan of the same tile (kernel D's)
+    is 320 columns x 2 segments of 17 word-rows, 640 threads."""
+    for rows, width in ((512, 16384), (160, 5120)):
+        geom = cb._tiled2d_geometry(rows, width, None)
+        assert extended(geom) == (34, 320)
+        assert cb._strip_plan(geom) == (640, 8)
+        assert strip_cover(geom, 640, 8)[1] == {4, 5}
+        assert cb._strip_smem_bytes(geom) == 4 * (2 * 34 * 320 + 3 * 324)
+        assert 2 * cb._strip_smem_bytes(geom) <= 232_448 - 2 * 1024
+        assert cb._walk_plan(geom) == (640, 17)
+    assert cb._strip_plan(cb._tile_plan(512, 16384, None, None)) == (640, 8)
 
 
 def test_walk_plan_more_items_than_threads():
+    """The deepest halo's 24 x 768 words: the column walkers (kernel D's
+    plan) have more items than threads; kernel B's 192 strips x 3
+    segments of 8 word-rows fill 576 threads."""
     geom = cb._tile_plan(512, 16384, 8, 8)
-    threads, seg_rows = cb._walk_plan(geom)
     er, ec = extended(geom)
-    assert (er, ec) == (24, 768) and (threads, seg_rows) == (640, 24)
+    assert (er, ec) == (24, 768)
+    assert cb._walk_plan(dataclasses.replace(geom, copies=3)) == (640, 24)
+    assert cb._strip_plan(geom) == (576, 3)
+
+
+def test_strip_pitch_pads_to_whole_strips():
+    """4096 x 131: 195 extended columns a row, padded to 196 (49
+    strips); the 2-D entry keeps its 131-column tile."""
+    geom = cb._tiled2d_geometry(128, 131, None)
+    assert extended(geom) == (34, 195) and geom.tile_cols == 131
+    assert cb._strip_pitch(geom) == 196
+    assert cb._strip_plan(geom) == (416, 8)
+
+
+def life_of_window(win, pitch):
+    """Next B3/S23 words of `win(dr, dc)` — the words dr rows and dc
+    words away in memory — in csrc/swar.cuh's form: each column's
+    (sum, carry), then sum3 and life_of."""
+    def col_sum(dc):
+        n, m, s = win(-pitch, dc), win(0, dc), win(pitch, dc)
+        up = (m << np.uint32(1)) | (n >> np.uint32(31))
+        down = (m >> np.uint32(1)) | (s << np.uint32(31))
+        return up ^ m ^ down, (up & m) | (up & down) | (m & down)
+
+    (ws, wc), (xs, xc), (es, ec) = col_sum(-1), col_sum(0), col_sum(1)
+    z0 = ws ^ xs ^ es
+    c0 = (ws & xs) | (ws & es) | (xs & es)
+    a = wc ^ xc ^ ec
+    w4 = (wc & xc) | (wc & ec) | (xc & ec)
+    b1 = a ^ c0
+    b2 = w4 ^ (a & c0)
+    g = (z0 & b1 & ~b2) | (~z0 & ~b1 & b2)
+    return g & (win(0, 0) | z0)
+
+
+def strip_launch(p, geom, n, seed):
+    """One launch of kernel B's B3/S23 form on the CPU in its shared-
+    memory layout (csrc/strip.cuh): for each tile, random words in the
+    pads and the second copy, the extended tile loaded into copy 0 at
+    the strip pitch (toroidal indices modulo the board), n turns in
+    which every word of the copy at word `cur` is stepped from the 3 x 3
+    words around it in memory — no wrap within the tile, pads and the
+    neighbouring rows read as they are — into the other copy, then the
+    interior stored where it lies on the board."""
+    rng = np.random.default_rng(seed)
+    board = p.numpy().view(np.uint32)
+    rows, cols = board.shape
+    er = geom.tile_rows + 2 * geom.halo
+    pitch = cb._strip_pitch(geom)
+    words, pad = er * pitch, pitch + cb.STRIP_COLS
+    out = np.zeros_like(board)
+    at = np.arange(words)
+    # A copy's reads stay within its own pads, away from the other copy.
+    assert -pad <= -pitch - 1 and words + pitch + 1 <= words + pad
+    for r0 in range(0, rows, geom.tile_rows):
+        for c0 in range(0, cols, geom.tile_cols):
+            mem = rng.integers(0, 2**32, 2 * words + 3 * pad,
+                               dtype=np.uint32)
+            assert mem.size * 4 == cb._strip_smem_bytes(geom)
+            cur, nxt = pad, 2 * pad + words
+            tr = (r0 - geom.halo + np.arange(er)) % rows
+            tc = (c0 - geom.ghost + np.arange(pitch)) % cols
+            mem[cur:cur + words] = board[np.ix_(tr, tc)].ravel()
+            for _ in range(n):
+                mem[nxt + at] = life_of_window(
+                    lambda dr, dc: mem[cur + at + dr + dc], pitch)
+                cur, nxt = nxt, cur
+            tile = mem[cur:cur + words].reshape(er, pitch)
+            h = min(geom.tile_rows, rows - r0)
+            w = min(geom.tile_cols, cols - c0)
+            out[r0:r0 + h, c0:c0 + w] = tile[geom.halo:geom.halo + h,
+                                             geom.ghost:geom.ghost + w]
+    return torch.from_numpy(out.view(np.int32))
+
+
+#: (name, packed rows, width, geometry) of the emulated launches: a
+#: pitch padded by 3 columns, ragged tiles in both directions, tiles
+#: wider than the board, a deep halo.
+STRIP_LAUNCHES = [
+    ("padded-pitch", 8, 13, cb._tiled2d_geometry(8, 13, None)),
+    ("ragged", 36, 300, cb._tiled2d_geometry(36, 300, None)),
+    ("strip-h2", 16, 40, cb._tile_plan(16, 40, 8, 2)),
+]
+
+
+@pytest.mark.parametrize("turns", ["one", "cone"])
+@pytest.mark.parametrize("name,rows,width,geom", STRIP_LAUNCHES,
+                         ids=[x[0] for x in STRIP_LAUNCHES])
+def test_strip_layout_keeps_the_interior_exact(name, rows, width, geom,
+                                               turns):
+    """Garbage in the pads, the second copy and the unwrapped edges
+    never reaches a launch's interior within its light cone: the
+    emulated launch equals the plain packed step, after one turn and
+    after the whole cone (`geom.turns`)."""
+    n = 1 if turns == "one" else geom.turns
+    gen = torch.Generator().manual_seed(rows * width)
+    p = torch.randint(-2**31, 2**31 - 1, (rows, width), dtype=torch.int32,
+                      generator=gen)
+    want = bitlife.step_n_packed_raw(p, n, get_rule("B3/S23"))
+    assert torch.equal(strip_launch(p, geom, n, seed=n), want)
 
 
 def test_tiled_pass_hands_the_plan_to_the_launcher(monkeypatch):
@@ -117,7 +300,7 @@ def test_tiled_pass_hands_the_plan_to_the_launcher(monkeypatch):
     assert name == "bitlife_tiled"
     assert len(args) + 1 == len(_build._SIGNATURES["bitlife_tiled_launch"])
     assert args[2:9] == (512, 16384, 32, 256, 1, 32, 32)
-    assert args[-2:] == cb._walk_plan(geom) == (640, 17)
+    assert args[-2:] == cb._strip_plan(geom) == (640, 8)
 
 
 def _smoke():
@@ -162,3 +345,12 @@ def test_walk_threads_is_the_kernels_launch_bound():
     so the two constants must be one number."""
     src = (REPO / "gol_tpu_torch/csrc/walk.cuh").read_text()
     assert f"constexpr int kWalkThreads = {cb.WALK_THREADS};" in src
+
+
+def test_strip_constants_are_the_kernels():
+    """`_strip_plan` plans within STRIP_THREADS and pads to STRIP_COLS;
+    kernel B's strip walkers are built for kStripThreads a block and
+    kStripCols columns a strip, and its launcher refuses more threads."""
+    src = (REPO / "gol_tpu_torch/csrc/strip.cuh").read_text()
+    assert f"constexpr int kStripThreads = {cb.STRIP_THREADS};" in src
+    assert f"constexpr int kStripCols = {cb.STRIP_COLS};" in src
