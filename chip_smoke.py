@@ -661,10 +661,12 @@ def check_gens_kernels(errs: dict) -> None:
     # Kernel D: B2/S/C3 runs the column walkers, the C=8 rule the masks.
     # B2/S/C3's seams at 4096² only: the deepest halo (768-column tiles,
     # more column walkers than threads) and a ragged board (its last tile
-    # 160 of 256 columns).
+    # 160 of 256 columns). 5120² is the benchmark's brain-5120 board
+    # (5 x 20 tiles of 32 x 256 words): also n = 0 and two whole passes.
     brain = get_rule("B2/S/C3")
     tiled_cases = [(4096, 4096, brain), (16384, 16384, brain),
-                   (4096, 4000, brain), (512, 512, random_rule(8))]
+                   (4096, 4000, brain), (5120, 5120, brain),
+                   (512, 512, random_rule(8))]
     for h, w, rule in tiled_cases:
         side = f"{h}x{w}"
         if h == 512 and cg.fits_cuda_gens(h, w, rule):
@@ -682,13 +684,16 @@ def check_gens_kernels(errs: dict) -> None:
         if h == 4096 and w == h:
             variants.append(("tiled", {"strip_rows": 8, "halo_words": 8},
                              256))
+        def turns(k):
+            return tiled_turns(k) + ((0, 2 * k) if h == w == 5120 else ())
+
         want = plain_turns(
             lambda x, k: bitgens.step_n_packed_gens_raw(x, k, rule), q,
-            [n for _, _, k in variants for n in tiled_turns(k)])
+            [n for _, _, k in variants for n in turns(k)])
         for entry, kw, k in variants:
             fn = (cg.step_n_packed_gens_tiled2d_raw if entry == "tiled2d"
                   else cg.step_n_packed_gens_tiled_raw)
-            for n in tiled_turns(k):
+            for n in turns(k):
                 got = fn(q, n, rule, **kw)
                 torch.cuda.synchronize()
                 err = max_abs_err(got, want[n])
@@ -6054,6 +6059,16 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float,
             sw["share"] = sw["bound_ms"] / sw["ms"]
             rows[-1]["B2/S345/C4"] = sw
             del q4
+            # The benchmark's brain-5120 board: one 32-turn pass of its
+            # 5120² planes through the 2-D entry the stepper takes.
+            q5 = gens(5120)
+            b5 = {"ms": time_ms(
+                lambda: cg.step_n_packed_gens_tiled2d_raw(q5, 32, brain),
+                200), "bound_ms": bound_ms(
+                    nbytes(q5), ops(q5), int_ops_per_s)[0]}
+            b5["share"] = b5["bound_ms"] / b5["ms"]
+            rows[-1]["5120x5120"] = b5
+            del q5
             phase("measure", f"bitgens_tiled B2/S/C3 (column walkers): "
                              f"{ms:.4f} ms/launch via the 2-D entry, "
                              f"{rows[-1]['strip_ms']:.4f} via "
@@ -6063,6 +6078,10 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float,
                              f"{sw['ms']:.4f} ms/launch via the 2-D entry, "
                              f"16384² x32 turns; bound {sw['bound_ms']:.4g} "
                              f"ms, {sw['share']:.1%} of it")
+            phase("measure", f"bitgens_tiled D B2/S/C3 5120²: "
+                             f"{b5['ms']:.4f} ms/launch via the 2-D entry, "
+                             f"x32 turns; bound {b5['bound_ms']:.4g} ms, "
+                             f"{b5['share']:.1%} of it")
         if name == "life_dense":
             dense_rows(rows[-1], x, nbytes, dense_ops, int_ops_per_s)
         del x

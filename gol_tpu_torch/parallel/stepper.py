@@ -921,17 +921,52 @@ def _gens_fetch(to_levels):
     return fetch
 
 
+def _translated(entry: str, fn):
+    """A Generations stepper's host translation between gray levels and
+    states (`fn`), timed: each call observes
+    `gol_tpu_stepper_translate_seconds{entry}` and records a
+    `stepper.translate` span, inside the `stepper.put` / `stepper.fetch`
+    span of the call that makes it. With metrics off at build
+    (GOL_TPU_METRICS=0), `fn` itself."""
+    import time
+
+    from gol_tpu_torch import obs
+    from gol_tpu_torch.obs import tracing
+
+    if not obs.enabled():
+        return fn
+    hist = obs.histogram(
+        "gol_tpu_stepper_translate_seconds",
+        "Host seconds translating a Generations board between gray "
+        "levels and states", {"entry": entry})
+
+    def timed(arr):
+        wall0 = time.time()
+        t0 = time.perf_counter()
+        out = fn(arr)
+        dt = time.perf_counter() - t0
+        hist.observe(dt)
+        tracing.add_span("stepper.translate", "stepper", wall0, dt,
+                         {"entry": entry})
+        return out
+
+    return timed
+
+
 def _gens_stepper(rule: GenRule, device) -> Stepper:
     """Generations backend on the dense uint8 state grid
     (ops/generations.py): `put` and `fetch` translate to/from the
     injective gray-level representation the PGM/event layer speaks, so
     snapshots remain complete resumable checkpoints."""
+    to_states = _translated("put",
+                            lambda w: gens.states_from_levels(w, rule))
+    to_levels = _translated("fetch",
+                            lambda s: gens.levels_from_states(s, rule))
     return Stepper(
         name="generations-1",
         shards=1,
-        put=lambda w: _host_tensor(gens.states_from_levels(w, rule), device),
-        fetch=_gens_fetch(
-            lambda s: gens.levels_from_states(s.cpu().numpy(), rule)),
+        put=lambda w: _host_tensor(to_states(w), device),
+        fetch=_gens_fetch(lambda s: to_levels(s.cpu().numpy())),
         step=lambda s: gens.step_states(s, rule),
         step_n=lambda s, k: gens.step_n_counted_states(s, int(k), rule),
         step_with_diff=lambda s: gens.step_with_diff_states(s, rule),
@@ -966,9 +1001,14 @@ def _gens_stepper_packed(rule: GenRule, device, height: int, width: int,
                 "fit the packed CUDA Generations kernels"
             )
 
+    to_states = _translated("put",
+                            lambda w: gens.states_from_levels(w, rule))
+    levels_of = _translated("fetch",
+                            lambda s: gens.levels_from_states(s, rule))
+
     def put(w):
         # Packed on the device: the planes of `bitgens.pack_states`.
-        states = _host_tensor(gens.states_from_levels(w, rule), device)
+        states = _host_tensor(to_states(w), device)
         return torch.stack([bitlife.pack(states == s)
                             for s in range(1, rule.states)])
 
@@ -979,7 +1019,7 @@ def _gens_stepper_packed(rule: GenRule, device, height: int, width: int,
         for s in range(1, rule.states):
             states = torch.where(bitlife.unpack(planes[s - 1], height) != 0,
                                  s, states)
-        return gens.levels_from_states(states.cpu().numpy(), rule)
+        return levels_of(states.cpu().numpy())
 
     def count(planes):
         return bitlife.count_packed(planes[0])
