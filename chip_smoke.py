@@ -658,11 +658,13 @@ def check_gens_kernels(errs: dict) -> None:
                 checked += 1
     if not {1, 3, 8} <= {blocks for blocks, _, _ in plans.values()}:
         raise AssertionError(f"kernel C's boards miss a cluster seam: {plans}")
-    # Kernel D: B2/S/C3 runs the column walkers, the C=8 rule the masks.
-    # B2/S/C3's seams at 4096² only: the deepest halo (768-column tiles,
-    # more column walkers than threads) and a ragged board (its last tile
-    # 160 of 256 columns). 5120² is the benchmark's brain-5120 board
-    # (5 x 20 tiles of 32 x 256 words): also n = 0 and two whole passes.
+    # Kernel D: B2/S/C3 runs the strip walkers (the padded layout, the
+    # dying words read from the row a step overwrites), the C=8 rule the
+    # masks. B2/S/C3's seams at 4096² only: the deepest halo (768-column
+    # tiles, 192 strips x 3 segments) and a ragged board (its last tile
+    # 160 of 256 columns). 5120² is the benchmark's brain-5120 board (5 x
+    # 20 tiles of 32 x 256 words); at it and at 16384² also n = 0 and two
+    # whole passes.
     brain = get_rule("B2/S/C3")
     tiled_cases = [(4096, 4096, brain), (16384, 16384, brain),
                    (4096, 4000, brain), (5120, 5120, brain),
@@ -685,7 +687,8 @@ def check_gens_kernels(errs: dict) -> None:
             variants.append(("tiled", {"strip_rows": 8, "halo_words": 8},
                              256))
         def turns(k):
-            return tiled_turns(k) + ((0, 2 * k) if h == w == 5120 else ())
+            seams = h == w and h in (5120, 16384)
+            return tiled_turns(k) + ((0, 2 * k) if seams else ())
 
         want = plain_turns(
             lambda x, k: bitgens.step_n_packed_gens_raw(x, k, rule), q,
@@ -6045,7 +6048,7 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float,
                              f"bound {hl['bound_ms']:.4g} ms, "
                              f"{hl['share']:.1%} of it")
         if name == "bitgens_tiled":
-            # Kernel D's B2/S/C3 form (column walkers) through the strip
+            # Kernel D's B2/S/C3 form (strip walkers) through the strip
             # entry on the same planes and pass, and its run-time-mask
             # form on B2/S345/C4 through the 2-D entry, against that
             # rule's bound.
@@ -6069,7 +6072,7 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float,
             b5["share"] = b5["bound_ms"] / b5["ms"]
             rows[-1]["5120x5120"] = b5
             del q5
-            phase("measure", f"bitgens_tiled B2/S/C3 (column walkers): "
+            phase("measure", f"bitgens_tiled B2/S/C3 (strip walkers): "
                              f"{ms:.4f} ms/launch via the 2-D entry, "
                              f"{rows[-1]['strip_ms']:.4f} via "
                              f"step_n_packed_gens_tiled_raw, 16384² x32 "
@@ -6278,6 +6281,7 @@ def ab_time(root: str) -> dict:
 
     x, x5, p = board(16384), board(5120), board(512)
     q, q4 = planes(brain, 16384), planes(star_wars, 16384)
+    q5 = planes(brain, 5120)
     r, r4 = planes(brain, 512), planes(star_wars, 512)
     w, big = (torch.from_numpy(life.random_world(side, side, seed=1)).cuda()
               for side in (512, 16384))
@@ -6295,6 +6299,8 @@ def ab_time(root: str) -> dict:
             lambda: cg.step_n_packed_gens_cuda_raw(r4, 64, star_wars), 20),
         "D B2/S/C3": time_ms(
             lambda: cg.step_n_packed_gens_tiled2d_raw(q, 32, brain), 20),
+        "D B2/S/C3 5120x5120": time_ms(
+            lambda: cg.step_n_packed_gens_tiled2d_raw(q5, 32, brain), 200),
         "D B2/S345/C4": time_ms(
             lambda: cg.step_n_packed_gens_tiled2d_raw(q4, 32, star_wars), 20),
         "E 512x512 x100": time_ms(
@@ -6334,17 +6340,19 @@ def sass(library: str) -> dict:
     return funcs
 
 
-#: Kernel B's 32-turn passes of `ab_time`: (key, packed rows, width).
-AB_TILED = (("B B3/S23", 512, 16384), ("B B3/S23 5120x5120", 160, 5120))
+#: The 32-turn passes of kernels B and D in `ab_time` (D's B2/S/C3 on
+#: the same tile): (key, packed rows, width).
+AB_TILED = (("B B3/S23", 512, 16384), ("B B3/S23 5120x5120", 160, 5120),
+            ("D B2/S/C3", 512, 16384), ("D B2/S/C3 5120x5120", 160, 5120))
 
 
 def word_turn_slots(ms: float, rows: int, width: int, turns: int,
                     int_ops_per_s: float, sms: int) -> float:
-    """Issue slots kernel B spends a word of its extended tiles a turn: a
-    pass of `ms` at the card's INT32 rate on the SMs its blocks hold (all
-    of them once the grid has as many blocks as the card has SMs) over
-    the extended words (the 2-D entry's tiles with their ghost frame)
-    times `turns`."""
+    """Issue slots kernel B or D spends a word of its extended tiles a
+    turn (D: a word of one plane; its tile is B's): a pass of `ms` at the
+    card's INT32 rate on the SMs its blocks hold (all of them once the
+    grid has as many blocks as the card has SMs) over the extended words
+    (the 2-D entry's tiles with their ghost frame) times `turns`."""
     from gol_tpu_torch.ops import cuda_bitlife as cb
 
     g = cb._tiled2d_geometry(rows, width, None)
@@ -6357,8 +6365,9 @@ def word_turn_slots(ms: float, rows: int, width: int, turns: int,
 def ab(other: str, card: str, int_ops_per_s: float, sms: int) -> int:
     """`--ab OTHER`: `ab_time` of the other checkout and of this one in
     the order other, this, this, other; then each kernel's mean per
-    checkout and this one's ratio to the other's, and kernel B's issue
-    slots a word-turn (`word_turn_slots`); then, for each kernel
+    checkout and this one's ratio to the other's, and the issue slots
+    of kernels B and D a word-turn (`word_turn_slots`); then, for each
+    kernel
     instantiation, whether the two builds compiled it to the same
     SASS."""
     times: dict = {}
@@ -6442,8 +6451,9 @@ def main() -> int:
     phase("build", f"nvcc {_build.build_seconds:.2f} s -> "
                    f"{_build.library_path().name}; {regs}")
     # The two instantiations of kernels A-E (ILi0E: A's and E's B3/S23
-    # and C's and D's B2/S/C3 column walkers, B's B3/S23 strip walkers,
-    # ILi1E: the run-time masks, E's table), registers and spills.
+    # and C's B2/S/C3 column walkers, B's B3/S23 and D's B2/S/C3 strip
+    # walkers, ILi1E: the run-time masks, E's table), registers and
+    # spills.
     for name in ("bitlife_resident", "bitlife_tiled", "bitgens_resident",
                  "bitgens_tiled", "life_dense"):
         phase("build", f"{name}: {kernel_resources(_build.build_log, name)}")

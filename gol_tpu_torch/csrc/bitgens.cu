@@ -31,10 +31,12 @@
 //    wherever the alive plane's are; the exchange still refreshes every
 //    copy, since the dying planes live in them (B2/S/C3: the alive
 //    plane's ping-pong partner; other rules: the ring's C-2 slots, whose
-//    oldest slot every block advances alike). Each round runs kernel
-//    D's block body on the slab: B2/S/C3 by the column walkers (4 LDS, 1
-//    STS and 20 LOP3/SHF a word-turn, two copies), every other rule by
-//    the run-time masks of gens_turns (C copies). Bound on the H100:
+//    oldest slot every block advances alike). Each round steps the slab:
+//    B2/S/C3 by the column walkers of walk.cuh (4 LDS, 1 STS and 20
+//    LOP3/SHF a word-turn, two copies: a slab wraps its columns exactly,
+//    with no ghost columns, so kernel D's strip layout, which wraps
+//    nothing, does not serve it), every other rule by kernel D's
+//    run-time masks of gens_turns (C copies). Bound on the H100:
 //    integer operations, 12 LOP3/SHF per word-turn for B2/S/C3
 //    (chip_smoke.gens_fewest_instructions) and 15 for B2/S345/C4
 //    (chip_smoke.starwars_fewest_instructions); the bytes are 8 per word
@@ -52,35 +54,41 @@
 //    information across cells, so the garbage that the extended tile's
 //    self-wrap feeds in advances one bit-row and one column per turn, as
 //    for Life; the dying planes are exact wherever the alive plane is.
-//    B2/S/C3 (Brian's Brain) is a template instantiation on kernel B's
-//    column walkers (walk.cuh): a work item is one column of the
-//    extended tile and a segment of its word-rows, the walker keeps a
-//    3x3 window of the alive plane in registers and loads only the row
-//    below each step. The rule has no survive set and one dying state,
-//    so one turn is new alive = [sum9 == 2] & ~alive & ~dying and new
+//    B2/S/C3 (Brian's Brain) runs kernel B's strip walkers (strip.cuh)
+//    with its own finishing form: a work item is a strip of 4 adjacent
+//    columns of the extended tile and a segment of its word-rows, in
+//    kernel B's padded layout (two copies at the strip pitch between
+//    three pads). The rule has no survive set and one dying state, so
+//    one turn is new alive = [sum9 == 2] & ~alive & ~dying and new
 //    dying = old alive: the dying plane is the alive plane's ping-pong
-//    partner. The buffer that turn t writes holds alive(t-1) until the
-//    write — exactly dying(t) — so each walker reads its own word of
-//    that buffer, then overwrites it with the new alive word. Two copies
-//    of the tile (87,040 B at the main path's 34 x 320 words), not three,
-//    so two blocks of 640 threads share an SM; dying(t) = alive(t-1) is
-//    exact wherever alive(t) is, so the light cone is unchanged.
-//    Bound on the H100: integer operations, 12 LOP3/SHF per word-turn
-//    (chip_smoke.gens_fewest_instructions); the bytes are 16 per word
-//    per launch. Spent per word-turn by the walkers: 4 LDS (the next
-//    row of the three columns of the alive plane, and the own dying
-//    word), 1 STS, and 20 LOP3/SHF (the form with each column's sum
-//    formed three times, once by each walker that reads it) plus the
-//    walk's index steps, on the extended tile's words (34x320 per
-//    32x256 interior, a third more). Still left: column sums shared
-//    across lanes, the 1.33x ghost overhead, and generated code for the
-//    other rules, which run the per-word run-time masks (gens_turns, 512
-//    threads, C copies: the alive ping-pong and a ring of the C-2 dying
-//    planes).
+//    partner. Copy 0 is loaded with the alive plane, copy 1 with the
+//    dying plane; the buffer that turn t writes holds alive(t-1) until
+//    the write — exactly dying(t) — so each step reads its strip's own
+//    4 dying words of that buffer (one LDS.128) before it overwrites
+//    them with the 4 new alive words (one STS.128). After n turns the
+//    copy turn n wrote is the alive plane and the other the dying one
+//    (n = 0: copies 0 and 1 as loaded). 90,928 B at the main path's 34 x
+//    320 words, so two blocks of 640 threads share an SM; dying(t) =
+//    alive(t-1) is exact wherever alive(t) is, so the light cone is
+//    unchanged. Bound on the H100: integer operations, 12 LOP3/SHF per
+//    word-turn (chip_smoke.gens_fewest_instructions); the bytes are 16
+//    per word per launch. Spent per word-turn by the strip walkers: 13
+//    LOP3/SHF (6 for the 6 columns' sums over 4 words, 7 to finish)
+//    and, once for 4 words, one LDS.128 of the next row, two LDS.32 of
+//    its edge columns, one LDS.128 of the dying words, one STS.128 and
+//    the walk's index steps, on the extended tile's words (34x320 per
+//    32x256 interior, a third more); the column walkers spent 4 LDS, 1
+//    STS and 20 LOP3/SHF a word-turn. Still left: the tile's load and
+//    store (two planes, a modulo per word on the way in), the 1.33x
+//    ghost overhead, the fill of the card (a 5120^2 board is 100 blocks
+//    on 132 SMs), and generated code for the other rules, which run the
+//    per-word run-time masks (gens_turns, 512 threads, C copies: the
+//    alive ping-pong and a ring of the C-2 dying planes).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "strip.cuh"
 #include "swar.cuh"
 #include "walk.cuh"
 
@@ -122,44 +130,44 @@ __device__ __forceinline__ u32* gens_turns(u32* cur, u32* nxt, u32* ring,
 // (its ping-pong partner in slot 1), dying_j in ring slot j-1.
 __device__ __forceinline__ int load_slot(int q) { return q == 0 ? 0 : q + 1; }
 
-// Kernel D's rule forms: B2/S/C3 by column walkers, or any rule by the
-// per-word run-time masks of gens_turns.
+// Kernel D's rule forms: B2/S/C3 by strip walkers (kernel C: column
+// walkers), or any rule by the per-word run-time masks of gens_turns.
 enum { FORM_BRAIN = 0, FORM_MASKS = 1 };
 
-// Threads per block of kernels D and C: the walkers take up to
-// gol::kWalkThreads (kernel D: two blocks per SM); the masks form
-// kMaskThreads, one block per SM.
+// Threads per block of kernels D and C: D's strip walkers take up to
+// gol::kStripThreads and C's column walkers gol::kWalkThreads (kernel D:
+// two blocks per SM); the masks form kMaskThreads, one block per SM.
 constexpr int kMaskThreads = 512;
 template <int kForm>
 constexpr int kTiledThreads =
-    kForm == FORM_BRAIN ? gol::kWalkThreads : kMaskThreads;
+    kForm == FORM_BRAIN ? gol::kStripThreads : kMaskThreads;
 template <int kForm>
 constexpr int kTiledBlocks = kForm == FORM_BRAIN ? 2 : 1;
+template <int kForm>
+constexpr int kResidentThreads =
+    kForm == FORM_BRAIN ? gol::kWalkThreads : kMaskThreads;
 
 template <int kForm>
 __global__ void __launch_bounds__(kTiledThreads<kForm>, kTiledBlocks<kForm>)
     bitgens_tiled(const u32* __restrict__ in, u32* __restrict__ out,
                   int planes, int rows, int cols, int tile_rows,
                   int tile_cols, int halo, int ghost, int n, u32 birth,
-                  u32 survive, const gol::Walk plan) {
+                  u32 survive, const gol::Strips plan) {
   if constexpr (kForm == FORM_BRAIN) {
     using gol::smem;
-    const int words = plan.words, ec = plan.ec;
     // The alive plane into copy 0, the dying plane into copy 1.
+    const int copy0 = gol::strip_copy(plan, 0);
+    const int copy1 = gol::strip_copy(plan, 1);
     const size_t plane = (size_t)rows * cols;
-    gol::load_tile(in, smem, rows, cols, tile_rows, tile_cols, halo, ghost,
-                   ec, words);
-    gol::load_tile(in + plane, smem + words, rows, cols, tile_rows,
-                   tile_cols, halo, ghost, ec, words);
-    const int cur = gol::walk_turns(
-        plan, n,
-        [](const u32(&nn)[3], const u32(&mm)[3], const u32(&ss)[3], int at) {
-          smem[at] = gol::brain_next(nn, mm, ss, smem[at]);
-        });
+    gol::load_tile(in, smem + copy0, rows, cols, tile_rows, tile_cols, halo,
+                   ghost, plan.pitch, plan.words);
+    gol::load_tile(in + plane, smem + copy1, rows, cols, tile_rows,
+                   tile_cols, halo, ghost, plan.pitch, plan.words);
+    const int cur = gol::strip_turns<gol::BrainStrip>(plan, n);
     gol::store_interior(smem + cur, out, rows, cols, tile_rows, tile_cols,
-                        halo, ghost, ec);
-    gol::store_interior(smem + (words - cur), out + plane, rows, cols,
-                        tile_rows, tile_cols, halo, ghost, ec);
+                        halo, ghost, plan.pitch);
+    gol::store_interior(smem + (copy0 + copy1 - cur), out + plane, rows,
+                        cols, tile_rows, tile_cols, halo, ghost, plan.pitch);
   } else {
     extern __shared__ u32 smem[];
     const int er = tile_rows + 2 * halo;
@@ -200,11 +208,11 @@ __global__ void __launch_bounds__(kTiledThreads<kForm>, kTiledBlocks<kForm>)
   }
 }
 
-// Kernel C: the forms and block sizes of kernel D, run by the resident
-// cluster (walk.cuh) on row slabs with `halo` ghost word-rows and no
-// ghost columns.
+// Kernel C: the forms of kernel D, B2/S/C3 on column walkers, run by
+// the resident cluster (walk.cuh) on row slabs with `halo` ghost
+// word-rows and no ghost columns.
 template <int kForm>
-__global__ void __launch_bounds__(kTiledThreads<kForm>, 1)
+__global__ void __launch_bounds__(kResidentThreads<kForm>, 1)
     bitgens_resident(const u32* __restrict__ in, u32* __restrict__ out,
                      int planes, int rows, int cols, int slab_rows, int halo,
                      int n, u32 birth, u32 survive, const gol::Walk k) {
@@ -256,12 +264,13 @@ extern "C" {
 // Each launcher returns cudaGetLastError() after the launch (0 = the
 // launch was accepted); the Python wrapper raises on anything else.
 // Shared memory: `planes` + 1 copies of the (extended) board or slab,
-// two for the B2/S/C3 forms of kernels C and D.
+// two for the B2/S/C3 forms of kernels C and D (D's at the strip pitch,
+// between three pads).
 
 // Kernel C runs the cluster plan (as kernel A) in kernel D's forms:
-// B2/S/C3 on the walkers with `threads` and `seg_rows` over two copies
-// of the slab, every other rule on the masks with kMaskThreads over
-// `planes` + 1 copies. A plan or block size the kernel does not run is
+// B2/S/C3 on the column walkers with `threads` and `seg_rows` over two
+// copies of the slab, every other rule on the masks with kMaskThreads
+// over `planes` + 1 copies. A plan or block size the kernel does not run is
 // refused (cudaErrorInvalidValue), as is a cluster the card cannot
 // schedule (by the launch).
 int bitgens_resident_launch(const void* in, void* out, int planes, int rows,
@@ -289,22 +298,28 @@ int bitgens_resident_launch(const void* in, void* out, int planes, int rows,
 }
 
 // Kernel D picks its instantiation from the rule: B2/S/C3 (two planes,
-// birth {2}, survive {}) runs the walkers on `threads` (at most
-// gol::kWalkThreads) and `seg_rows` over two copies of the tile, every
-// other rule the masks on kMaskThreads over `planes` + 1 copies.
+// birth {2}, survive {}) runs the strip walkers on `threads` (at most
+// gol::kStripThreads) in `segs` segments a strip over two copies of the
+// tile at the strip pitch, every other rule the masks on kMaskThreads
+// over `planes` + 1 copies.
 int bitgens_tiled_launch(const void* in, void* out, int planes, int rows,
                          int cols, int tile_rows, int tile_cols, int halo,
                          int ghost, int n, unsigned birth, unsigned survive,
-                         int threads, int seg_rows, void* stream) {
+                         int threads, int segs, void* stream) {
   const bool brain = planes == 2 && birth == (1u << 2) && survive == 0;
   void (*kernel)(const u32*, u32*, int, int, int, int, int, int, int, int,
-                 u32, u32, const gol::Walk) =
+                 u32, u32, const gol::Strips) =
       brain ? bitgens_tiled<FORM_BRAIN> : bitgens_tiled<FORM_MASKS>;
   if (!brain) threads = kMaskThreads;
-  if (threads > gol::kWalkThreads) return (int)cudaErrorInvalidValue;
-  const gol::Walk k = gol::make_walk(tile_rows, tile_cols, halo, ghost,
-                                     threads, seg_rows);
-  const size_t smem = sizeof(u32) * (size_t)(brain ? 2 : planes + 1) * k.words;
+  if (threads > gol::kStripThreads || segs < 1 ||
+      segs > tile_rows + 2 * halo)
+    return (int)cudaErrorInvalidValue;
+  const gol::Strips k = gol::make_strips(tile_rows, tile_cols, halo, ghost,
+                                         threads, segs);
+  const size_t smem =
+      brain ? gol::strip_smem_bytes(k)
+            : sizeof(u32) * (size_t)(planes + 1) * (tile_rows + 2 * halo) *
+                  (tile_cols + 2 * ghost);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;

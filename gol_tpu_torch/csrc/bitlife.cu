@@ -145,7 +145,7 @@ __global__ void __launch_bounds__(kTiledThreads<kForm>, 2)
     using gol::smem;
     load_tile(in, smem + gol::strip_copy(k, 0), rows, cols, tile_rows,
               tile_cols, halo, ghost, k.pitch, k.words);
-    const int cur = gol::strip_turns(k, n);
+    const int cur = gol::strip_turns<gol::LifeStrip>(k, n);
     store_interior(smem + cur, out, rows, cols, tile_rows, tile_cols, halo,
                    ghost, k.pitch);
   } else {

@@ -1,9 +1,10 @@
 // Strip walkers over a tile in dynamic shared memory: the B3/S23 body of
-// kernel B (bitlife.cu) alone. The column walkers of walk.cuh, which
-// kernels A, C, D and E keep, form each column's vertical sum three
-// times, once for each word that reads it; a strip walker forms it once
-// for the W words of its strip, and moves those words as one 16-byte
-// shared-memory access.
+// kernel B (bitlife.cu) and the B2/S/C3 body of kernel D (bitgens.cu),
+// one walk with the rule's finishing form as a template argument. The
+// column walkers of walk.cuh, which kernels A, C and E keep, form each
+// column's vertical sum three times, once for each word that reads it; a
+// strip walker forms it once for the W words of its strip, and moves
+// those words as one 16-byte shared-memory access.
 //
 // A block holds the extended tile (its interior plus ghost word-rows and
 // ghost columns, toroidal indices modulo the board) in two copies, `cur`
@@ -13,6 +14,10 @@
 // between three pads of a row and a strip each, which nothing writes:
 //
 //   [pad][copy 0: er x pitch][pad][copy 1: er x pitch][pad]
+//
+// Kernel B loads the board into copy 0; kernel D loads the alive plane
+// into copy 0 and the dying plane into copy 1, and its step reads the
+// strip's own dying words from the row it is about to overwrite (below).
 //
 // Within a turn, a work item is one strip s — columns W*s .. W*s+W-1 —
 // and one of `segs` segments of consecutive word-rows of it, their
@@ -25,9 +30,10 @@
 //   1. forms the (sum, carry) of the vertical triple of each of the W+2
 //      columns of row r once (swar.cuh col_sum: 2 SHF, 2 LOP3);
 //   2. finishes each of the W words of row r from the three column sums
-//      around it (life_of_sums: 8 LOP3, written out as LOP3s), so a word
-//      costs 12 + 8/W LOP3/SHF, 14 at W = 4, against the column walkers'
-//      20;
+//      around it: B3/S23 in 8 LOP3 (life_of_sums), so a word costs 12 +
+//      8/W LOP3/SHF, 14 at W = 4, against the column walkers' 20;
+//      B2/S/C3 in 7 (brain_of_sums) after one LDS.128 of the strip's W
+//      dying words, 13 a word against 20;
 //   3. loads row r+2 of the strip (one LDS.128) and of its edge columns
 //      (two LDS.32) into the registers row r-1 held;
 //   4. stores the W results with one STS.128 and moves both pointers
@@ -37,7 +43,7 @@
 // no bank conflict); the edge loads, 16 bytes apart from lane to lane,
 // fall 4 to a bank (4 wavefronts each). A step's 16 wavefronts a warp
 // stay under its 28 cycles of the SM's LOP3/SHF issue, which bounds the
-// step.
+// step (B2/S/C3: 20 wavefronts, with the dying words, under 26 cycles).
 //
 // Nothing wraps within the tile: a strip's west edge at column 0 is the
 // word before it in memory (the previous row's last word, or a pad), its
@@ -46,7 +52,9 @@
 // extended tile's outermost column and bit-row are garbage after one
 // turn whatever their neighbours hold (the light cone, bitlife.cu): the
 // garbage advances one column and one bit-row a turn and reaches the
-// interior only after `ghost` turns and 32*halo turns. So the turn loop
+// interior only after `ghost` turns and 32*halo turns (kernel D's dying
+// words are read only by their own word's step, so they carry nothing
+// across words and the cone is the alive plane's). So the turn loop
 // wraps nothing and divides nothing, every access has a fixed offset
 // from one of two pointers, and only the thread that owns a word of
 // `nxt` writes it: one barrier per turn is all the synchronisation.
@@ -153,23 +161,70 @@ __device__ __forceinline__ u32 life_of_sums(ColSum w, ColSum x, ColSum e,
   return lop3<0xE0>(g, alive, z0);           // 3, or 4 with the centre alive
 }
 
-// Next B3/S23 values of the strip's W words of row r, from rows r-1 (n),
-// r (m) and r+1 (s): each column's sum once, then each word from the
-// three around it.
+// The finishing forms of a strip step: the next values of the strip's W
+// words of row r from the column sums c[0..W+1] of its W+2 columns, the
+// row's words m (m[1..W] the strip) and `dst`, the strip's W words of row
+// r in the copy the step writes, which only this thread reads or writes.
+
+// B3/S23 (kernel B): each word from the three column sums around it.
+struct LifeStrip {
+  __device__ __forceinline__ uint4 operator()(
+      const ColSum (&c)[kStripCols + 2], const u32 (&m)[kStripCols + 2],
+      const u32*) const {
+    return {life_of_sums(c[0], c[1], c[2], m[1]),
+            life_of_sums(c[1], c[2], c[3], m[2]),
+            life_of_sums(c[2], c[3], c[4], m[3]),
+            life_of_sums(c[3], c[4], c[5], m[4])};
+  }
+};
+
+// Next B2/S/C3 alive value of a word from the column sums around it, its
+// alive word and its dying word, in 7 LOP3: birth needs a dead centre,
+// where sum9 = z0 + 2 (c0 + a) + 4 w4 is the neighbour count, so
+// next = [sum9 == 2] & ~alive & ~dying = (c0 ^ a) & ~w4 & ~z0 & ~alive
+// & ~dying.
+__device__ __forceinline__ u32 brain_of_sums(ColSum w, ColSum x, ColSum e,
+                                             u32 alive, u32 dying) {
+  const u32 z0 = lop3<0x96>(w.s, x.s, e.s);  // sum9 bit 0
+  const u32 c0 = lop3<0xE8>(w.s, x.s, e.s);  // its carry (weight 2)
+  const u32 a = lop3<0x96>(w.c, x.c, e.c);   // weight-2 parity
+  const u32 w4 = lop3<0xE8>(w.c, x.c, e.c);  // weight-4 carry
+  const u32 two = lop3<0x14>(c0, a, w4);     // (c0 ^ a) & ~w4
+  const u32 dead = lop3<0x01>(z0, alive, dying);  // ~z0 & ~alive & ~dying
+  return lop3<0xC0>(two, dead, 0);
+}
+
+// B2/S/C3 (kernel D): the copy the step writes holds alive(t-1), which is
+// dying(t), until the step overwrites it; one LDS.128 reads the strip's W
+// dying words there.
+struct BrainStrip {
+  __device__ __forceinline__ uint4 operator()(
+      const ColSum (&c)[kStripCols + 2], const u32 (&m)[kStripCols + 2],
+      const u32* dst) const {
+    const uint4 dying = *reinterpret_cast<const uint4*>(dst);  // LDS.128
+    return {brain_of_sums(c[0], c[1], c[2], m[1], dying.x),
+            brain_of_sums(c[1], c[2], c[3], m[2], dying.y),
+            brain_of_sums(c[2], c[3], c[4], m[3], dying.z),
+            brain_of_sums(c[3], c[4], c[5], m[4], dying.w)};
+  }
+};
+
+// Next values of the strip's W words of row r, from rows r-1 (n), r (m)
+// and r+1 (s): each column's sum once, then each word by Finish.
+template <typename Finish>
 __device__ __forceinline__ uint4 next_strip(const u32 (&n)[kStripCols + 2],
                                             const u32 (&m)[kStripCols + 2],
-                                            const u32 (&s)[kStripCols + 2]) {
+                                            const u32 (&s)[kStripCols + 2],
+                                            const u32* dst) {
   ColSum c[kStripCols + 2];
 #pragma unroll
   for (int j = 0; j < kStripCols + 2; ++j) c[j] = col_sum(n[j], m[j], s[j]);
-  return {life_of_sums(c[0], c[1], c[2], m[1]),
-          life_of_sums(c[1], c[2], c[3], m[2]),
-          life_of_sums(c[2], c[3], c[4], m[3]),
-          life_of_sums(c[3], c[4], c[5], m[4])};
+  return Finish()(c, m, dst);
 }
 
 // One turn of one work item: strip s, word-rows r0..r1-1 of the copy at
-// word `cur`, written to the copy at word `nxt`.
+// word `cur`, written to the copy at word `nxt` in the form Finish.
+template <typename Finish>
 __device__ __forceinline__ void strip_walk(const Strips k, int cur, int nxt,
                                            int s, int r0, int r1) {
   const int pitch = k.pitch;
@@ -189,7 +244,7 @@ __device__ __forceinline__ void strip_walk(const Strips k, int cur, int nxt,
                   const u32(&mm)[kStripCols + 2],
                   const u32(&ss)[kStripCols + 2],
                   u32(&free)[kStripCols + 2]) {
-    const uint4 o = next_strip(nn, mm, ss);
+    const uint4 o = next_strip<Finish>(nn, mm, ss, dst);
     const bool more = --left != 0;
     if (more) {
       load_strip_row(src, free);
@@ -206,8 +261,10 @@ __device__ __forceinline__ void strip_walk(const Strips k, int cur, int nxt,
 }
 
 // n turns of the extended tile loaded into copy 0, by the block's strip
-// walkers (one barrier before the first turn and after each). Returns
-// the offset of the copy that turn n wrote (copy 0's when n is 0).
+// walkers in the form Finish (one barrier before the first turn and after
+// each). Returns the offset of the copy that turn n wrote (copy 0's when
+// n is 0).
+template <typename Finish>
 __device__ __forceinline__ int strip_turns(const Strips k, int n) {
   int cur = strip_copy(k, 0), nxt = strip_copy(k, 1);
   // Work items (strip s, segment g), item i = g * strips + s, strided
@@ -220,7 +277,7 @@ __device__ __forceinline__ int strip_turns(const Strips k, int n) {
   for (int t = 0; t < n; ++t) {
     for (int s = strip0, g = seg0; g < k.segs;) {
       const int r0 = g * k.q + min(g, k.rem);
-      strip_walk(k, cur, nxt, s, r0, r0 + k.q + (g < k.rem));
+      strip_walk<Finish>(k, cur, nxt, s, r0, r0 + k.q + (g < k.rem));
       s += k.dstrip;
       g += k.dseg;
       if (s >= k.strips) {

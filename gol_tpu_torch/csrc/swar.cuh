@@ -12,7 +12,8 @@
 // One build serves every rule. `life_next` is B3/S23 alone and
 // `brain_next` B2/S/C3 alone, each as a nine-cell sum over a 3x3 window
 // in registers (the column walkers of walk.cuh); `col_sum` is one
-// column's vertical sum, kernel B's strip walkers' (strip.cuh).
+// column's vertical sum, the strip walkers' of kernels B and D
+// (strip.cuh).
 
 #pragma once
 
@@ -105,9 +106,9 @@ __device__ __forceinline__ u32 maj(u32 a, u32 b, u32 c) {
 // Bits 0 and 1 of a column's vertical triple sums: for each bit of the
 // centre word m, the cell above it, itself and the cell below it (n and
 // s bring in the words above and below), in 2 SHF and 2 LOP3: the column
-// sums of sum9 below, one column at a time (kernel B's strip walkers,
-// strip.cuh). sum9 keeps its own loop, the code kernels A, C and D are
-// measured with.
+// sums of sum9 below, one column at a time (the strip walkers of
+// kernels B and D, strip.cuh). sum9 keeps its own loop, the code kernels
+// A and C are measured with.
 struct ColSum {
   u32 s, c;
 };
@@ -163,7 +164,9 @@ __device__ __forceinline__ u32 life_next(const u32 (&n)[3], const u32 (&m)[3],
 // of chip_smoke.gens_fewest_instructions: birth needs a dead centre, so
 // the nine-cell sum is the neighbour count wherever it matters, and
 // next = [sum9 == 2] & ~alive & ~dying. (The next dying word is the
-// alive word itself: the survive set is empty.)
+// alive word itself: the survive set is empty.) Kernel C's column
+// walkers spend 20 instructions a word here; kernel D's strip walkers
+// (strip.cuh, brain_of_sums) 13.
 __device__ __forceinline__ u32 brain_next(const u32 (&n)[3],
                                           const u32 (&m)[3],
                                           const u32 (&s)[3], u32 dying) {

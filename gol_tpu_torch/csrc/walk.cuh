@@ -1,10 +1,10 @@
 // Column walkers over a tile in dynamic shared memory, shared by the
-// B3/S23 form of kernel A (bitlife.cu), the B2/S/C3 forms of kernels C
-// and D (bitgens.cu) and kernel E (life.cu, whose words are 4 horizontal
-// byte cells, so its window's rows are single rows; kernel B's B3/S23
-// form walks strips instead, strip.cuh); the tile's load and store,
-// which kernel B shares too; and the thread-block cluster that runs
-// kernels A and C (the end of this file).
+// B3/S23 form of kernel A (bitlife.cu), the B2/S/C3 form of kernel C
+// (bitgens.cu) and kernel E (life.cu, whose words are 4 horizontal byte
+// cells, so its window's rows are single rows; kernel B's B3/S23 form
+// and kernel D's B2/S/C3 form walk strips instead, strip.cuh); the
+// tile's load and store, which kernels B and D share too; and the
+// thread-block cluster that runs kernels A and C (the end of this file).
 //
 // A block holds an extended tile (its interior plus ghost word-rows and
 // ghost columns, toroidal indices modulo the board) in two copies, `cur`

@@ -14,8 +14,8 @@ bit-exact against the plain version `ops.bitgens.step_n_packed_gens_raw`:
   plane — every plane carries the ghost frame, k <= min(32*halo, ghost)
   turns per launch. Replaces `step_n_packed_gens_pallas_tiled_raw` and
   `step_n_packed_gens_pallas_tiled2d_raw`; both keep their names and
-  override knobs, and share kernel B's tile plans, walk plan and pass
-  loop.
+  override knobs, and share kernel B's tile plans, strip plan
+  (`cb._strip_plan`) and pass loop.
 
 Shared memory holds C copies of the (extended) board: the alive plane
 ping-pongs, the C-2 dying planes sit in a ring whose oldest slot takes
@@ -23,10 +23,14 @@ each turn's new youngest dying plane (csrc/bitgens.cu). At 512² a plane
 is 32 KiB, so kernel C takes C <= 7 there (C = 7: 224 KiB, which its
 cluster spreads over 8 blocks of 56 KiB with their ghost rows; the gate
 is the one-block board, the plan of any board that passes it). Kernel
-C's slabs and kernel D's tiles are
-planned for C copies (`TileGeometry.copies`), and B2/S/C3 allocates two
-of them: its column walkers (`cb._walk_plan`) keep the one dying plane
-in the alive plane's ping-pong partner.
+C's slabs and kernel D's tiles are planned for C copies
+(`TileGeometry.copies`, `cb._smem_need`), and B2/S/C3 allocates two
+of them (in the strip layout, which three copies hold): the one dying
+plane lives in the alive plane's ping-pong partner. Kernel C steps
+B2/S/C3 by column walkers (`cb._walk_plan`); kernel D by kernel B's
+strip walkers (`cb._strip_plan`) in their padded layout, two copies at
+the strip pitch between three pads, each step reading its strip's dying
+words from the row it overwrites.
 
 Wrappers: a CPU tensor runs the plain version; a CUDA tensor launches
 the kernel (after device, dtype, shape and contiguity checks) or raises
@@ -113,7 +117,7 @@ def _tiled_pass(src: torch.Tensor, dst: torch.Tensor, k: int,
     cb._launch(LAUNCHES, "bitgens_tiled", src, src.data_ptr(), dst.data_ptr(),
                nplanes, rows, cols, geom.tile_rows, geom.tile_cols,
                geom.halo, geom.ghost, k, *cb.rule_bits(rule),
-               *cb._walk_plan(geom))
+               *cb._strip_plan(geom))
     return dst
 
 

@@ -50,15 +50,15 @@ from gol_tpu_torch.ops.life import from_bits, to_bits
 
 #: Dynamic shared memory one block may use on the H100 (227 KB).
 SMEM_BYTES = 232_448
-#: The most column walkers of a block of kernels A, C and D (`kWalkThreads`
+#: The most column walkers of a block of kernels A, C and E (`kWalkThreads`
 #: in csrc/walk.cuh, whose launchers refuse more; their other rules run a
 #: fixed 512).
 WALK_THREADS = 640
-#: Columns of a kernel-B strip walker's work item (`kStripCols` in
-#: csrc/strip.cuh): one 16-byte shared-memory access a row.
+#: Columns of a strip walker's work item, kernels B and D (`kStripCols`
+#: in csrc/strip.cuh): one 16-byte shared-memory access a row.
 STRIP_COLS = 4
-#: The most strip walkers of a block of kernel B (`kStripThreads` in
-#: csrc/strip.cuh, whose launcher refuses more).
+#: The most strip walkers of a block of kernels B and D (`kStripThreads`
+#: in csrc/strip.cuh, whose launchers refuse more).
 STRIP_THREADS = 640
 #: Shortest segment of a strip walker that is not a whole strip, in
 #: word-rows (its three-row prologue spread over at least 4).
@@ -276,14 +276,15 @@ class TileGeometry:
 
 
 def _strip_pitch(geom: TileGeometry) -> int:
-    """Row pitch in words of kernel B's extended tile for its strip
-    walkers: the width rounded up to whole strips of STRIP_COLS."""
+    """Row pitch in words of the extended tile of kernels B and D for
+    their strip walkers: the width rounded up to whole strips of
+    STRIP_COLS."""
     ec = geom.tile_cols + 2 * geom.ghost
     return -(-ec // STRIP_COLS) * STRIP_COLS
 
 
 def _strip_smem_bytes(geom: TileGeometry) -> int:
-    """Shared memory of kernel B's strip layout (csrc/strip.cuh): two
+    """Shared memory of the strip layout (csrc/strip.cuh): two
     copies of the extended tile at the strip pitch, and three pads of a
     row and a strip each."""
     pitch = _strip_pitch(geom)
@@ -294,7 +295,8 @@ def _strip_smem_bytes(geom: TileGeometry) -> int:
 def _smem_need(geom: TileGeometry) -> int:
     """Shared memory a block of the tiled kernel takes: kernel B's (two
     copies) the strip layout, which holds its masks form's too; kernel
-    D's its `copies` copies."""
+    D's its `copies` copies, which for B2/S/C3 (three) hold its strip
+    layout of two."""
     return _strip_smem_bytes(geom) if geom.copies == 2 else geom.smem_bytes
 
 
@@ -350,7 +352,7 @@ def _tile_plan(rows: int, width: int, strip_rows: int | None,
 
 
 def _walk_plan(geom: TileGeometry) -> tuple:
-    """(threads, seg_rows) of the column walkers of kernels A, D and E on
+    """(threads, seg_rows) of the column walkers of kernels A, C and E on
     `geom`'s extended tile: a work item is one column and a segment of
     seg_rows word-rows (the last segment takes the rest). Whole columns
     where they fill the block; else the rows split into as many equal
@@ -367,9 +369,10 @@ def _walk_plan(geom: TileGeometry) -> tuple:
 
 
 def _strip_plan(geom: TileGeometry) -> tuple:
-    """(threads, segs) of kernel B's strip walkers on `geom`'s extended
-    tile at the strip pitch (`_strip_pitch`): a work item is one strip
-    of STRIP_COLS columns and one of `segs` segments of its word-rows,
+    """(threads, segs) of the strip walkers of kernels B and D on
+    `geom`'s extended tile at the strip pitch (`_strip_pitch`): a work
+    item is one strip of STRIP_COLS columns and one of `segs` segments
+    of its word-rows,
     the first er % segs of them one row longer than the rest. The rows
     split into as many segments as fill STRIP_THREADS, each at least
     MIN_STRIP_ROWS long, or whole strips. The kernel strides the items

@@ -1,9 +1,11 @@
-"""Kernel D's B2/S/C3 form (csrc/bitgens.cu on the walkers of
-csrc/walk.cuh) on the CPU: the two-copy recurrence it runs, written in
-plain torch, equals the port's plain planes and gol_tpu's plain and
-Pallas (interpret mode) planes; the wrapper hands the walk plan to the
+"""The B2/S/C3 form of kernels C and D (csrc/bitgens.cu: C on the
+column walkers of csrc/walk.cuh, D on the strip walkers of
+csrc/strip.cuh, whose layout tests/test_torch_tiled_walk.py emulates)
+on the CPU: the two-copy recurrence both run, written in plain torch,
+equals the port's plain planes and gol_tpu's plain and Pallas
+(interpret mode) planes; the wrapper hands kernel D's strip plan to the
 launcher; the launcher's choice of form matches the rule's kernel
-arguments; the walk's turn loop divides nothing. The kernel itself runs
+arguments; neither walk's turn loop divides. The kernels themselves run
 on the card (chip_smoke.py)."""
 
 import importlib.util
@@ -92,10 +94,11 @@ def test_two_copy_recurrence_matches_pallas_tiled2d(n):
 
 @pytest.mark.parametrize("notation", ["B2/S/C3", "B2/S345/C4"])
 def test_tiled_pass_hands_the_plan_to_the_launcher(monkeypatch, notation):
-    """A tensor on the card goes to `bitgens_tiled_launch` with the walk
-    plan last, in the order and number of the C signature (less the
-    stream, which `_launch` adds); the launcher runs the masks form of
-    every rule but B2/S/C3 on its own block size."""
+    """A tensor on the card goes to `bitgens_tiled_launch` with the strip
+    walkers' plan last, in the order and number of the C signature (less
+    the stream, which `_launch` adds); the launcher runs the masks form
+    of every rule but B2/S/C3 on its own block size, and reads the plan
+    for B2/S/C3 alone."""
     seen = []
     monkeypatch.setattr(cb, "_check_pass", lambda src, dst, check: None)
     monkeypatch.setattr(cb, "_launch", lambda launches, name, like, *args:
@@ -110,7 +113,7 @@ def test_tiled_pass_hands_the_plan_to_the_launcher(monkeypatch, notation):
     assert len(args) + 1 == len(_build._SIGNATURES["bitgens_tiled_launch"])
     assert args[2:10] == (rule.states - 1, 512, 16384, 32, 256, 1, 32, 32)
     assert args[10:12] == cb.rule_bits(rule)
-    assert args[-2:] == cb._walk_plan(geom) == (640, 17)
+    assert args[-2:] == cb._strip_plan(geom) == (640, 8)
 
 
 def test_launcher_picks_the_walkers_for_brians_brain_only():
@@ -149,3 +152,14 @@ def test_walk_turn_loop_divides_nothing():
     turns = _body(src, "for (int t = 0; t < n; ++t)")
     for body in (walk, turns):
         assert "/" not in body and "%" not in body
+
+
+def test_strip_turn_loop_divides_nothing():
+    """Kernel D's strip walkers likewise: a step, B2/S/C3's finishing
+    form and the turn loop hold no division or modulo."""
+    src = _code((CSRC / "strip.cuh").read_text())
+    for head in ("__device__ __forceinline__ void strip_walk(",
+                 "for (int t = 0; t < n; ++t)", "struct BrainStrip",
+                 "u32 brain_of_sums("):
+        body = _body(src, head)
+        assert "/" not in body and "%" not in body, head

@@ -1,14 +1,14 @@
-"""The walk plans of kernels B and D on the CPU: kernel B's strip
-walkers (ops/cuda_bitlife._strip_plan) and kernel D's column walkers
-(ops/cuda_bitlife._walk_plan), their work items enumerated as
+"""The walk plans of kernels B and D on the CPU: their strip walkers
+(ops/cuda_bitlife._strip_plan) and the column walkers of kernels A, C
+and E (ops/cuda_bitlife._walk_plan), their work items enumerated as
 csrc/strip.cuh, csrc/walk.cuh and the launchers enumerate them, cover
 every word of the extended tile exactly once at every geometry the
 entry points build; the block size and segment lengths keep the
-kernels' limits; kernel B's shared-memory layout (strip pitch, pads that
-nothing writes, no wrap within the tile), emulated word for word, keeps
-a launch's interior exact; the wrapper hands the plan to the launcher in
-the C signature's order. The kernels themselves run on the card
-(chip_smoke.py)."""
+kernels' limits; the strip layout (strip pitch, pads that nothing
+writes, no wrap within the tile), emulated word for word for kernel B's
+B3/S23 and kernel D's B2/S/C3, keeps a launch's interior exact; the
+wrapper hands the plan to the launcher in the C signature's order. The
+kernels themselves run on the card (chip_smoke.py)."""
 
 import dataclasses
 import importlib.util
@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from gol_tpu_torch.models.rules import get_rule
-from gol_tpu_torch.ops import _build, bitlife, life
+from gol_tpu_torch.ops import _build, bitgens, bitlife, life
 from gol_tpu_torch.ops import cuda_bitlife as cb
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -53,8 +53,9 @@ GEOMETRIES = [
 ]
 
 
-#: Kernel B's geometries (two copies: the strip walkers) and kernel D's
-#: (the column walkers).
+#: Kernel B's geometries (two copies) and kernel D's (planned for three):
+#: both walk strips; the column walkers' plan, kernels A, C and E's, is
+#: held on kernel D's tiles as well.
 LIFE = [g for g in GEOMETRIES if g[1].copies == 2]
 GENS = [g for g in GEOMETRIES if g[1].copies != 2]
 
@@ -116,7 +117,8 @@ def strip_cover(geom, threads, segs):
     return hits, lengths
 
 
-@pytest.mark.parametrize("name,geom", LIFE, ids=[g[0] for g in LIFE])
+@pytest.mark.parametrize("name,geom", LIFE + GENS,
+                         ids=[g[0] for g in LIFE + GENS])
 def test_strip_plan_covers_tile_once(name, geom):
     threads, segs = cb._strip_plan(geom)
     er, ec = extended(geom)
@@ -132,8 +134,9 @@ def test_strip_plan_covers_tile_once(name, geom):
     # Never a whole warp of idle threads.
     items = pitch // cb.STRIP_COLS * segs
     assert threads - items < 32 or items > cb.STRIP_THREADS
-    # The layout of two copies and three pads fits one block.
-    assert cb._strip_smem_bytes(geom) <= cb.SMEM_BYTES
+    # The layout of two copies and three pads fits one block, within
+    # what the plan that chose the tile counted.
+    assert cb._strip_smem_bytes(geom) <= cb._smem_need(geom) <= cb.SMEM_BYTES
 
 
 @pytest.mark.parametrize("threads", [32, 96, 160])
@@ -161,11 +164,13 @@ def test_walk_plan_covers_tile_once(name, geom):
 
 
 def test_walk_plan_main_geometry():
-    """34 x 320 words at 16384² and 5120²: kernel B's strip walkers take
-    80 strips x 8 segments (2 of 5 word-rows, 6 of 4), 640 threads, two
-    blocks of 90,928 bytes per SM (two copies of 34 x 320 words and three
-    pads of 324); the column walkers' plan of the same tile (kernel D's)
-    is 320 columns x 2 segments of 17 word-rows, 640 threads."""
+    """34 x 320 words at 16384² and 5120²: the strip walkers of kernels
+    B and D take 80 strips x 8 segments (2 of 5 word-rows, 6 of 4), 640
+    threads, two blocks of 90,928 bytes per SM (two copies of 34 x 320
+    words and three pads of 324); kernel D's tile, planned for three
+    copies (130,560 bytes), is the same tile; the column walkers' plan of
+    the same tile is 320 columns x 2 segments of 17 word-rows, 640
+    threads."""
     for rows, width in ((512, 16384), (160, 5120)):
         geom = cb._tiled2d_geometry(rows, width, None)
         assert extended(geom) == (34, 320)
@@ -174,13 +179,17 @@ def test_walk_plan_main_geometry():
         assert cb._strip_smem_bytes(geom) == 4 * (2 * 34 * 320 + 3 * 324)
         assert 2 * cb._strip_smem_bytes(geom) <= 232_448 - 2 * 1024
         assert cb._walk_plan(geom) == (640, 17)
+        gens = cb._tiled2d_geometry(rows, width, None, 3)
+        assert dataclasses.replace(gens, copies=2) == geom
+        assert cb._smem_need(gens) == 3 * 4 * 34 * 320
+        assert cb._strip_plan(gens) == (640, 8)
     assert cb._strip_plan(cb._tile_plan(512, 16384, None, None)) == (640, 8)
 
 
 def test_walk_plan_more_items_than_threads():
-    """The deepest halo's 24 x 768 words: the column walkers (kernel D's
-    plan) have more items than threads; kernel B's 192 strips x 3
-    segments of 8 word-rows fill 576 threads."""
+    """The deepest halo's 24 x 768 words: the column walkers have more
+    items than threads; the strip walkers' 192 strips x 3 segments of 8
+    word-rows fill 576 threads."""
     geom = cb._tile_plan(512, 16384, 8, 8)
     er, ec = extended(geom)
     assert (er, ec) == (24, 768)
@@ -197,10 +206,11 @@ def test_strip_pitch_pads_to_whole_strips():
     assert cb._strip_plan(geom) == (416, 8)
 
 
-def life_of_window(win, pitch):
-    """Next B3/S23 words of `win(dr, dc)` — the words dr rows and dc
-    words away in memory — in csrc/swar.cuh's form: each column's
-    (sum, carry), then sum3 and life_of."""
+def sums_of_window(win, pitch):
+    """(z0, c0, a, w4) of the nine-cell sums of the words `win(0, dc)`
+    for dc = 0 — `win(dr, dc)` the words dr rows and dc words away in
+    memory — in csrc/swar.cuh's form: each column's (sum, carry), then
+    sum9 = z0 + 2 (c0 + a) + 4 w4 (bit 3, a sum of 8 or 9, not formed)."""
     def col_sum(dc):
         n, m, s = win(-pitch, dc), win(0, dc), win(pitch, dc)
         up = (m << np.uint32(1)) | (n >> np.uint32(31))
@@ -212,50 +222,76 @@ def life_of_window(win, pitch):
     c0 = (ws & xs) | (ws & es) | (xs & es)
     a = wc ^ xc ^ ec
     w4 = (wc & xc) | (wc & ec) | (xc & ec)
+    return z0, c0, a, w4
+
+
+def life_of_window(win, pitch):
+    """Next B3/S23 words of `win`, as csrc/strip.cuh life_of_sums."""
+    z0, c0, a, w4 = sums_of_window(win, pitch)
     b1 = a ^ c0
     b2 = w4 ^ (a & c0)
     g = (z0 & b1 & ~b2) | (~z0 & ~b1 & b2)
     return g & (win(0, 0) | z0)
 
 
-def strip_launch(p, geom, n, seed):
-    """One launch of kernel B's B3/S23 form on the CPU in its shared-
-    memory layout (csrc/strip.cuh): for each tile, random words in the
-    pads and the second copy, the extended tile loaded into copy 0 at
-    the strip pitch (toroidal indices modulo the board), n turns in
-    which every word of the copy at word `cur` is stepped from the 3 x 3
-    words around it in memory — no wrap within the tile, pads and the
-    neighbouring rows read as they are — into the other copy, then the
-    interior stored where it lies on the board."""
+def brain_of_window(win, pitch, dying):
+    """Next B2/S/C3 alive words of `win` given their dying words, as
+    csrc/strip.cuh brain_of_sums: [sum9 == 2] on a dead cell."""
+    z0, c0, a, w4 = sums_of_window(win, pitch)
+    return (c0 ^ a) & ~w4 & ~z0 & ~win(0, 0) & ~dying
+
+
+def strip_launch(p, geom, n, seed, brain=False):
+    """One launch of a strip walkers' form on the CPU in its shared-
+    memory layout (csrc/strip.cuh): kernel B's B3/S23 on a packed board,
+    or (`brain`) kernel D's B2/S/C3 on a stack of (alive, dying) planes.
+    For each tile, random words in the pads (and, for B3/S23, the second
+    copy), the extended tile of plane q loaded into copy q at the strip
+    pitch (toroidal indices modulo the board), n turns in which every
+    word of the copy at word `cur` is stepped from the 3 x 3 words around
+    it in memory — no wrap within the tile, pads and the neighbouring
+    rows read as they are; B2/S/C3 also reads the word it overwrites as
+    its dying word — into the other copy, then the interior of the copy
+    turn n wrote (and, for B2/S/C3, of the other, the dying plane) stored
+    where it lies on the board."""
     rng = np.random.default_rng(seed)
-    board = p.numpy().view(np.uint32)
-    rows, cols = board.shape
+    planes = p.numpy().view(np.uint32)
+    if not brain:
+        planes = planes[None]
+    _, rows, cols = planes.shape
     er = geom.tile_rows + 2 * geom.halo
     pitch = cb._strip_pitch(geom)
     words, pad = er * pitch, pitch + cb.STRIP_COLS
-    out = np.zeros_like(board)
+    out = np.zeros_like(planes)
     at = np.arange(words)
     # A copy's reads stay within its own pads, away from the other copy.
     assert -pad <= -pitch - 1 and words + pitch + 1 <= words + pad
+    copies = (pad, 2 * pad + words)
     for r0 in range(0, rows, geom.tile_rows):
         for c0 in range(0, cols, geom.tile_cols):
             mem = rng.integers(0, 2**32, 2 * words + 3 * pad,
                                dtype=np.uint32)
             assert mem.size * 4 == cb._strip_smem_bytes(geom)
-            cur, nxt = pad, 2 * pad + words
             tr = (r0 - geom.halo + np.arange(er)) % rows
             tc = (c0 - geom.ghost + np.arange(pitch)) % cols
-            mem[cur:cur + words] = board[np.ix_(tr, tc)].ravel()
+            for q, plane in enumerate(planes):
+                mem[copies[q]:copies[q] + words] = plane[np.ix_(tr, tc)].ravel()
+            cur, nxt = copies
             for _ in range(n):
-                mem[nxt + at] = life_of_window(
-                    lambda dr, dc: mem[cur + at + dr + dc], pitch)
+                def win(dr, dc):
+                    return mem[cur + at + dr + dc]
+
+                mem[nxt + at] = (brain_of_window(win, pitch, mem[nxt + at])
+                                 if brain else life_of_window(win, pitch))
                 cur, nxt = nxt, cur
-            tile = mem[cur:cur + words].reshape(er, pitch)
             h = min(geom.tile_rows, rows - r0)
             w = min(geom.tile_cols, cols - c0)
-            out[r0:r0 + h, c0:c0 + w] = tile[geom.halo:geom.halo + h,
-                                             geom.ghost:geom.ghost + w]
-    return torch.from_numpy(out.view(np.int32))
+            for q, copy in enumerate((cur, nxt)[:len(planes)]):
+                tile = mem[copy:copy + words].reshape(er, pitch)
+                out[q, r0:r0 + h, c0:c0 + w] = tile[
+                    geom.halo:geom.halo + h, geom.ghost:geom.ghost + w]
+    return torch.from_numpy(out.view(np.int32) if brain
+                            else out[0].view(np.int32))
 
 
 #: (name, packed rows, width, geometry) of the emulated launches: a
@@ -283,6 +319,34 @@ def test_strip_layout_keeps_the_interior_exact(name, rows, width, geom,
                       generator=gen)
     want = bitlife.step_n_packed_raw(p, n, get_rule("B3/S23"))
     assert torch.equal(strip_launch(p, geom, n, seed=n), want)
+
+
+#: Kernel D's launches of the same shapes: its B2/S/C3 tiles are planned
+#: for three copies.
+BRAIN_LAUNCHES = [
+    (name, rows, width, cb._tile_plan(rows, width, 8, 2, 3)
+     if name == "strip-h2" else cb._tiled2d_geometry(rows, width, None, 3))
+    for name, rows, width, _ in STRIP_LAUNCHES
+]
+
+
+@pytest.mark.parametrize("turns", ["one", "cone"])
+@pytest.mark.parametrize("name,rows,width,geom", BRAIN_LAUNCHES,
+                         ids=[x[0] for x in BRAIN_LAUNCHES])
+def test_brain_strip_layout_keeps_the_interior_exact(name, rows, width,
+                                                     geom, turns):
+    """Kernel D's B2/S/C3 form in the strip layout: the alive plane in
+    copy 0, the dying plane in copy 1, each word's dying word read from
+    the copy its step overwrites; garbage in the pads and the unwrapped
+    edges never reaches the interior of either plane within the light
+    cone, after one turn and after the whole cone."""
+    n = 1 if turns == "one" else geom.turns
+    assert geom.copies == 3
+    gen = torch.Generator().manual_seed(rows * width + 1)
+    states = torch.randint(0, 3, (rows * 32, width), generator=gen)
+    p = torch.stack([bitlife.pack(states == s) for s in (1, 2)])
+    want = bitgens.step_n_packed_gens_raw(p, n, get_rule("B2/S/C3"))
+    assert torch.equal(strip_launch(p, geom, n, seed=n, brain=True), want)
 
 
 def test_tiled_pass_hands_the_plan_to_the_launcher(monkeypatch):
