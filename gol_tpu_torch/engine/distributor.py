@@ -58,7 +58,6 @@ import atexit
 import collections
 import contextlib
 import functools
-import inspect
 import queue
 import threading
 import time
@@ -154,13 +153,11 @@ def _cuda_timing(world) -> tuple:
             torch.cuda.current_stream(dev))
 
 
-def _takes_census(step_n) -> bool:
-    """Whether `step_n` leaves its memory census to the caller when
-    asked (`census=False`: the instrumented stepper's entry)."""
-    try:
-        return "census" in inspect.signature(step_n).parameters
-    except (TypeError, ValueError):
-        return False
+def _census(world) -> Optional[float]:
+    """The memory census of a dispatch boundary, on the world's device
+    (`device.observe_memory`: rate-limited, nothing with the registry
+    off); its seconds, or None when none ran."""
+    return device.observe_memory(getattr(world, "device", None))
 
 
 def _charge_legacy(seconds: float, turns: int) -> None:
@@ -421,7 +418,9 @@ class ChunkClock:
         self._anchor = (self._recorded(self._new_event()), time.time())
 
     def census(self) -> None:
-        """A census ran since the last chunk's enqueue."""
+        """The engine ran a memory census after the last chunk's
+        closing event: the gap before the next chunk is a census's,
+        unless a drain also falls in it."""
         if self._after == "enqueue":
             self._after = "census"
 
@@ -731,9 +730,6 @@ class Engine:
         # The fused chunks' ChunkClock, set up in _run (None without a
         # timing event, or with a Timeline, which realises every chunk).
         self._clock: Optional[ChunkClock] = None
-        # True when the fused path takes the stepper's memory census
-        # itself, after the chunk's closing event (set up in _run).
-        self._census_here = False
 
     # --- public api ---
 
@@ -855,7 +851,6 @@ class Engine:
         if (new_event is not None and self.timeline is None
                 and obs.enabled()):
             self._clock = ChunkClock(new_event, stream)
-            self._census_here = _takes_census(self.stepper.step_n)
 
         self._seed_gens_states(host_world)
 
@@ -1016,23 +1011,16 @@ class Engine:
                 spanned = False
                 tick = time.perf_counter()
                 with device.cause("fused-chunk"):
-                    if clock is None:
-                        world, count = self.stepper.step_n(world, k)
-                    elif self._census_here:
-                        # The stepper's census runs after the chunk's
-                        # closing event, so its stall shows between
-                        # chunks on the card, labelled as a census's.
+                    if clock is not None:
                         clock.begin()
-                        world, count = self.stepper.step_n(world, k,
-                                                           census=False)
+                    world, count = self.stepper.step_n(world, k)
+                    if clock is not None:
                         spanned = clock.end(turn + k, k)
-                        if device.observe_memory(
-                                getattr(world, "device", None)) is not None:
-                            clock.census()
-                    else:
-                        clock.begin()
-                        world, count = self.stepper.step_n(world, k)
-                        spanned = clock.end(turn + k, k)
+                    # The engine owns the chunk boundary's census: after
+                    # the chunk's closing event, so its stall shows
+                    # between chunks on the card, labelled as a census's.
+                    if _census(world) is not None and clock is not None:
+                        clock.census()
                 device.observe_split(enqueue_s=time.perf_counter() - tick)
                 _METRICS.dispatches["chunk"].inc()
                 _METRICS.turns["chunk"].inc(k)
@@ -1191,6 +1179,7 @@ class Engine:
         while q + step <= self.RIDE_MAX_PERIOD:
             with device.cause("cycle-probe"):
                 nxt, diffs, _c = self.stepper.step_n_with_diffs(cur, step)
+            _census(cur)
             segs.append(
                 self._fetch_diffs(diffs).reshape(step, -1).view(np.uint32)
             )
@@ -1317,6 +1306,7 @@ class Engine:
                 new_world, buf, count = self.stepper.step_n_with_diffs(
                     world, k
                 )
+        _census(world)
         pending["copy"] = _start_host_copy(buf)
         # Host overhead to get the dispatch in flight — the `enqueue`
         # leg of the device-vs-host split.
@@ -1413,6 +1403,7 @@ class Engine:
                     or self.stepper.step_n_with_diffs)
             with device.cause("diff-redo"):
                 new_world, diffs, count = redo(pending["world_before"], k)
+            _census(new_world)
         if rows is None and chunk is None:
             sync0 = time.perf_counter()
             if encoded:

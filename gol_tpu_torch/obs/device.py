@@ -351,8 +351,11 @@ def memory_census(dev=None) -> dict:
 
 
 def observe_memory(dev=None, min_interval: float = 0.5) -> Optional[float]:
-    """Rate-limited census for dispatch boundaries: the instrumented
-    stepper calls this once per multi-turn dispatch; the census itself
+    """Rate-limited census for dispatch boundaries: the code that owns
+    one calls this once per multi-turn dispatch (the engine after each
+    fused chunk's closing event and each diff chunk, a multi-process
+    worker after each replayed one, the session manager and the tiled
+    stepper at their own); the census itself
     runs at most every `min_interval` seconds, so a fast fused run pays
     one clock read per dispatch and two censuses per second. Each
     census that runs adds its seconds to

@@ -63,6 +63,7 @@ import numpy as np
 import torch
 
 from gol_tpu_torch import obs
+from gol_tpu_torch.obs import device as obs_device
 from gol_tpu_torch.parallel.partition import JobDevice
 from gol_tpu_torch.parallel.stepper import ENTRY_TABLE
 
@@ -650,6 +651,10 @@ def spmd_worker_loop(inner, height: int, width: int) -> None:
     }
     handlers[_OP_FETCH_WORLD] = lambda arg, arg2: inner.fetch(st["state"])
     handlers[_OP_FETCH_MASK] = lambda arg, arg2: inner.fetch(st["mask"])
+    # The multi-turn dispatches, after each of which the worker takes
+    # its memory census, as the coordinator's engine takes its own.
+    censused = {e.opcode for e in ENTRY_TABLE
+                if e.name == "step_n" or e.kind == "diff"}
     while True:
         try:
             op, arg, arg2 = _bcast_cmd(_OP_STOP)
@@ -658,6 +663,8 @@ def spmd_worker_loop(inner, height: int, width: int) -> None:
         if op == _OP_STOP:
             return
         handlers[op](arg, arg2)
+        if op in censused:
+            obs_device.observe_memory(getattr(st["state"], "device", None))
 
 
 def notify_stop() -> None:

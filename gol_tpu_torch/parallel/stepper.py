@@ -796,40 +796,46 @@ def _single_device(rule: Rule, device) -> Stepper:
     )
 
 
-def _packed_state_stepper(name: str, rule: Rule, height: int,
-                          step_n_raw, device) -> Stepper:
-    """The one constructor of the backends whose device state is the packed
-    int32 board (packed on `put`, unpacked only on `fetch`).
-    `step_n_raw` is the (packed, n) -> packed multi-turn function; every
-    single turn — `step`, `step_with_diff`, each turn of the diff scans —
-    is `step_n_raw` at n = 1, so on the card it is one kernel launch.
-    The XOR, the unpack, the count and the encodings stay plain PyTorch
-    on the device (gol_tpu's are XLA code)."""
-    _pack, _unpack, _fetch = bitlife.make_codec(height)
+def _packed_state_stepper(name: str, height: int, step_n_raw, put, fetch,
+                          changed=torch.bitwise_xor, count=None,
+                          alive_mask=None) -> Stepper:
+    """The one constructor of the single-device backends whose device
+    state is packed int32 words (packed on `put`, unpacked only on
+    `fetch`): the Life-like board (`_life_codec`) and the Generations
+    planes. `step_n_raw` is the (packed, n) -> packed multi-turn
+    function; every single turn — `step`, `step_with_diff`, each turn
+    of the diff scans — is `step_n_raw` at n = 1, so on the card it is
+    one kernel launch. `changed` gives the changed-cell words of two
+    states (their XOR; the planes' `_planes_xor`), `count` the alive
+    count of one (None: `bitlife.count_packed`, looked up at build).
+    The unpack, the count and the encodings stay plain PyTorch on the
+    device (gol_tpu's are XLA code)."""
+    count = count or bitlife.count_packed
 
     def _step(p):
         return step_n_raw(p, 1)
 
     def _step_n(p, n):
         p = step_n_raw(p, int(n))
-        return p, bitlife.count_packed(p)
+        return p, count(p)
 
     def _step_with_diff(p):
         new = _step(p)
         # Diff mask unpacked to dense (H, W) bool for cells_from_mask.
-        mask = bitlife.unpack(p ^ new, height) != 0
-        return new, mask, bitlife.count_packed(new)
+        mask = bitlife.unpack(changed(p, new), height) != 0
+        return new, mask, count(new)
 
-    scan = (_step, torch.bitwise_xor, bitlife.count_packed)
+    scan = (_step, changed, count)
     return Stepper(
         name=name,
         shards=1,
-        put=lambda w: _pack(_host_tensor(w, device)),
-        fetch=_fetch,
+        put=put,
+        fetch=fetch,
         step=_step,
         step_n=_step_n,
         step_with_diff=_step_with_diff,
-        alive_count_async=bitlife.count_packed,
+        alive_count_async=count,
+        alive_mask=alive_mask,
         # Diffs stay packed: the (k, H/32, W) XOR stack is 8x smaller
         # than dense masks on the host link.
         step_n_with_diffs=scan_diffs(*scan),
@@ -837,6 +843,13 @@ def _packed_state_stepper(name: str, rule: Rule, height: int,
         step_n_with_diffs_sparse=sparse_scan_diffs(*scan),
         step_n_with_diffs_compact=compact_scan_diffs(*scan),
     )
+
+
+def _life_codec(height: int, device) -> tuple:
+    """(put, fetch) of the Life-like packed backends: the {0,255} host
+    board packed on `device`, unpacked on fetch (`bitlife.make_codec`)."""
+    pack, _unpack, fetch = bitlife.make_codec(height)
+    return (lambda w: pack(_host_tensor(w, device))), fetch
 
 
 def _single_device_packed(rule: Rule, height: int, device,
@@ -854,7 +867,8 @@ def _single_device_packed(rule: Rule, height: int, device,
     else:
         raw = lambda p, n: bitlife.step_n_packed_raw(p, n, rule)  # noqa: E731
         name = "single-packed"
-    return _packed_state_stepper(name, rule, height, raw, device)
+    return _packed_state_stepper(name, height, raw,
+                                 *_life_codec(height, device))
 
 
 def _single_device_cuda_packed(rule: Rule, height: int, device) -> Stepper:
@@ -869,8 +883,9 @@ def _single_device_cuda_packed(rule: Rule, height: int, device) -> Stepper:
     from gol_tpu_torch.ops import cuda_bitlife as cb
 
     return _packed_state_stepper(
-        "single-cuda-packed", rule, height,
-        lambda p, n: cb.step_n_packed_kernel_raw(p, n, rule), device,
+        "single-cuda-packed", height,
+        lambda p, n: cb.step_n_packed_kernel_raw(p, n, rule),
+        *_life_codec(height, device),
     )
 
 
@@ -985,10 +1000,9 @@ def _gens_stepper_packed(rule: GenRule, device, height: int, width: int,
     kernels (ops/cuda_bitgens.py) — kernel C when every plane fits one
     block's shared memory, else kernel D through the 2-D entry — and
     the stepper is "generations-cuda-packed-1"; otherwise the plain
-    plane step, "generations-packed-1". Every single turn — `step`,
-    `step_with_diff`, each turn of the diff scans over `_planes_xor` —
-    is the multi-turn function at n = 1, so on the card one launch of
-    kernel C or D."""
+    plane step, "generations-packed-1". The entries are
+    `_packed_state_stepper`'s over the planes, diffs by `_planes_xor`:
+    on the card every single turn is one launch of kernel C or D."""
     raw = bitgens.step_n_packed_gens_raw
     if kernels:
         from gol_tpu_torch.ops import cuda_bitgens as cg
@@ -1021,36 +1035,12 @@ def _gens_stepper_packed(rule: GenRule, device, height: int, width: int,
                                  s, states)
         return levels_of(states.cpu().numpy())
 
-    def count(planes):
-        return bitlife.count_packed(planes[0])
-
-    def _step(planes):
-        return raw(planes, 1, rule)
-
-    def _step_n(planes, k):
-        planes = raw(planes, int(k), rule)
-        return planes, count(planes)
-
-    def _step_with_diff(planes):
-        new = _step(planes)
-        mask = bitlife.unpack(_planes_xor(planes, new), height) != 0
-        return new, mask, count(new)
-
-    scan = (_step, _planes_xor, count)
-    return Stepper(
-        name="generations-cuda-packed-1" if kernels else "generations-packed-1",
-        shards=1,
-        put=put,
-        fetch=_gens_fetch(to_levels),
-        step=_step,
-        step_n=_step_n,
-        step_with_diff=_step_with_diff,
-        alive_count_async=count,
+    return _packed_state_stepper(
+        "generations-cuda-packed-1" if kernels else "generations-packed-1",
+        height, lambda p, n: raw(p, n, rule), put, _gens_fetch(to_levels),
+        changed=_planes_xor,
+        count=lambda planes: bitlife.count_packed(planes[0]),
         alive_mask=_gens_alive_mask,
-        step_n_with_diffs=scan_diffs(*scan),
-        packed_diffs=True,
-        step_n_with_diffs_sparse=sparse_scan_diffs(*scan),
-        step_n_with_diffs_compact=compact_scan_diffs(*scan),
     )
 
 
@@ -1207,7 +1197,11 @@ def instrument_stepper(s: Stepper, price: Optional[dict] = None) -> Stepper:
     probes enabled (`device.enable_cost_probes`, the CLI's default), the
     FIRST `put` publishes the one-turn "engine.step" price — at put
     time, as gol_tpu probes, so that nothing of it lands inside a
-    dispatch's timing."""
+    dispatch's timing.
+
+    No memory census: the code that owns a dispatch boundary takes it
+    (the engine, a multi-process worker's replay loop), where it can
+    place the census between the card's chunks."""
     import time
 
     from gol_tpu_torch import obs
@@ -1282,7 +1276,7 @@ def instrument_stepper(s: Stepper, price: Optional[dict] = None) -> Stepper:
                                                                   out))
         return out
 
-    def step_n(world, k, census=True):
+    def step_n(world, k):
         dispatches["step_n"].inc()
         cost = _charge_halo(world, int(k), False)
         wall0 = time.time()
@@ -1293,12 +1287,6 @@ def instrument_stepper(s: Stepper, price: Optional[dict] = None) -> Stepper:
         if s.halo_cost is not None:
             halo_seconds.observe(dt)
         _span("step_n", wall0, dt, cost)
-        # Memory census at the dispatch boundary (rate-limited inside):
-        # the watermark tracks every dispatching run. A caller that
-        # takes it itself (the engine's timed fused chunk, after its
-        # closing event) passes census=False.
-        if census:
-            obs_device.observe_memory(getattr(world, "device", None))
         return out
 
     def _diffy(entry, fn):
@@ -1311,7 +1299,6 @@ def instrument_stepper(s: Stepper, price: Optional[dict] = None) -> Stepper:
             dt = time.perf_counter() - t0
             seconds[entry].observe(dt)
             _span(entry, wall0, dt, cost)
-            obs_device.observe_memory(getattr(world, "device", None))
             return out
 
         return wrapper

@@ -181,22 +181,27 @@ def test_a_census_adds_to_its_counter_and_records_its_span():
     assert span[4] == pytest.approx(seconds)
 
 
-def test_the_instrumented_step_n_leaves_its_census_to_a_caller_that_asks(
-        monkeypatch):
+def test_the_instrumented_stepper_takes_no_census(monkeypatch):
     asked = []
     monkeypatch.setattr(device, "observe_memory",
                         lambda dev=None, min_interval=0.5: asked.append(dev))
     s = make_stepper(height=64, width=64, device="cpu")
-    assert distributor._takes_census(s.step_n)
+    diffs = ('gol_tpu_stepper_dispatches_total'
+             f'{{backend="{s.name}",entry="step_n_with_diffs"}}')
+    before = value(diffs) or 0
     world = s.put(np.zeros((64, 64), np.uint8))
-    world, _ = s.step_n(world, 2, census=False)
+    world, _ = s.step_n(world, 2)
+    s.step_n_with_diffs(world, 2)
     assert asked == []
-    s.step_n(world, 2)
-    assert len(asked) == 1
+    # The diff call went through the instrumented wrapper.
+    assert value(diffs) == before + 1
 
 
+@pytest.mark.parametrize("invariants", ["off", "on"])
 def test_the_engine_takes_the_census_between_a_chunk_and_the_next(
-        tmp_path, monkeypatch):
+        tmp_path, monkeypatch, invariants):
+    monkeypatch.setenv("GOL_TPU_CHECK_INVARIANTS",
+                       "1" if invariants == "on" else "0")
     log = []
     monkeypatch.setattr(device, "observe_memory",
                         lambda dev=None, min_interval=0.5:
@@ -213,11 +218,39 @@ def test_the_engine_takes_the_census_between_a_chunk_and_the_next(
         until(e, 64)
     finally:
         stopped(e)
-    assert e._census_here and "census" in log
+    if invariants == "on":
+        assert e.stepper.step_n.__qualname__.startswith("checked_stepper")
+    assert "census" in log
     # No census between a chunk's two events: each follows an end.
     assert all(log[i - 1] == "end" for i, x in enumerate(log)
                if x == "census")
     assert value(GAP % "census") > g0
+
+
+def test_a_watched_run_takes_a_census_after_each_diff_chunk(
+        tmp_path, monkeypatch):
+    log = []
+    monkeypatch.setattr(device, "observe_memory",
+                        lambda dev=None, min_interval=0.5:
+                        log.append(dev) or 0.0)
+    world = (np.random.default_rng(3).random((64, 64)) < 0.3) * 255
+    p = Params(turns=40, image_width=64, image_height=64, chunk=8,
+               tick_seconds=60.0, out_dir=str(tmp_path / "out"),
+               image_dir=str(tmp_path / "images"))
+    e = Engine(p, initial_world=world.astype(np.uint8), device="cpu")
+    series = [obs.registry().counter(
+        "gol_tpu_stepper_dispatches_total",
+        labels={"backend": e.stepper.name, "entry": d})
+        for d in ("step_n_with_diffs", "step_n_with_diffs_sparse",
+                  "step_n_with_diffs_compact")]
+    before = sum(c.value for c in series)
+    e.start()
+    for _ in e.events:
+        pass
+    e.join(60)
+    assert not e._thread.is_alive() and e.error is None
+    chunks = sum(c.value for c in series) - before
+    assert chunks > 0 and len(log) == chunks
 
 
 def test_without_timing_events_fused_chunks_stay_instant_marks(tmp_path):
