@@ -100,9 +100,12 @@ its own kernels: ms per launch of one 32-turn pass of a 16384² board, B
 on B3/S23 and B36/S23, D on B2/S/C3 and B2/S345/C4; ms per 64-turn
 launch on a 512² board, A on B3/S23, C on B2/S/C3 and B2/S345/C4; ms
 per call of E's `step_n_cuda_dense`, 100 turns on a 512² board (with
-the host's enqueue and the device's time) and 32 on a 16384² one; the
-ptxas registers of each build; and whether each kernel instantiation
-compiled to the same SASS in both builds.
+the host's enqueue and the device's time) and 32 on a 16384² one; a
+0-turn launch of B and of D at 5120² (the tile's load and store alone)
+by CUDA events, host enqueue and device time; the tile loads of each
+timed row of B and D by form; the ptxas registers of each build; and
+whether each kernel instantiation compiled to the same SASS in both
+builds.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -523,6 +526,46 @@ def plain_turns(step_n, p, ns) -> dict:
     return out
 
 
+def tile_form_check(mod, fn, form: str, launches: int, what: str):
+    """`fn()`, held to `launches` launches of kernel B's or D's wrapper
+    `mod` (cuda_bitlife or cuda_bitgens) in tile form `form` ("bulk" or
+    "words") and none in the other, by `mod.TILE_LOADS`; returns what
+    `fn` returned."""
+    before = dict(mod.TILE_LOADS)
+    got = fn()
+    seen = {k: v - before[k] for k, v in mod.TILE_LOADS.items()}
+    want = {k: launches if k == form else 0 for k in seen}
+    if seen != want:
+        raise AssertionError(f"{what}: tile loads {seen}, expected {want}")
+    return got
+
+
+def entry_geometry(entry: str, rows: int, width: int, kw: dict,
+                   copies: int = 2):
+    """The tile geometry kernel B's or D's entry `entry` ("tiled2d" or
+    "tiled") plans for a board of `rows` word-rows with overrides `kw`."""
+    from gol_tpu_torch.ops import cuda_bitlife as cb
+
+    if entry == "tiled2d":
+        return cb._tiled2d_geometry(rows, width, kw.get("tile_rows"), copies)
+    return cb._tile_plan(rows, width, kw.get("strip_rows"),
+                         kw.get("halo_words"), copies)
+
+
+def zero_pass_check(mod, src, rule, geom, form: str, what: str) -> None:
+    """A 0-turn launch of kernel B or D through `mod._tiled_pass`: the
+    tile's load and the interior's store alone, in tile form `form`,
+    must hand back its input word for word."""
+    import torch
+
+    dst = torch.full_like(src, -1)
+    tile_form_check(mod, lambda: mod._tiled_pass(src, dst, 0, rule, geom),
+                    form, 1, what)
+    torch.cuda.synchronize()
+    if not torch.equal(dst, src):
+        raise AssertionError(f"{what}: a 0-turn launch changed the board")
+
+
 def check_kernels(errs: dict) -> None:
     """Phase 3: kernels A and B against the plain packed step on the
     card, bit-exact, at the main path's shapes and the listed seams."""
@@ -566,7 +609,11 @@ def check_kernels(errs: dict) -> None:
         # tile 160 of 256 columns), the last two at 4096² only; for
         # B3/S23, whose strip walkers pad the tile's pitch to whole
         # strips of 4 columns, also the benchmark's 5120² and a 4096 x
-        # 131 board (195 extended columns, 643 at h = 8: padded).
+        # 131 board (195 extended columns, 643 at h = 8: padded). B3/S23
+        # moves its tiles as bulk row copies on every board but 4096 x
+        # 131 (a width of no whole 16 bytes: word by word), and is also
+        # checked at n = 0 (no launch), 2k and a 0-turn launch; every
+        # other rule moves them word by word.
         boards = [(4096, 4096), (16384, 16384), (4096, 4000)]
         if rule == rules[0]:
             boards += [(5120, 5120), (4096, 131)]
@@ -585,14 +632,27 @@ def check_kernels(errs: dict) -> None:
             if h == 4096 and w in (4096, 131):
                 variants.append(("tiled", {"strip_rows": 8, "halo_words": 8},
                                  256))
+            form = "bulk" if rule == rules[0] and w != 131 else "words"
+
+            def turns(k):
+                return tiled_turns(k) + ((0, 2 * k) if rule == rules[0]
+                                         else ())
+
             want = plain_turns(
                 lambda x, k: bitlife.step_n_packed_raw(x, k, rule), p,
-                [n for _, _, k in variants for n in tiled_turns(k)])
+                [n for _, _, k in variants for n in turns(k)])
             for entry, kw, k in variants:
                 fn = (cb.step_n_packed_tiled2d_raw if entry == "tiled2d"
                       else cb.step_n_packed_tiled_raw)
-                for n in tiled_turns(k):
-                    got = fn(p, n, rule, **kw)
+                if rule == rules[0]:
+                    geom = entry_geometry(entry, h // 32, w, kw)
+                    zero_pass_check(cb, p, rule, geom, form,
+                                    f"bitlife_tiled via {entry}{kw} {side}")
+                    checked += 1
+                for n in turns(k):
+                    got = tile_form_check(
+                        cb, lambda: fn(p, n, rule, **kw), form, -(-n // k),
+                        f"bitlife_tiled via {entry}{kw} {side} n={n}")
                     torch.cuda.synchronize()
                     err = max_abs_err(got, want[n])
                     errs["bitlife_tiled"] = max(errs["bitlife_tiled"], err)
@@ -663,12 +723,15 @@ def check_gens_kernels(errs: dict) -> None:
     # masks. B2/S/C3's seams at 4096² only: the deepest halo (768-column
     # tiles, 192 strips x 3 segments) and a ragged board (its last tile
     # 160 of 256 columns). 5120² is the benchmark's brain-5120 board (5 x
-    # 20 tiles of 32 x 256 words); at it and at 16384² also n = 0 and two
-    # whole passes.
+    # 20 tiles of 32 x 256 words). B2/S/C3 moves both planes' tiles as
+    # bulk row copies on every board but 4096 x 131 (a width of no whole
+    # 16 bytes: word by word), and is also checked at n = 0 (no launch),
+    # two whole passes and a 0-turn launch; the C=8 rule moves them word
+    # by word.
     brain = get_rule("B2/S/C3")
     tiled_cases = [(4096, 4096, brain), (16384, 16384, brain),
                    (4096, 4000, brain), (5120, 5120, brain),
-                   (512, 512, random_rule(8))]
+                   (4096, 131, brain), (512, 512, random_rule(8))]
     for h, w, rule in tiled_cases:
         side = f"{h}x{w}"
         if h == 512 and cg.fits_cuda_gens(h, w, rule):
@@ -686,9 +749,10 @@ def check_gens_kernels(errs: dict) -> None:
         if h == 4096 and w == h:
             variants.append(("tiled", {"strip_rows": 8, "halo_words": 8},
                              256))
+        form = "bulk" if rule == brain and w != 131 else "words"
+
         def turns(k):
-            seams = h == w and h in (5120, 16384)
-            return tiled_turns(k) + ((0, 2 * k) if seams else ())
+            return tiled_turns(k) + ((0, 2 * k) if rule == brain else ())
 
         want = plain_turns(
             lambda x, k: bitgens.step_n_packed_gens_raw(x, k, rule), q,
@@ -696,8 +760,15 @@ def check_gens_kernels(errs: dict) -> None:
         for entry, kw, k in variants:
             fn = (cg.step_n_packed_gens_tiled2d_raw if entry == "tiled2d"
                   else cg.step_n_packed_gens_tiled_raw)
+            if rule == brain:
+                geom = entry_geometry(entry, h // 32, w, kw, rule.states)
+                zero_pass_check(cg, q, rule, geom, form,
+                                f"bitgens_tiled via {entry}{kw} {side}")
+                checked += 1
             for n in turns(k):
-                got = fn(q, n, rule, **kw)
+                got = tile_form_check(
+                    cg, lambda: fn(q, n, rule, **kw), form, -(-n // k),
+                    f"bitgens_tiled via {entry}{kw} {side} n={n}")
                 torch.cuda.synchronize()
                 err = max_abs_err(got, want[n])
                 errs["bitgens_tiled"] = max(errs["bitgens_tiled"], err)
@@ -6006,6 +6077,9 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float,
     }
     rows = []
     for name, shape, per, make, kernel, plain, nbytes, ops in specs:
+        loads = {"bitlife_tiled": cb, "bitgens_tiled": cg}.get(name)
+        loads = getattr(loads, "TILE_LOADS", None)
+        before = dict(loads or {})
         x = make()
         ms = time_ms(lambda: kernel(x), 20)
         plain_ms = time_ms(lambda: plain(x), 3)
@@ -6085,6 +6159,18 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float,
                              f"{b5['ms']:.4f} ms/launch via the 2-D entry, "
                              f"x32 turns; bound {b5['bound_ms']:.4g} ms, "
                              f"{b5['share']:.1%} of it")
+        if name in ("bitlife_tiled", "bitgens_tiled"):
+            # The tile's load and store alone: a 0-turn launch at 5120²,
+            # three ways.
+            zero = rows[-1]["0-turn 5120x5120"] = zero_turn_ms(name)
+            phase("measure", f"{name} 0-turn launch 5120²: "
+                             f"{zero['time_ms']:.4f} ms by CUDA events, host "
+                             f"enqueue {zero['host_ms']:.4f} ms, device "
+                             f"{zero['device_ms']} ms (torch.profiler)")
+            rows[-1]["tile_loads"] = {k: v - before[k]
+                                      for k, v in loads.items()}
+            phase("measure", f"{name} tile loads by form over the row's "
+                             f"launches: {rows[-1]['tile_loads']}")
         if name == "life_dense":
             dense_rows(rows[-1], x, nbytes, dense_ops, int_ops_per_s)
         del x
@@ -6166,6 +6252,45 @@ def device_ms(fn, kernel: str, reps: int):
     us = sum(getattr(e, "device_time_total", 0) for e in mine)
     count = sum(e.count for e in mine)
     return (us / reps / 1e3 if us else None), count / reps
+
+
+def zero_turn_ms(kernel: str) -> dict:
+    """A 0-turn launch of kernel B (`kernel` "bitlife_tiled", B3/S23) or
+    D ("bitgens_tiled", B2/S/C3) on a 5120² soup, through its wrapper's
+    `_tiled_pass` with k = 0 on the 2-D entry's tile: the tile's load,
+    one barrier and the interior's store, nothing else. Ms a launch by
+    CUDA events around 200 launches (`time_ms`), by the host's enqueue
+    (`host_ms`) and by the device's time (`device_ms`), and the tile
+    loads those launches took by form (the wrapper's `TILE_LOADS`; None
+    where the package has no such counter)."""
+    import torch
+
+    from gol_tpu_torch.models.rules import get_rule
+    from gol_tpu_torch.ops import bitlife, life
+    from gol_tpu_torch.ops import cuda_bitgens as cg
+    from gol_tpu_torch.ops import cuda_bitlife as cb
+
+    if kernel == "bitlife_tiled":
+        mod, rule = cb, get_rule("B3/S23")
+        src = bitlife.pack(life.to_bits(torch.from_numpy(
+            life.random_world(5120, 5120, seed=1)).cuda()))
+    else:
+        mod, rule = cg, get_rule("B2/S/C3")
+        src = gens_planes(rule, 5120, 5120, torch.Generator().manual_seed(3))
+    geom = cb._tiled2d_geometry(160, 5120, None, 2 if mod is cb else
+                                rule.states)
+    dst = torch.empty_like(src)
+
+    def launch():
+        mod._tiled_pass(src, dst, 0, rule, geom)
+
+    loads = getattr(mod, "TILE_LOADS", None)
+    before = dict(loads) if loads is not None else None
+    row = {"time_ms": time_ms(launch, 200), "host_ms": host_ms(launch, 200),
+           "device_ms": device_ms(launch, kernel, 200)[0]}
+    row["tile_loads"] = (None if loads is None else
+                         {k: v - before[k] for k, v in loads.items()})
+    return row
 
 
 def dense_launches(fn, reps: int) -> tuple:
@@ -6257,7 +6382,9 @@ def ab_time(root: str) -> dict:
     2-D entries, of one 64-turn launch of A and C on a 512² board, and
     ms per call of E's public `step_n_cuda_dense` on a 512² board (100
     turns) and a 16384² one (32 turns), and of the 512² call the host's
-    enqueue and the device's time (torch.profiler) — the library's path
+    enqueue and the device's time (torch.profiler); B's and D's 0-turn
+    launch at 5120² three ways (`zero_turn_ms`); under "tile loads" the
+    tile loads of each timed row of B and D by form — the library's path
     and the registers of a fresh build (none from the cache)."""
     sys.path.insert(0, str(pathlib.Path(root).resolve()))
     import torch
@@ -6285,24 +6412,52 @@ def ab_time(root: str) -> dict:
     r, r4 = planes(brain, 512), planes(star_wars, 512)
     w, big = (torch.from_numpy(life.random_world(side, side, seed=1)).cuda()
               for side in (512, 16384))
-    return {
+    # Each timed row of kernels B and D, with the tile loads its launches
+    # took by form (None where the package has no such counter).
+    loads = {}
+
+    def timed(key, mod, fn, reps):
+        counter = getattr(mod, "TILE_LOADS", None)
+        before = dict(counter or {})
+        ms = time_ms(fn, reps)
+        loads[key] = (None if counter is None else
+                      {k: v - before[k] for k, v in counter.items()})
+        return ms
+
+    zero = {}
+    for key, kernel in (("B 0-turn 5120x5120", "bitlife_tiled"),
+                        ("D 0-turn 5120x5120", "bitgens_tiled")):
+        row = zero_turn_ms(kernel)
+        zero[key] = row["time_ms"]
+        zero[f"{key} host"] = row["host_ms"]
+        zero[f"{key} device"] = row["device_ms"]
+        loads[key] = row["tile_loads"]
+    res = {
+        **zero,
         "package": str(pathlib.Path(cb.__file__).resolve().parents[2]),
         "A B3/S23": time_ms(lambda: cb.step_n_packed_cuda_raw(p, 64), 20),
-        "B B3/S23": time_ms(lambda: cb.step_n_packed_tiled2d_raw(x, 32), 20),
-        "B B3/S23 5120x5120": time_ms(
+        "B B3/S23": timed("B B3/S23", cb, lambda: cb.step_n_packed_tiled2d_raw(
+            x, 32), 20),
+        "B B3/S23 5120x5120": timed(
+            "B B3/S23 5120x5120", cb,
             lambda: cb.step_n_packed_tiled2d_raw(x5, 32), 200),
-        "B B36/S23": time_ms(
+        "B B36/S23": timed(
+            "B B36/S23", cb,
             lambda: cb.step_n_packed_tiled2d_raw(x, 32, highlife), 20),
         "C B2/S/C3": time_ms(
             lambda: cg.step_n_packed_gens_cuda_raw(r, 64, brain), 20),
         "C B2/S345/C4": time_ms(
             lambda: cg.step_n_packed_gens_cuda_raw(r4, 64, star_wars), 20),
-        "D B2/S/C3": time_ms(
+        "D B2/S/C3": timed(
+            "D B2/S/C3", cg,
             lambda: cg.step_n_packed_gens_tiled2d_raw(q, 32, brain), 20),
-        "D B2/S/C3 5120x5120": time_ms(
+        "D B2/S/C3 5120x5120": timed(
+            "D B2/S/C3 5120x5120", cg,
             lambda: cg.step_n_packed_gens_tiled2d_raw(q5, 32, brain), 200),
-        "D B2/S345/C4": time_ms(
-            lambda: cg.step_n_packed_gens_tiled2d_raw(q4, 32, star_wars), 20),
+        "D B2/S345/C4": timed(
+            "D B2/S345/C4", cg,
+            lambda: cg.step_n_packed_gens_tiled2d_raw(q4, 32, star_wars),
+            20),
         "E 512x512 x100": time_ms(
             lambda: cl.step_n_cuda_dense(w, 100), 20),
         "E 16384x16384 x32": time_ms(
@@ -6317,6 +6472,8 @@ def ab_time(root: str) -> dict:
                                 "bitgens_resident", "bitgens_tiled",
                                 "life_dense")},
     }
+    res["tile loads"] = loads
+    return res
 
 
 def sass(library: str) -> dict:
@@ -6372,6 +6529,7 @@ def ab(other: str, card: str, int_ops_per_s: float, sms: int) -> int:
     SASS."""
     times: dict = {}
     libraries: dict = {}
+    tile_loads: dict = {}
     for root in (other, str(REPO), str(REPO), other):
         proc = subprocess.run(
             [sys.executable, str(REPO / "chip_smoke.py"), "--ab-time", root],
@@ -6382,14 +6540,23 @@ def ab(other: str, card: str, int_ops_per_s: float, sms: int) -> int:
         res = json.loads(proc.stdout.strip().splitlines()[-1])
         phase("ab", json.dumps(res))
         libraries[root] = res.pop("library")
+        tile_loads.setdefault(root, []).append(res.pop("tile loads"))
         for k, v in res.items():
             if k not in ("package", "registers"):
                 times.setdefault(k, {}).setdefault(root, []).append(v)
     for k, by_root in times.items():
+        if None in by_root[str(REPO)] + by_root[other]:
+            phase("ab", f"{k}: not measured (torch.profiler saw no device "
+                        f"time)")
+            continue
         mine = sum(by_root[str(REPO)]) / 2
         theirs = sum(by_root[other]) / 2
         phase("ab", f"{k}: this {mine:.4f} ms, other {theirs:.4f} ms "
                     f"(means of two), ratio {mine / theirs:.4f}; {card}")
+        if k in tile_loads[str(REPO)][0]:
+            phase("ab", f"{k}: tile loads by form, this "
+                        f"{tile_loads[str(REPO)][0][k]}, other "
+                        f"{tile_loads[other][0][k]}")
     for k, rows, width in AB_TILED:
         mine, theirs = (sum(times[k][root]) / 2 for root in (str(REPO), other))
         slots = [word_turn_slots(ms, rows, width, 32, int_ops_per_s, sms)

@@ -78,12 +78,17 @@
 //    its edge columns, one LDS.128 of the dying words, one STS.128 and
 //    the walk's index steps, on the extended tile's words (34x320 per
 //    32x256 interior, a third more); the column walkers spent 4 LDS, 1
-//    STS and 20 LOP3/SHF a word-turn. Still left: the tile's load and
-//    store (two planes, a modulo per word on the way in), the 1.33x
-//    ghost overhead, the fill of the card (a 5120^2 board is 100 blocks
-//    on 132 SMs), and generated code for the other rules, which run the
-//    per-word run-time masks (gens_turns, 512 threads, C copies: the
-//    alive ping-pong and a ring of the C-2 dying planes).
+//    STS and 20 LOP3/SHF a word-turn. Both planes' tiles move in and out
+//    in strip.cuh's bulk form (FORM_BRAIN_BULK: 16-byte row pieces of
+//    both planes, every copy of the block in flight together, no divide
+//    or modulo a word) wherever kernel B's does; any other shape (4096 x
+//    131, say) moves them word by word (FORM_BRAIN). A 0-turn launch at
+//    5120^2, both planes' load and store, takes ~5.3 µs (word by word
+//    19.6; PERF.md §6). Still left: the 1.33x ghost overhead, the fill
+//    of the card (a 5120^2 board is 100 blocks on 132 SMs), and
+//    generated code for the other rules, which run the per-word run-time
+//    masks (gens_turns, 512 threads, C copies: the alive ping-pong and a
+//    ring of the C-2 dying planes), word by word.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -131,8 +136,10 @@ __device__ __forceinline__ u32* gens_turns(u32* cur, u32* nxt, u32* ring,
 __device__ __forceinline__ int load_slot(int q) { return q == 0 ? 0 : q + 1; }
 
 // Kernel D's rule forms: B2/S/C3 by strip walkers (kernel C: column
-// walkers), or any rule by the per-word run-time masks of gens_turns.
-enum { FORM_BRAIN = 0, FORM_MASKS = 1 };
+// walkers), its tile moved word by word (FORM_BRAIN) or, kernel D only,
+// in the bulk form (FORM_BRAIN_BULK: 16-byte row pieces, strip.cuh), or
+// any rule by the per-word run-time masks of gens_turns.
+enum { FORM_BRAIN = 0, FORM_MASKS = 1, FORM_BRAIN_BULK = 2 };
 
 // Threads per block of kernels D and C: D's strip walkers take up to
 // gol::kStripThreads and C's column walkers gol::kWalkThreads (kernel D:
@@ -140,9 +147,9 @@ enum { FORM_BRAIN = 0, FORM_MASKS = 1 };
 constexpr int kMaskThreads = 512;
 template <int kForm>
 constexpr int kTiledThreads =
-    kForm == FORM_BRAIN ? gol::kStripThreads : kMaskThreads;
+    kForm == FORM_MASKS ? kMaskThreads : gol::kStripThreads;
 template <int kForm>
-constexpr int kTiledBlocks = kForm == FORM_BRAIN ? 2 : 1;
+constexpr int kTiledBlocks = kForm == FORM_MASKS ? 1 : 2;
 template <int kForm>
 constexpr int kResidentThreads =
     kForm == FORM_BRAIN ? gol::kWalkThreads : kMaskThreads;
@@ -168,6 +175,14 @@ __global__ void __launch_bounds__(kTiledThreads<kForm>, kTiledBlocks<kForm>)
                         halo, ghost, plan.pitch);
     gol::store_interior(smem + (copy0 + copy1 - cur), out + plane, rows,
                         cols, tile_rows, tile_cols, halo, ghost, plan.pitch);
+  } else if constexpr (kForm == FORM_BRAIN_BULK) {
+    // Both planes' copies in flight together: alive into copy 0, dying
+    // into copy 1; out, the copy turn n wrote and the other.
+    gol::bulk_load_tile(plan, in, 2, rows, cols, tile_rows, tile_cols, halo,
+                        ghost);
+    const int cur = gol::strip_turns<gol::BrainStrip>(plan, n);
+    gol::bulk_store_interior(plan, cur, out, 2, rows, cols, tile_rows,
+                             tile_cols, halo, ghost);
   } else {
     extern __shared__ u32 smem[];
     const int er = tile_rows + 2 * halo;
@@ -300,22 +315,28 @@ int bitgens_resident_launch(const void* in, void* out, int planes, int rows,
 // Kernel D picks its instantiation from the rule: B2/S/C3 (two planes,
 // birth {2}, survive {}) runs the strip walkers on `threads` (at most
 // gol::kStripThreads) in `segs` segments a strip over two copies of the
-// tile at the strip pitch, every other rule the masks on kMaskThreads
-// over `planes` + 1 copies.
+// tile at the strip pitch, both planes moved in the bulk form where
+// `bulk` is set (a shape gol::bulk_ok refuses is refused), else word by
+// word; every other rule runs the masks on kMaskThreads over `planes` + 1
+// copies, word by word.
 int bitgens_tiled_launch(const void* in, void* out, int planes, int rows,
                          int cols, int tile_rows, int tile_cols, int halo,
                          int ghost, int n, unsigned birth, unsigned survive,
-                         int threads, int segs, void* stream) {
+                         int bulk, int threads, int segs, void* stream) {
   const bool brain = planes == 2 && birth == (1u << 2) && survive == 0;
   void (*kernel)(const u32*, u32*, int, int, int, int, int, int, int, int,
                  u32, u32, const gol::Strips) =
-      brain ? bitgens_tiled<FORM_BRAIN> : bitgens_tiled<FORM_MASKS>;
+      !brain ? bitgens_tiled<FORM_MASKS>
+      : bulk ? bitgens_tiled<FORM_BRAIN_BULK>
+             : bitgens_tiled<FORM_BRAIN>;
   if (!brain) threads = kMaskThreads;
   if (threads > gol::kStripThreads || segs < 1 ||
       segs > tile_rows + 2 * halo)
     return (int)cudaErrorInvalidValue;
   const gol::Strips k = gol::make_strips(tile_rows, tile_cols, halo, ghost,
                                          threads, segs);
+  if (brain && bulk && !gol::bulk_ok(k, cols, tile_cols, ghost, in, out))
+    return (int)cudaErrorInvalidValue;
   const size_t smem =
       brain ? gol::strip_smem_bytes(k)
             : sizeof(u32) * (size_t)(planes + 1) * (tile_rows + 2 * halo) *

@@ -59,15 +59,21 @@
 //    the two edge columns' sums are formed again by the strips beside
 //    them) and, once for 4 words, the shared-memory accesses above, two
 //    pointer steps and the loop count: 65 instructions a step of 4 words,
-//    56 of them on the LOP3/SHF pipe, which bounds the step. Measured on
-//    an H100 (PERF.md §6): ~66 µs a 32-turn launch at 5120^2, 23.8 issue
-//    slots a word-turn of the extended tile (walk.cuh's column walkers
-//    spend 34.5), of which ~12 µs is the tile's load and store; the turn
-//    loop runs at about three quarters of the pipe's issue rate. Still
-//    left: the load and store (a modulo per word on the way in), the
-//    ghost frame (34 x 320 extended words a 32 x 256 interior at h=1,
-//    g=32: 0.75 of the words stepped are kept) and the fill of the card
-//    (a 5120^2 board is 100 blocks on 132 SMs).
+//    56 of them on the LOP3/SHF pipe, which bounds the step. The tile
+//    moves in and out in strip.cuh's bulk form (FORM_LIFE_BULK: 16-byte
+//    row pieces, every copy of the block in flight together, no divide or
+//    modulo a word) wherever the board's width, the tile's and the ghost
+//    columns are whole 16-byte units, the buffers 16-byte aligned and the
+//    pitch within the board's width (every shape of the benchmark and
+//    the main paths); any other shape (4096 x 131, say) moves it word by
+//    word (FORM_LIFE: walk.cuh load_tile and store_interior). Measured
+//    on an H100 (PERF.md §6): a 32-turn launch at 5120^2 ~58 µs, of
+//    which the load and store ~3.7 µs (a 0-turn launch; word by word
+//    11.0); the turn loop runs at about three quarters of the pipe's
+//    issue rate. Still left: the ghost frame (34 x 320 extended words a
+//    32 x 256 interior at h=1, g=32: 0.75 of the words stepped are kept)
+//    and the fill of the card (a 5120^2 board is 100 blocks on 132
+//    SMs).
 //
 // Shared arithmetic: the column-sum CSA count and the run-time rule
 // masks of swar.cuh, combined in the form the rule compiler classified
@@ -118,17 +124,19 @@ __device__ __forceinline__ u32* run_turns(u32* cur, u32* nxt, int rows,
   return cur;
 }
 
-// Kernel B's rule forms: B3/S23 by strip walkers summing nine cells,
-// or any rule by kernel A's per-word run-time masks. Kernel A runs the
-// same two forms, B3/S23 by column walkers.
-enum { FORM_LIFE = 0, FORM_MASKS = 1 };
+// Kernel B's rule forms: B3/S23 by strip walkers summing nine cells, its
+// tile moved word by word (FORM_LIFE) or in the bulk form
+// (FORM_LIFE_BULK: 16-byte row pieces, strip.cuh), or any rule by kernel
+// A's per-word run-time masks. Kernel A runs FORM_LIFE, B3/S23 by column
+// walkers, and FORM_MASKS.
+enum { FORM_LIFE = 0, FORM_MASKS = 1, FORM_LIFE_BULK = 2 };
 
 // Threads per block of kernel B (two blocks per SM): the strip walkers
 // take up to gol::kStripThreads (strip.cuh), the masks form kMaskThreads.
 constexpr int kMaskThreads = 512;
 template <int kForm>
 constexpr int kTiledThreads =
-    kForm == FORM_LIFE ? gol::kStripThreads : kMaskThreads;
+    kForm == FORM_MASKS ? kMaskThreads : gol::kStripThreads;
 // Threads per block of kernel A: its column walkers take up to
 // gol::kWalkThreads (walk.cuh), the masks form kMaskThreads.
 template <int kForm>
@@ -148,6 +156,12 @@ __global__ void __launch_bounds__(kTiledThreads<kForm>, 2)
     const int cur = gol::strip_turns<gol::LifeStrip>(k, n);
     store_interior(smem + cur, out, rows, cols, tile_rows, tile_cols, halo,
                    ghost, k.pitch);
+  } else if constexpr (kForm == FORM_LIFE_BULK) {
+    gol::bulk_load_tile(k, in, 1, rows, cols, tile_rows, tile_cols, halo,
+                        ghost);
+    const int cur = gol::strip_turns<gol::LifeStrip>(k, n);
+    gol::bulk_store_interior(k, cur, out, 1, rows, cols, tile_rows,
+                             tile_cols, halo, ghost);
   } else {
     extern __shared__ u32 smem[];
     const int er = tile_rows + 2 * halo;
@@ -236,22 +250,28 @@ int bitlife_resident_launch(const void* in, void* out, int batch, int rows,
 
 // Kernel B picks its instantiation from the rule: B3/S23 (birth {3},
 // survive {2, 3}) runs the strip walkers on `threads` (at most
-// gol::kStripThreads) in `segs` segments a strip, every other rule the
-// masks on kMaskThreads.
+// gol::kStripThreads) in `segs` segments a strip, its tile moved in the
+// bulk form where `bulk` is set (a shape gol::bulk_ok refuses is
+// refused), else word by word; every other rule runs the masks on
+// kMaskThreads, word by word.
 int bitlife_tiled_launch(const void* in, void* out, int rows, int cols,
                          int tile_rows, int tile_cols, int halo, int ghost,
                          int n, unsigned birth, unsigned survive, int combine,
-                         int threads, int segs, void* stream) {
+                         int bulk, int threads, int segs, void* stream) {
   const bool life = birth == (1u << 3) && survive == ((1u << 2) | (1u << 3));
   void (*kernel)(const u32*, u32*, int, int, int, int, int, int, int, u32,
                  u32, int, const gol::Strips) =
-      life ? bitlife_tiled<FORM_LIFE> : bitlife_tiled<FORM_MASKS>;
+      !life  ? bitlife_tiled<FORM_MASKS>
+      : bulk ? bitlife_tiled<FORM_LIFE_BULK>
+             : bitlife_tiled<FORM_LIFE>;
   if (!life) threads = kMaskThreads;
   if (threads > gol::kStripThreads || segs < 1 ||
       segs > tile_rows + 2 * halo)
     return (int)cudaErrorInvalidValue;
   const gol::Strips k = gol::make_strips(tile_rows, tile_cols, halo, ghost,
                                          threads, segs);
+  if (life && bulk && !gol::bulk_ok(k, cols, tile_cols, ghost, in, out))
+    return (int)cudaErrorInvalidValue;
   const size_t smem =
       life ? gol::strip_smem_bytes(k)
            : 2 * sizeof(u32) * (size_t)(tile_rows + 2 * halo) *

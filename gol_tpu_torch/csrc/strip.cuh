@@ -18,6 +18,10 @@
 // Kernel B loads the board into copy 0; kernel D loads the alive plane
 // into copy 0 and the dying plane into copy 1, and its step reads the
 // strip's own dying words from the row it is about to overwrite (below).
+// Both move their tiles in the bulk form at the end of this file (16-byte
+// row pieces, all in flight together, no divide or modulo a word) where
+// the shape allows, else word by word (walk.cuh load_tile and
+// store_interior).
 //
 // Within a turn, a work item is one strip s — columns W*s .. W*s+W-1 —
 // and one of `segs` segments of consecutive word-rows of it, their
@@ -291,6 +295,105 @@ __device__ __forceinline__ int strip_turns(const Strips k, int n) {
     nxt = tmp;
   }
   return cur;
+}
+
+// --- The bulk form: the tile's load and store as 16-byte row pieces ---
+//
+// walk.cuh's load_tile and store_interior move the tile a word at a time,
+// with a divide and two modulos a word, each word's load awaited before
+// its store. Under the strip layout the extended tile's row is `pitch`
+// consecutive board columns from column c0 - ghost, so its columns wrap
+// only where the tile crosses the board's west or east edge: a row is
+// one piece of a board row, or two, and the bulk form wraps the first
+// column once a block and each row once, never a word. Where every piece
+// is 16-byte aligned in both memories and whole 16-byte units long, and
+// a row at most two of them (bulk_ok; the wrappers pick the form,
+// ops/cuda_bitlife._tile_form), each warp takes whole rows and its lanes
+// the row's 16-byte units: the load is one cp.async.cg (LDGSTS) a unit,
+// which holds no register for the word in transit, with every copy of
+// the block in flight before one wait; the store one LDS.128 and one
+// STG.128 a unit. Every other shape keeps load_tile and store_interior.
+// The extended tile holds the same words either way, so the light cone
+// is unchanged. Hopper's bulk-copy engine (cp.async.bulk, one copy a
+// row piece against an mbarrier, issued by one warp) moved the same
+// pieces slower: a 0-turn launch at 5120^2 took 5.0 us against 3.7 for
+// kernel B and 7.9 against 5.3 for kernel D (PERF.md §6).
+
+// Words of a 16-byte unit, the bulk form's alignment and copy.
+constexpr int kBulkWords = 4;
+
+// Whether the bulk form moves this plan's tiles of a board `cols` words
+// wide between `in` and `out`: the board's width, the tile's and the
+// ghost columns whole 16-byte units, both buffers 16-byte aligned (so
+// every plane of them: a plane is a whole number of rows), and the pitch
+// within the board's width (at most two pieces a row).
+inline bool bulk_ok(const Strips& k, int cols, int tile_cols, int ghost,
+                    const void* in, const void* out) {
+  return cols % kBulkWords == 0 && tile_cols % kBulkWords == 0 &&
+         ghost % kBulkWords == 0 && k.pitch <= cols &&
+         (uintptr_t)in % (4 * kBulkWords) == 0 &&
+         (uintptr_t)out % (4 * kBulkWords) == 0;
+}
+
+// Loads the extended tile of each of `planes` planes of a rows x cols
+// board (plane q at in + q * rows * cols) into copy q in the bulk form,
+// the pads untouched, and waits for this thread's copies; the caller's
+// next barrier (strip_turns' first) publishes the tile, as after
+// load_tile.
+__device__ __forceinline__ void bulk_load_tile(const Strips k,
+                                               const u32* __restrict__ in,
+                                               int planes, int rows,
+                                               int cols, int tile_rows,
+                                               int tile_cols, int halo,
+                                               int ghost) {
+  const int warps = blockDim.x / 32, lane = threadIdx.x % 32;
+  const int r0 = (int)blockIdx.y * tile_rows - halo;
+  // The row's first column on the board, and its words before the
+  // board's east edge: all of the pitch, or the first piece of two.
+  const int c = wrap((int)blockIdx.x * tile_cols - ghost, cols);
+  const int first = min(k.pitch, cols - c);
+  for (int q = 0; q < planes; ++q) {
+    for (int tr = threadIdx.x / 32; tr < k.er; tr += warps) {
+      const u32* row = in + ((size_t)q * rows + wrap(r0 + tr, rows)) * cols;
+      const u32* east = row + c;  // the first piece; the second is `row`
+      u32* to = smem + strip_copy(k, q) + tr * k.pitch;
+      for (int j = kBulkWords * lane; j < k.pitch; j += kBulkWords * 32) {
+        const u32* from = j < first ? east + j : row + (j - first);
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                         (unsigned)__cvta_generic_to_shared(to + j)),
+                     "l"(from)
+                     : "memory");
+      }
+    }
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// Stores the interior of the copy at word `cur` to plane 0 of `out` and,
+// with two planes (kernel D's dying plane), the other copy's to plane 1,
+// in the bulk form (each row clipped to the board at a ragged last tile);
+// called after the barrier that ends the last turn, as store_interior.
+__device__ __forceinline__ void bulk_store_interior(const Strips k, int cur,
+                                                    u32* __restrict__ out,
+                                                    int planes, int rows,
+                                                    int cols, int tile_rows,
+                                                    int tile_cols, int halo,
+                                                    int ghost) {
+  const int warps = blockDim.x / 32, lane = threadIdx.x % 32;
+  const int r0 = blockIdx.y * tile_rows, c0 = blockIdx.x * tile_cols;
+  const int words = min(tile_cols, cols - c0);
+  const int other = strip_copy(k, 0) + strip_copy(k, 1) - cur;
+  for (int q = 0; q < planes; ++q) {
+    const u32* from = smem + (q == 0 ? cur : other) + halo * k.pitch + ghost;
+    for (int tr = threadIdx.x / 32; tr < tile_rows && r0 + tr < rows;
+         tr += warps) {
+      u32* to = out + ((size_t)q * rows + r0 + tr) * cols + c0;
+      for (int j = kBulkWords * lane; j < words; j += kBulkWords * 32)
+        *reinterpret_cast<uint4*>(to + j) =
+            *reinterpret_cast<const uint4*>(from + tr * k.pitch + j);
+    }
+  }
 }
 
 }  // namespace gol

@@ -3,8 +3,10 @@
 // (bitgens.cu) and kernel E (life.cu, whose words are 4 horizontal byte
 // cells, so its window's rows are single rows; kernel B's B3/S23 form
 // and kernel D's B2/S/C3 form walk strips instead, strip.cuh); the
-// tile's load and store, which kernels B and D share too; and the
-// thread-block cluster that runs kernels A and C (the end of this file).
+// tile's load and store a word at a time, which kernels B and D keep for
+// their masks forms and for shapes strip.cuh's bulk form does not take
+// (a width of no whole 16 bytes, say); and the thread-block cluster that
+// runs kernels A and C (the end of this file).
 //
 // A block holds an extended tile (its interior plus ghost word-rows and
 // ghost columns, toroidal indices modulo the board) in two copies, `cur`

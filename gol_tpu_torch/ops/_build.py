@@ -47,11 +47,11 @@ _SIGNATURES = {
     "bitlife_resident_launch": [_VP, _VP, _I, _I, _I, _I, _U, _U, _I, _I,
                                 _I, _I, _I, _I, _VP],
     "bitlife_tiled_launch": [_VP, _VP, _I, _I, _I, _I, _I, _I, _I, _U, _U,
-                             _I, _I, _I, _VP],
+                             _I, _I, _I, _I, _VP],
     "bitgens_resident_launch": [_VP, _VP, _I, _I, _I, _I, _U, _U, _I, _I,
                                 _I, _I, _I, _VP],
     "bitgens_tiled_launch": [_VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _U,
-                             _U, _I, _I, _VP],
+                             _U, _I, _I, _I, _VP],
     "life_dense_launch": [_VP, _VP, _VP, _I, _I, _I, _U, _U, _I, _I, _I, _I,
                           _I, _I, _I, _VP, _VP],
 }

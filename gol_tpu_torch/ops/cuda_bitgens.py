@@ -30,11 +30,13 @@ plane lives in the alive plane's ping-pong partner. Kernel C steps
 B2/S/C3 by column walkers (`cb._walk_plan`); kernel D by kernel B's
 strip walkers (`cb._strip_plan`) in their padded layout, two copies at
 the strip pitch between three pads, each step reading its strip's dying
-words from the row it overwrites.
+words from the row it overwrites, and moves both planes' tiles in kernel
+B's form (`cb._tile_form`).
 
 Wrappers: a CPU tensor runs the plain version; a CUDA tensor launches
 the kernel (after device, dtype, shape and contiguity checks) or raises
-— there is no fallback. `LAUNCHES` counts the launches of each kernel.
+— there is no fallback. `LAUNCHES` counts the launches of each kernel,
+`TILE_LOADS` kernel D's by tile form.
 """
 
 from __future__ import annotations
@@ -49,6 +51,11 @@ from gol_tpu_torch.ops.bitlife import WORD
 #: Launches per kernel. Each wrapper adds one where it launches, and
 #: nowhere else; callers reset the counts by assigning 0.
 LAUNCHES = {"bitgens_resident": 0, "bitgens_tiled": 0}
+#: Kernel D's launches by how the blocks move their tiles
+#: (`cb._tile_form`): "bulk" (16-byte row pieces) or "words". One a
+#: launch, where the pass picks the form; callers reset the counts by
+#: assigning 0.
+TILE_LOADS = {"bulk": 0, "words": 0}
 
 
 def _resident_bytes(rule: GenRule, rows: int, cols: int) -> int:
@@ -107,17 +114,22 @@ def _tiled_pass(src: torch.Tensor, dst: torch.Tensor, k: int,
                 rule: GenRule, geom: cb.TileGeometry) -> torch.Tensor:
     """One pass of k <= geom.turns turns of kernel D from `src` into
     `dst` (never the same buffer: other tiles read this tile's ghosts
-    from `src`)."""
+    from `src`), its tiles moved in the form `cb._tile_form` picks (the
+    strip walkers run B2/S/C3 alone: two planes, birth {2}, survive
+    {})."""
     if not 0 <= k <= geom.turns:
         raise ValueError(f"k={k} outside the light cone 0..{geom.turns}")
     if src.device.type == "cpu":
         return dst.copy_(bitgens.step_n_packed_gens_raw(src, k, rule))
     cb._check_pass(src, dst, lambda t: _check_planes(t, rule))
     nplanes, rows, cols = src.shape
+    bits = cb.rule_bits(rule)
+    form = cb._tile_form(src, dst, geom, nplanes == 2 and bits == (1 << 2, 0))
     cb._launch(LAUNCHES, "bitgens_tiled", src, src.data_ptr(), dst.data_ptr(),
                nplanes, rows, cols, geom.tile_rows, geom.tile_cols,
-               geom.halo, geom.ghost, k, *cb.rule_bits(rule),
+               geom.halo, geom.ghost, k, *bits, int(form == "bulk"),
                *cb._strip_plan(geom))
+    TILE_LOADS[form] += 1
     return dst
 
 

@@ -19,8 +19,9 @@ version `ops.bitlife.step_n_packed_raw`:
 - `step_n_packed_tiled_raw` / `step_n_packed_tiled2d_raw`: kernel B
   (`bitlife_tiled`), temporally blocked tiles with ghost word-rows and
   ghost columns, k <= min(32*halo, ghost) turns per launch; B3/S23 is
-  stepped by strip walkers (`_strip_plan`), every other rule word by
-  word as in kernel A. Replaces
+  stepped by strip walkers (`_strip_plan`), its tiles moved as 16-byte
+  row pieces where the shape allows (`_tile_form`), every other rule
+  word by word as in kernel A. Replaces
   `step_n_packed_pallas_tiled_raw` and
   `step_n_packed_pallas_tiled2d_raw`; both keep their names and
   override knobs.
@@ -34,12 +35,13 @@ the kernel (after device, dtype, shape and contiguity checks) or raises
 — there is no fallback. Outputs are allocated with `torch.empty`, the
 launch goes on the current stream, and the launcher's
 `cudaGetLastError()` is checked after every launch. `LAUNCHES` counts
-the launches of each kernel.
+the launches of each kernel, `TILE_LOADS` kernel B's by tile form.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -89,9 +91,17 @@ MAX_BATCH = 65_535
 #: The combine forms of `rulecomp.compile_rule`, as kernel arguments.
 COMBINE = {"b_subset": 0, "s_subset": 1, "general": 2}
 
+#: Words of the bulk form's alignment and copy in kernels B and D
+#: (`kBulkWords` in csrc/strip.cuh): 16 bytes.
+BULK_WORDS = 4
+
 #: Launches per kernel. Each wrapper adds one where it launches, and
 #: nowhere else; callers reset the counts by assigning 0.
 LAUNCHES = {"bitlife_resident": 0, "bitlife_tiled": 0}
+#: Kernel B's launches by how the blocks move their tiles (`_tile_form`):
+#: "bulk" (16-byte row pieces) or "words". One a launch, where the pass
+#: picks the form; callers reset the counts by assigning 0.
+TILE_LOADS = {"bulk": 0, "words": 0}
 
 
 def rule_bits(rule) -> tuple:
@@ -100,6 +110,10 @@ def rule_bits(rule) -> tuple:
     birth = sum(1 << c for c in rule.birth if 0 <= c <= 8)
     survive = sum(1 << c for c in rule.survive if 0 <= c <= 8)
     return birth, survive
+
+
+#: B3/S23's (birth, survive) masks: the rule kernel B's strip walkers run.
+_LIFE_BITS = rule_bits(LIFE)
 
 
 def rule_args(rule: Rule) -> tuple:
@@ -383,20 +397,49 @@ def _strip_plan(geom: TileGeometry) -> tuple:
     return min(STRIP_THREADS, -(-strips * segs // 32) * 32), segs
 
 
+def _tile_form(src: torch.Tensor, dst: torch.Tensor, geom: TileGeometry,
+               strips: bool) -> str:
+    """How a launch of kernel B or D moves `geom`'s tiles of `src` (each
+    plane a board as wide as the last axis) in and its interiors out to
+    `dst`: "bulk", as 16-byte pieces of rows, every copy of a block in
+    flight together (csrc/strip.cuh), where the rule runs the strip
+    walkers (`strips`) and every row of the extended tile is at most two
+    pieces of a board row, 16-byte aligned in both memories and whole
+    16-byte units long — the board's width, the tile's and the ghost
+    columns multiples of BULK_WORDS, the strip pitch within the board's
+    width, both buffers 16-byte aligned (the launcher's `gol::bulk_ok`);
+    else "words", a word at a time."""
+    bulk = (strips and _bulk_shape(src.shape[-1], geom)
+            and (src.data_ptr() | dst.data_ptr()) % (4 * BULK_WORDS) == 0)
+    return "bulk" if bulk else "words"
+
+
+@functools.lru_cache(maxsize=None)
+def _bulk_shape(cols: int, geom: TileGeometry) -> bool:
+    """`_tile_form`'s test of the shape: the widths whole 16-byte units
+    and the strip pitch within the board's width. Cached, since every
+    launch asks it on the host path that feeds the card."""
+    return (cols % BULK_WORDS == geom.tile_cols % BULK_WORDS == 0
+            and geom.ghost % BULK_WORDS == 0 and _strip_pitch(geom) <= cols)
+
 
 def _tiled_pass(src: torch.Tensor, dst: torch.Tensor, k: int, rule: Rule,
                 geom: TileGeometry) -> torch.Tensor:
     """One pass of k <= geom.turns turns from `src` into `dst` (never the
-    same buffer: other tiles read this tile's ghosts from `src`)."""
+    same buffer: other tiles read this tile's ghosts from `src`), its
+    tiles moved in the form `_tile_form` picks."""
     if not 0 <= k <= geom.turns:
         raise ValueError(f"k={k} outside the light cone 0..{geom.turns}")
     if src.device.type == "cpu":
         return dst.copy_(bitlife.step_n_packed_raw(src, k, rule))
     _check_pass(src, dst, _check_cuda)
     rows, cols = src.shape
+    args = rule_args(rule)
+    form = _tile_form(src, dst, geom, args[:2] == _LIFE_BITS)
     _launch(LAUNCHES, "bitlife_tiled", src, src.data_ptr(), dst.data_ptr(),
             rows, cols, geom.tile_rows, geom.tile_cols, geom.halo,
-            geom.ghost, k, *rule_args(rule), *_strip_plan(geom))
+            geom.ghost, k, *args, int(form == "bulk"), *_strip_plan(geom))
+    TILE_LOADS[form] += 1
     return dst
 
 

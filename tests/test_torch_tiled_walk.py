@@ -8,7 +8,11 @@ kernels' limits; the strip layout (strip pitch, pads that nothing
 writes, no wrap within the tile), emulated word for word for kernel B's
 B3/S23 and kernel D's B2/S/C3, keeps a launch's interior exact; the
 wrapper hands the plan to the launcher in the C signature's order. The
-kernels themselves run on the card (chip_smoke.py)."""
+bulk form's load and store (csrc/strip.cuh: 16-byte row pieces),
+emulated unit by unit, read and write the words the per-word load_tile
+and store_interior do, aligned, at every seam block; the wrappers pick
+that form only where its pieces align, and count each launch's form
+once. The kernels themselves run on the card (chip_smoke.py)."""
 
 import dataclasses
 import importlib.util
@@ -20,6 +24,7 @@ import torch
 
 from gol_tpu_torch.models.rules import get_rule
 from gol_tpu_torch.ops import _build, bitgens, bitlife, life
+from gol_tpu_torch.ops import cuda_bitgens as cg
 from gol_tpu_torch.ops import cuda_bitlife as cb
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -418,3 +423,202 @@ def test_strip_constants_are_the_kernels():
     src = (REPO / "gol_tpu_torch/csrc/strip.cuh").read_text()
     assert f"constexpr int kStripThreads = {cb.STRIP_THREADS};" in src
     assert f"constexpr int kStripCols = {cb.STRIP_COLS};" in src
+
+
+#: (name, packed rows, width, geometry) of the shapes whose tiles kernels
+#: B and D move in the bulk form (16-byte row pieces, csrc/strip.cuh):
+#: the 2-D entry at 5120², 16384² and 4096², the strip entry's halo
+#: depths, a ring's ghost-extended block of 132 x 16384 words (its last
+#: tile 4 of 32 word-rows), a board whose last tile is 160 of 256
+#: columns, and kernel D's tiles planned for three copies.
+BULK_SHAPES = [
+    ("cell-5120-2d", 160, 5120, cb._tiled2d_geometry(160, 5120, None)),
+    ("main-2d", 512, 16384, cb._tiled2d_geometry(512, 16384, None)),
+    ("square-4096-2d", 128, 4096, cb._tiled2d_geometry(128, 4096, None)),
+    *((f"strip-h{h}", 512, 16384, cb._tile_plan(512, 16384, 8, h))
+      for h in (1, 2, 8)),
+    ("ring-block-2d", 132, 16384, cb._tiled2d_geometry(132, 16384, None)),
+    ("ragged-2d", 128, 4000, cb._tiled2d_geometry(128, 4000, None)),
+    ("ragged-strip-h8", 128, 4000, cb._tile_plan(128, 4000, 8, 8)),
+    ("gens-cell-5120-2d", 160, 5120,
+     cb._tiled2d_geometry(160, 5120, None, 3)),
+    ("gens-ring-block-2d", 132, 16384,
+     cb._tiled2d_geometry(132, 16384, None, 3)),
+]
+
+
+def edge_blocks(rows, cols, geom):
+    """The blocks (bx, by) of a grid over the board at its seams: the
+    first two and the last of each axis (the last tile ragged where the
+    board is), every pairing of them."""
+    nx = -(-cols // geom.tile_cols)
+    ny = -(-rows // geom.tile_rows)
+    return [(bx, by) for bx in sorted({0, 1, nx - 1} & set(range(nx)))
+            for by in sorted({0, 1, ny - 1} & set(range(ny)))]
+
+
+def bulk_load(geom, rows, cols, bx, by, planes):
+    """{(shared word, (plane, board word))} of one block's load in the
+    bulk form, with csrc/strip.cuh bulk_load_tile's arithmetic: each
+    warp a row, its first board column wrapped once a block and the row
+    once, the row's words before the board's east edge the first piece
+    and the rest from column 0; each lane a 16-byte unit of the row,
+    asserted aligned in both memories and within one piece; and the
+    pieces a row."""
+    er = geom.tile_rows + 2 * geom.halo
+    pitch = cb._strip_pitch(geom)
+    words, pad = er * pitch, pitch + cb.STRIP_COLS
+    r0 = by * geom.tile_rows - geom.halo
+    c = (bx * geom.tile_cols - geom.ghost) % cols
+    first = min(pitch, cols - c)
+    assert first % cb.BULK_WORDS == 0 and pitch - first < pitch
+    got = {}
+    for q in range(planes):
+        for tr in range(er):
+            row = (q * rows + (r0 + tr) % rows) * cols
+            east = row + c
+            to = pad + q * (words + pad) + tr * pitch
+            for j in range(0, pitch, cb.BULK_WORDS):
+                src = east + j if j < first else row + (j - first)
+                assert src % cb.BULK_WORDS == (to + j) % cb.BULK_WORDS == 0
+                # A unit never straddles the board's east edge.
+                assert j + cb.BULK_WORDS <= first or j >= first
+                for u in range(cb.BULK_WORDS):
+                    got[to + j + u] = divmod(src + u, rows * cols)
+    return got
+
+
+def word_load(geom, rows, cols, bx, by, planes):
+    """The same map for walk.cuh load_tile (word i of copy q from board
+    row r0 - halo + i / pitch and column c0 - ghost + i % pitch, each
+    modulo the board), the form the bulk form replaces."""
+    er = geom.tile_rows + 2 * geom.halo
+    pitch = cb._strip_pitch(geom)
+    words, pad = er * pitch, pitch + cb.STRIP_COLS
+    got = {}
+    for q in range(planes):
+        for i in range(words):
+            tr, tc = divmod(i, pitch)
+            gr = (by * geom.tile_rows - geom.halo + tr) % rows
+            gc = (bx * geom.tile_cols - geom.ghost + tc) % cols
+            got[pad + q * (words + pad) + i] = (q, gr * cols + gc)
+    return got
+
+
+@pytest.mark.parametrize("name,rows,cols,geom", BULK_SHAPES,
+                         ids=[s[0] for s in BULK_SHAPES])
+def test_bulk_pieces_load_the_words_load_tile_reads(name, rows, cols, geom):
+    """The bulk form's row pieces (emulated unit by unit) fill every word
+    of the extended tile, the pitch's padding columns included, from the
+    board word walk.cuh's load_tile reads there, in every copy a plane
+    loads, at every seam block; every unit is 16-byte aligned in both
+    memories, and a row is at most two pieces."""
+    planes = 2 if geom.copies == 3 else 1
+    assert cb._strip_pitch(geom) <= cols
+    for bx, by in edge_blocks(rows, cols, geom):
+        assert (bulk_load(geom, rows, cols, bx, by, planes)
+                == word_load(geom, rows, cols, bx, by, planes)), (bx, by)
+
+
+@pytest.mark.parametrize("name,rows,cols,geom", BULK_SHAPES,
+                         ids=[s[0] for s in BULK_SHAPES])
+def test_bulk_store_writes_each_interior_word_once(name, rows, cols, geom):
+    """The bulk form's store (csrc/strip.cuh bulk_store_interior: each
+    warp an interior row, clipped to the board at a ragged last tile,
+    each lane a 16-byte unit) writes every board word exactly once over
+    the whole grid, from the word walk.cuh's store_interior reads, each
+    unit 16-byte aligned in both memories."""
+    er = geom.tile_rows + 2 * geom.halo
+    pitch = cb._strip_pitch(geom)
+    pad = pitch + cb.STRIP_COLS
+    hits = np.zeros(rows * cols, dtype=np.int64)
+    for by in range(-(-rows // geom.tile_rows)):
+        for bx in range(-(-cols // geom.tile_cols)):
+            r0, c0 = by * geom.tile_rows, bx * geom.tile_cols
+            words = min(geom.tile_cols, cols - c0)
+            assert words % cb.BULK_WORDS == 0
+            for tr in range(min(geom.tile_rows, rows - r0)):
+                frm = pad + (geom.halo + tr) * pitch + geom.ghost
+                to = (r0 + tr) * cols + c0
+                assert frm % cb.BULK_WORDS == 0 and to % cb.BULK_WORDS == 0
+                assert frm + words <= pad + er * pitch
+                hits[to:to + words] += 1
+    assert (hits == 1).all()
+
+
+def offset_board(rows, cols, offset_words):
+    """A contiguous CPU board whose storage starts `offset_words` words
+    into its buffer."""
+    flat = torch.zeros(rows * cols + offset_words, dtype=torch.int32)
+    return flat[offset_words:].view(rows, cols)
+
+
+@pytest.mark.parametrize("name,rows,cols,geom", BULK_SHAPES,
+                         ids=[s[0] for s in BULK_SHAPES])
+def test_tile_form_bulk_where_the_pieces_align(name, rows, cols, geom):
+    """Every shape above, in buffers 16-byte aligned, takes the bulk form
+    for the rules the strip walkers run, and the words form for the
+    others."""
+    src = offset_board(rows, cols, 0)
+    dst = offset_board(rows, cols, cb.BULK_WORDS)
+    assert src.data_ptr() % 16 == 0 and dst.data_ptr() % 16 == 0
+    assert cb._tile_form(src, dst, geom, True) == "bulk"
+    assert cb._tile_form(src, dst, geom, False) == "words"
+
+
+#: (name, packed rows, width, geometry, offset of the input in words) of
+#: shapes the bulk form does not take: a width of no whole 16 bytes (the
+#: 4096 x 131 board, a 2x2 mesh's block of 258 words), ghost columns of
+#: no whole 16 bytes, a pitch wider than the board (three pieces a row),
+#: and an input whose storage starts one word past 16-byte alignment.
+WORD_SHAPES = [
+    ("width-131", 128, 131, cb._tiled2d_geometry(128, 131, None), 0),
+    ("width-131-strip-h8", 128, 131, cb._tile_plan(128, 131, 8, 8), 0),
+    ("mesh-block-258", 10, 258, cb._tiled2d_geometry(10, 258, None), 0),
+    ("ghost-34", 160, 5120,
+     dataclasses.replace(cb._tiled2d_geometry(160, 5120, None), ghost=34),
+     0),
+    ("pitch-wider-than-board", 16, 64, cb._tiled2d_geometry(16, 64, None),
+     0),
+    ("offset-input", 160, 5120, cb._tiled2d_geometry(160, 5120, None), 1),
+]
+
+
+@pytest.mark.parametrize("name,rows,cols,geom,offset", WORD_SHAPES,
+                         ids=[s[0] for s in WORD_SHAPES])
+def test_tile_form_words_where_a_piece_would_not_align(name, rows, cols,
+                                                       geom, offset):
+    src = offset_board(rows, cols, offset)
+    assert cb._tile_form(src, offset_board(rows, cols, 0), geom,
+                         True) == "words"
+    # The output's alignment counts as much as the input's.
+    if offset:
+        assert cb._tile_form(offset_board(rows, cols, 0), src, geom,
+                             True) == "words"
+
+
+@pytest.mark.parametrize("notation,form", [
+    ("B3/S23", "bulk"), ("B36/S23", "words"),
+    ("B2/S/C3", "bulk"), ("B2/S345/C4", "words")])
+def test_tile_loads_counts_each_launch_once(monkeypatch, notation, form):
+    """Each launch of kernel B (B/S rules) or D (B/S/C rules) adds one to
+    its wrapper's TILE_LOADS under the form the pass picked, and hands
+    the launcher its flag (1 for the bulk form) before the strip plan:
+    two of each for a 64-turn run of the 2-D entry at 5120²."""
+    rule = get_rule(notation)
+    gens = hasattr(rule, "states")
+    mod = cg if gens else cb
+    seen = []
+    monkeypatch.setattr(cb, "_check_pass", lambda src, dst, check: None)
+    monkeypatch.setattr(cb, "_launch", lambda launches, name, like, *args:
+                        seen.append(args))
+    monkeypatch.setattr(mod, "TILE_LOADS", {"bulk": 0, "words": 0})
+    shape = ((rule.states - 1,) if gens else ()) + (160, 5120)
+    src = torch.empty(shape, dtype=torch.int32, device="meta")
+    if gens:
+        cg.step_n_packed_gens_tiled2d_raw(src, 64, rule)
+    else:
+        cb.step_n_packed_tiled2d_raw(src, 64, rule)
+    assert mod.TILE_LOADS == {form: 2,
+                              ({"bulk", "words"} - {form}).pop(): 0}
+    assert [args[-3] for args in seen] == [int(form == "bulk")] * 2
