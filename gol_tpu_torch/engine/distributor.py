@@ -85,7 +85,8 @@ from gol_tpu_torch.events import (
 from gol_tpu_torch.io.service import IOService
 from gol_tpu_torch.models.rules import GenRule, get_rule
 from gol_tpu_torch.obs import accounting, device, flight, tracing
-from gol_tpu_torch.ops import generations
+from gol_tpu_torch.ops import (cuda_bitgens, cuda_bitlife, cuda_life,
+                               generations)
 from gol_tpu_torch.ops.bitlife import unpack_np
 from gol_tpu_torch.params import Params
 from gol_tpu_torch.parallel import make_stepper
@@ -306,6 +307,18 @@ class _EngineMetrics:
             "gol_tpu_device_census_seconds",
             {"phase": "drain"},
         )
+        # Kernel launches as the CUDA wrappers count them, read when
+        # the registry is read: nothing is added to the launch path.
+        self.kernel_launches = [
+            obs.collected_counter(
+                "gol_tpu_stepper_kernel_launches_total",
+                "Launches of each hand-written CUDA kernel (the wrappers' "
+                "LAUNCHES counts, read when the registry is read)",
+                {"kernel": name}, functools.partial(counts.get, name, 0))
+            for counts in (cuda_bitlife.LAUNCHES, cuda_bitgens.LAUNCHES,
+                           cuda_life.LAUNCHES)
+            for name in counts
+        ]
 
 
 _METRICS = _EngineMetrics()
@@ -337,12 +350,24 @@ CHUNK_CLOCK_CAP = 64
 class _Chunk:
     """One fused chunk whose timing events are outstanding."""
 
-    __slots__ = ("start", "end", "turn", "turns", "after", "anchor")
+    __slots__ = ("start", "end", "turn", "turns", "after", "anchor",
+                 "kernel")
 
-    def __init__(self, start, end, turn, turns, after, anchor):
+    def __init__(self, start, end, turn, turns, after, anchor, kernel):
         self.start, self.end = start, end
         self.turn, self.turns = turn, turns
         self.after, self.anchor = after, anchor
+        self.kernel = kernel
+
+
+def _chunk_args(turn: int, turns: int, kernel: Optional[str]) -> dict:
+    """The arguments of a fused chunk's `engine.dispatch` span or mark:
+    its end turn, its turns and, where the stepper names it, the kernel
+    its launches ran (`Stepper.kernel`)."""
+    args = {"kind": "chunk", "turn": turn, "turns": turns}
+    if kernel is not None:
+        args["kernel"] = kernel
+    return args
 
 
 class ChunkClock:
@@ -363,7 +388,8 @@ class ChunkClock:
       whose turns follow on, so work between them on another path, or a
       chunk that recorded no events, makes no gap;
     - once an anchor precedes it, an `engine.dispatch` span (kind
-      "chunk") on the tracer's `device` track, its interval on the card
+      "chunk", and the kernel its launches ran where the stepper names
+      one) on the tracer's `device` track, its interval on the card
       mapped onto the tracer's wall clock.
 
     An anchor is an event recorded right after a drain, when the queue
@@ -432,14 +458,17 @@ class ChunkClock:
             return
         self._start = self._recorded()
 
-    def end(self, turn: int, turns: int) -> bool:
-        """After the last launch of the chunk that ends at `turn`.
-        True when the chunk's `engine.dispatch` span will follow: it
-        recorded its events and an anchor dates them."""
+    def end(self, turn: int, turns: int,
+            kernel: Optional[str] = None) -> bool:
+        """After the last launch of the chunk that ends at `turn`, whose
+        launches ran `kernel` (None: unnamed). True when the chunk's
+        `engine.dispatch` span will follow: it recorded its events and
+        an anchor dates them."""
         timed = self._start is not None
         if timed:
             self._out.append(_Chunk(self._start, self._recorded(), turn,
-                                    turns, self._after, self._anchor))
+                                    turns, self._after, self._anchor,
+                                    kernel))
             self._out_turns += turns
             self._start = None
         self._after = "enqueue"
@@ -462,7 +491,7 @@ class ChunkClock:
                 tracing.add_span(
                     "engine.dispatch", "engine",
                     wall + event.elapsed_time(c.start) / 1e3, dev,
-                    {"kind": "chunk", "turn": c.turn, "turns": c.turns},
+                    _chunk_args(c.turn, c.turns, c.kernel),
                     tid=tracing.DEVICE_TID)
             if prev is not None:
                 self._free.append(prev[0])
@@ -1008,6 +1037,7 @@ class Engine:
                         k, self._autosave_turn + p.autosave_turns - turn
                     ))
                 clock = self._clock if obs.enabled() else None
+                kernel = self.stepper.kernel
                 spanned = False
                 tick = time.perf_counter()
                 with device.cause("fused-chunk"):
@@ -1015,7 +1045,7 @@ class Engine:
                         clock.begin()
                     world, count = self.stepper.step_n(world, k)
                     if clock is not None:
-                        spanned = clock.end(turn + k, k)
+                        spanned = clock.end(turn + k, k, kernel)
                     # The engine owns the chunk boundary's census: after
                     # the chunk's closing event, so its stall shows
                     # between chunks on the card, labelled as a census's.
@@ -1038,15 +1068,14 @@ class Engine:
                     _METRICS.dispatch_seconds["chunk"].observe(elapsed)
                     tracing.add_span("engine.dispatch", "engine",
                                      time.time() - elapsed, elapsed,
-                                     {"kind": "chunk", "turn": turn + k,
-                                      "turns": k})
+                                     _chunk_args(turn + k, k, kernel))
                     self.timeline.record(turn + k, k, elapsed, "chunk")
                 elif not spanned:
                     # An instant mark where no clock span will follow (no
                     # timing events, a chunk past the cap, no anchor yet):
                     # timing the chunk here would need a realization.
                     tracing.event("engine.dispatch", "engine",
-                                  kind="chunk", turn=turn + k, turns=k)
+                                  **_chunk_args(turn + k, k, kernel))
                 first = turn + 1
                 turn += k
                 self._commit(turn, world, count)

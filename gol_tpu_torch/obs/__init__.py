@@ -16,12 +16,14 @@ Stdlib-only.
 
 from gol_tpu_torch.obs.registry import (
     REGISTRY,
+    CollectedCounter,
     Counter,
     Gauge,
     Histogram,
     Registry,
     TopKGauge,
     atomic_write_text,
+    collected_counter,
     counter,
     enabled,
     evict_entity,
@@ -37,6 +39,7 @@ from gol_tpu_torch.obs.registry import (
 )
 
 __all__ = [
+    "CollectedCounter",
     "Counter",
     "Gauge",
     "Histogram",
@@ -45,6 +48,7 @@ __all__ = [
     "Registry",
     "TopKGauge",
     "atomic_write_text",
+    "collected_counter",
     "counter",
     "enabled",
     "evict_entity",

@@ -7,6 +7,8 @@ Three metric types, Prometheus-shaped:
 - `Gauge`: last-write-wins float, `set/inc/dec`.
 - `Histogram`: exponential (or caller-supplied) upper bounds, cumulative
   `le` semantics at exposition time, `observe(v)`, quantiles.
+- `CollectedCounter`: a counter whose value is read from a callable
+  when the registry is read, for counts a hot path keeps for itself.
 
 `TopKGauge` is the bounded labeled family (top-K children named, the
 rest one aggregate); entity series (`track_entity_series`,
@@ -44,9 +46,10 @@ import json
 import os
 import tempfile
 import threading
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 __all__ = [
+    "CollectedCounter",
     "Counter",
     "Gauge",
     "Histogram",
@@ -54,6 +57,7 @@ __all__ = [
     "REGISTRY",
     "TopKGauge",
     "atomic_write_text",
+    "collected_counter",
     "counter",
     "enabled",
     "evict_entity",
@@ -194,6 +198,30 @@ class Counter(_Metric):
 
     def snapshot_value(self):
         return self._value
+
+
+class CollectedCounter(_Metric):
+    """A counter kept outside the registry: its value is `read()`, taken
+    each time the registry is read (exposition, snapshot), so the code
+    that counts adds nothing to its own path. The count is the owner's:
+    where the owner resets it, the series resets, as a counter does when
+    its process restarts."""
+
+    kind = "counter"
+
+    def __init__(self, name, help, labels, read: Callable[[], float]):
+        super().__init__(name, help, labels)
+        self._read = read
+
+    @property
+    def value(self) -> float:
+        return float(self._read())
+
+    def sample_lines(self):
+        yield f"{self.name}{_fmt_labels(self.labels)} {_fmt_value(self.value)}"
+
+    def snapshot_value(self):
+        return self.value
 
 
 class Gauge(_Metric):
@@ -485,6 +513,15 @@ class Registry:
               labels: Optional[dict] = None) -> Gauge:
         return self._get_or_create(Gauge, name, help, labels)
 
+    def collected_counter(self, name: str, help: str,
+                          labels: Optional[dict],
+                          read: Callable[[], float]) -> CollectedCounter:
+        """A counter series whose value is `read()` when the registry
+        is read (see CollectedCounter); get-or-create, so the first
+        `read` registered under an identity stays."""
+        return self._get_or_create(CollectedCounter, name, help, labels,
+                                   read=read)
+
     def histogram(self, name: str, help: str = "",
                   labels: Optional[dict] = None,
                   buckets: Sequence[float] = DEFAULT_BUCKETS) -> Histogram:
@@ -620,6 +657,11 @@ def counter(name: str, help: str = "", labels: Optional[dict] = None) -> Counter
 
 def gauge(name: str, help: str = "", labels: Optional[dict] = None) -> Gauge:
     return REGISTRY.gauge(name, help, labels)
+
+
+def collected_counter(name: str, help: str, labels: Optional[dict],
+                      read: Callable[[], float]) -> CollectedCounter:
+    return REGISTRY.collected_counter(name, help, labels, read)
 
 
 def histogram(name: str, help: str = "", labels: Optional[dict] = None,

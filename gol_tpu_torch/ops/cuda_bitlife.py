@@ -510,6 +510,18 @@ def step_n_packed_kernel_raw(p: torch.Tensor, n: int,
     return step_n_packed_tiled2d_raw(p, n, rule)
 
 
+def kernel_plan(rows: int, width: int) -> tuple:
+    """(kernel, blocks) of one launch of `step_n_packed_kernel_raw` on a
+    packed board of `rows` word-rows and `width` columns, from the plans
+    alone (no card needed): kernel A's cluster (`_cluster_plan`), or
+    kernel B's 2-D grid of tiles (`_tiled2d_geometry`)."""
+    if fits_cuda_packed(rows * WORD, width):
+        return "bitlife_resident", _cluster_plan(rows, width, 2)[0]
+    geom = _tiled2d_geometry(rows, width, None)
+    return "bitlife_tiled", (-(-rows // geom.tile_rows)
+                             * -(-width // geom.tile_cols))
+
+
 def step_n_cuda_packed(world: torch.Tensor, n: int,
                        rule: Rule = LIFE) -> torch.Tensor:
     """`n` turns on a {0,255} uint8 world via kernel A — drop-in for

@@ -198,6 +198,10 @@ class Stepper:
     halo_cost: Optional[Callable] = None
     #: The activity plane of the tiled backend (`tiled.TiledStepper`).
     tiled: Optional[object] = None
+    #: The kernel every launch of a fused chunk runs, where the board's
+    #: shape fixes it (the CUDA packed Life backend); the engine names it
+    #: on its `engine.dispatch` chunk spans. None elsewhere.
+    kernel: Optional[str] = None
 
     def alive_count(self, world) -> int:
         return int(self.alive_count_async(world))
@@ -798,7 +802,7 @@ def _single_device(rule: Rule, device) -> Stepper:
 
 def _packed_state_stepper(name: str, height: int, step_n_raw, put, fetch,
                           changed=torch.bitwise_xor, count=None,
-                          alive_mask=None) -> Stepper:
+                          alive_mask=None, kernel=None) -> Stepper:
     """The one constructor of the single-device backends whose device
     state is packed int32 words (packed on `put`, unpacked only on
     `fetch`): the Life-like board (`_life_codec`) and the Generations
@@ -807,7 +811,8 @@ def _packed_state_stepper(name: str, height: int, step_n_raw, put, fetch,
     of the diff scans — is `step_n_raw` at n = 1, so on the card it is
     one kernel launch. `changed` gives the changed-cell words of two
     states (their XOR; the planes' `_planes_xor`), `count` the alive
-    count of one (None: `bitlife.count_packed`, looked up at build).
+    count of one (None: `bitlife.count_packed`, looked up at build),
+    `kernel` the kernel `step_n_raw` launches (`Stepper.kernel`).
     The unpack, the count and the encodings stay plain PyTorch on the
     device (gol_tpu's are XLA code)."""
     count = count or bitlife.count_packed
@@ -842,6 +847,7 @@ def _packed_state_stepper(name: str, height: int, step_n_raw, put, fetch,
         packed_diffs=True,
         step_n_with_diffs_sparse=sparse_scan_diffs(*scan),
         step_n_with_diffs_compact=compact_scan_diffs(*scan),
+        kernel=kernel,
     )
 
 
@@ -871,7 +877,8 @@ def _single_device_packed(rule: Rule, height: int, device,
                                  *_life_codec(height, device))
 
 
-def _single_device_cuda_packed(rule: Rule, height: int, device) -> Stepper:
+def _single_device_cuda_packed(rule: Rule, height: int, width: int,
+                               device) -> Stepper:
     """Packed backend whose every step runs the CUDA kernels — multi-turn
     chunks in one call, single turns and scanned turns at n = 1: kernel
     A when two copies of the packed board fit one block's shared
@@ -879,13 +886,20 @@ def _single_device_cuda_packed(rule: Rule, height: int, device) -> Stepper:
     of gol_tpu's `_single_device_pallas_packed`). Unlike the TPU's, the
     strip and 2-D entries launch kernel B with the same default tiles,
     so there is no third choice. The board's shape picks the kernel
-    (`cuda_bitlife.step_n_packed_kernel_raw`)."""
+    (`cuda_bitlife.step_n_packed_kernel_raw`), so the stepper names it
+    and sets `gol_tpu_stepper_launch_blocks{kernel}` to the blocks one
+    launch occupies (`cuda_bitlife.kernel_plan`) once, here."""
+    from gol_tpu_torch import obs
     from gol_tpu_torch.ops import cuda_bitlife as cb
 
+    kernel, blocks = cb.kernel_plan(height // bitlife.WORD, width)
+    obs.gauge("gol_tpu_stepper_launch_blocks",
+              "Thread blocks one launch of the stepper's kernel occupies, "
+              "as the board's shape plans it", {"kernel": kernel}).set(blocks)
     return _packed_state_stepper(
         "single-cuda-packed", height,
         lambda p, n: cb.step_n_packed_kernel_raw(p, n, rule),
-        *_life_codec(height, device),
+        *_life_codec(height, device), kernel=kernel,
     )
 
 
@@ -1465,7 +1479,7 @@ def _make_stepper(
                 f"grid {height}x{width} does not fit the packed CUDA "
                 "kernels (needs whole 32-row words)"
             )
-        return _single_device_cuda_packed(rule, height, dev)
+        return _single_device_cuda_packed(rule, height, width, dev)
     if backend == "packed" or (backend == "auto" and packable):
         if not packable:
             raise ValueError(f"grid {height}x{width} is not packable")
