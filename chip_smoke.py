@@ -85,7 +85,11 @@ against the fixture and a mismatched pair failing in both processes;
 phase `chaos`: `ChaosRunner` SIGKILLing a `--serve --sessions` server
 on the card mid-storm, survivors against the plain oracle, the session
 dispatches by path before the kill and after the resume; phase `cli`
-also reads a fresh process's compile watcher from /metrics) — and
+also reads a fresh process's compile watcher from /metrics), times
+each kernel at its main-path shape (phase `measure`; kernel A's single
+board also as device us a turn of 65,536-turn launches at 512² for each
+candidate tile and strip width of its grid plan, beside the
+cluster's, and the round's split) — and
 prints the `kernels` JSON line, the card's name and power limit, and a last
 line `{"ok": true, "device": {...}}`. Any failed phase raises, so the
 script exits nonzero and prints no result. Without a CUDA device, or
@@ -175,6 +179,22 @@ RESIDENT_BOARDS = ((32, 512), (64, 64), (96, 96), (512, 512))
 #: Turns at the cluster's seams: none, one, either side of the first and
 #: second halo exchange, and the main path's chunks of 64 and 36.
 RESIDENT_TURNS = (0, 1, 31, 32, 33, 36, 64, 100)
+#: Boards (height, width) of kernel A's grid plan on one board
+#: (`cuda_bitlife._grid_plan`): the main path's 512², 960² (the largest
+#: square kernel A takes), 32 word-rows x 512, 64², the 4-card ring's
+#: 12 x 512-word block, the 2x2 mesh's 10 x 258-word block and one
+#: word-row.
+GRID_BOARDS = ((512, 512), (960, 960), (1024, 512), (64, 64), (384, 512),
+               (320, 258), (32, 512))
+#: Turns at the grid's round seams: none, one, either side of the first
+#: barrier, two rounds and a ragged third.
+GRID_TURNS = (0, 1, 31, 32, 33, 64, 100)
+#: The turns of the 512² main path's fused chunks in `life-512.batch`.
+GRID_LONG = 65_536
+#: Kernel A's candidate tiles (tile_rows, tile_cols) at 512², each timed
+#: with strips of 1, 2 and 4 words: 128 tiles of 1 x 64 words, 64 of
+#: 1 x 128, 64 of 2 x 64.
+GRID_CANDIDATES = ((1, 64), (1, 128), (2, 64))
 
 #: Published H100 SXM memory rate (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -205,8 +225,10 @@ def kernel_resources(log: str, kernel: str) -> dict:
             name = None
             if kernel in mangled:
                 tail = mangled.split(kernel, 1)[1]
-                name = kernel + (tail.split("EE")[0] + "E"
-                                 if tail.startswith("ILi") else "")
+                form = re.match(r"(_[a-z]+)?((?:ILi\d+E)(?:Li\d+E)*)?",
+                                tail)
+                name = kernel + (form.group(1) or "") + (form.group(2)
+                                                         or "")
         elif name and "spill stores" in ln:
             spills = ln.strip().split(", ", 1)[1]
             out[name] = spills
@@ -566,6 +588,135 @@ def zero_pass_check(mod, src, rule, geom, form: str, what: str) -> None:
         raise AssertionError(f"{what}: a 0-turn launch changed the board")
 
 
+def check_grid_kernel(errs: dict, rules: list, board) -> dict:
+    """Phase `kernels`, kernel A on one board: the grid plan against the
+    plain packed step on the card, bit-exact, on GRID_BOARDS at
+    GRID_TURNS through the public entry and at each strip width, and at
+    512² over GRID_LONG turns (the plain step replayed as a CUDA graph)
+    with every candidate tile, for each rule but the last of `rules`
+    (`board(h, w)` makes a random packed board on the card); every
+    launch counted under the grid plan. Returns the boards' plans."""
+    import dataclasses
+
+    import torch
+
+    from gol_tpu_torch.ops import bitlife
+    from gol_tpu_torch.ops import cuda_bitlife as cb
+
+    checked = 0
+    plans = {}
+    if torch.cuda.get_device_properties(0).multi_processor_count != cb.SMS:
+        raise AssertionError(f"the card has not the {cb.SMS} SMs kernel A's "
+                             "grid plan assumes")
+    before = dict(cb.RESIDENT_PLANS)
+    launched = 0
+
+    def held(what, got, want):
+        nonlocal checked
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        errs["bitlife_resident"] = max(errs["bitlife_resident"], err)
+        if err:
+            raise AssertionError(f"bitlife_resident {what}: mismatch")
+        checked += 1
+
+    for rule in rules:
+        for h, w in GRID_BOARDS:
+            p = board(h, w)
+            auto = cb._grid_plan(h // 32, w)
+            plans[f"{h}x{w}"] = (auto.tile_rows, auto.tile_cols,
+                                 auto.blocks, auto.width)
+            want = plain_turns(
+                lambda x, k: bitlife.step_n_packed_raw(x, k, rule), p,
+                GRID_TURNS)
+            widths = [x for x in cb.GRID_WIDTHS
+                      if auto.tile_cols % x == w % x == 0]
+            for n in GRID_TURNS:
+                held(f"{h}x{w} n={n} {rule}",
+                     cb.step_n_packed_cuda_raw(p, n, rule), want[n])
+                for width in widths:
+                    plan = dataclasses.replace(auto, width=width)
+                    held(f"{plan} n={n} {rule}",
+                         cb._grid_pass(p, n, rule, plan), want[n])
+                launched += 1 + len(widths)
+            if (h, w) == (512, 512):
+                # A board 4 bytes off a strip's alignment: one-word strips.
+                odd = torch.empty(p.numel() + 1, dtype=p.dtype,
+                                  device=p.device)[1:].view(p.shape)
+                odd.copy_(p)
+                for n in (33, 64):
+                    held(f"{h}x{w} misaligned n={n} {rule}",
+                         cb.step_n_packed_cuda_raw(odd, n, rule), want[n])
+                launched += 2
+        # The main path's long launch, every candidate tile, against the
+        # plain step replayed as a CUDA graph.
+        if rule is not rules[-1]:
+            p = board(512, 512)
+            want = plain_graphed(p, GRID_LONG, rule)
+            held(f"512x512 n={GRID_LONG} {rule}",
+                 cb.step_n_packed_cuda_raw(p, GRID_LONG, rule), want)
+            for tile in GRID_CANDIDATES:
+                for width in cb.GRID_WIDTHS:
+                    plan = cb.GridPlan(16, 512, *tile, width)
+                    held(f"512x512 n={GRID_LONG} {rule} {plan}",
+                         cb._grid_pass(p, GRID_LONG, rule, plan), want)
+            launched += 1 + len(GRID_CANDIDATES) * len(cb.GRID_WIDTHS)
+    moved_plans = {k: v - before[k] for k, v in cb.RESIDENT_PLANS.items()}
+    if moved_plans != {"grid": launched, "cluster": 0}:
+        raise AssertionError(f"single boards took {moved_plans}, not "
+                             f"{launched} grid launches")
+    phase("kernels", f"{checked} kernel A runs on one board bit-exact "
+                     f"against the plain version (rules "
+                     f"{[str(r) for r in rules]}); grid (tile_rows, "
+                     f"tile_cols, blocks) {plans}; launches by plan "
+                     f"{moved_plans}")
+    return plans
+
+
+def check_cluster_boards(errs: dict, rules: list, board) -> None:
+    """Phase `kernels`, kernel A's cluster: RESIDENT_BOARDS at
+    RESIDENT_TURNS, each as a stack of one board through the batched
+    entry, bit-exact against the plain packed step on the card; the
+    boards' plans cross the cluster's seams (1, 3 and 8 blocks, the
+    8-block plan's halo exchange over distributed shared memory), and
+    every launch counts under the cluster plan."""
+    import torch
+
+    from gol_tpu_torch.ops import bitlife
+    from gol_tpu_torch.ops import cuda_bitlife as cb
+
+    before = dict(cb.RESIDENT_PLANS)
+    checked = 0
+    plans = {}
+    for rule in rules:
+        for h, w in RESIDENT_BOARDS:
+            p = board(h, w)
+            plans[f"{h}x{w}"] = cb._cluster_plan(h // 32, w, 2)
+            want = plain_turns(
+                lambda x, k: bitlife.step_n_packed_raw(x, k, rule), p,
+                RESIDENT_TURNS)
+            for n in RESIDENT_TURNS:
+                got = cb.step_n_packed_batch_cuda_raw(p[None], n, rule)[0]
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want[n])
+                errs["bitlife_resident_batch"] = max(
+                    errs["bitlife_resident_batch"], err)
+                if err:
+                    raise AssertionError(
+                        f"bitlife_resident cluster {h}x{w} n={n} {rule}: "
+                        "mismatch")
+                checked += 1
+    if not {1, 3, 8} <= {blocks for blocks, _, _ in plans.values()}:
+        raise AssertionError(f"kernel A's boards miss a cluster seam: {plans}")
+    took = {k: v - before[k] for k, v in cb.RESIDENT_PLANS.items()}
+    if took != {"grid": 0, "cluster": checked}:
+        raise AssertionError(f"the cluster's boards took {took}, not "
+                             f"{checked} cluster launches")
+    phase("kernels", f"{checked} kernel A cluster runs (stacks of one "
+                     f"board) bit-exact against the plain version; "
+                     f"(blocks, slab_rows, halo) {plans}")
+
+
 def check_kernels(errs: dict) -> None:
     """Phase 3: kernels A and B against the plain packed step on the
     card, bit-exact, at the main path's shapes and the listed seams."""
@@ -586,24 +737,10 @@ def check_kernels(errs: dict) -> None:
         return torch.randint(-2**31, 2**31 - 1, (h // 32, w),
                              dtype=torch.int32, generator=gen).cuda()
 
+    plans = check_grid_kernel(errs, rules, board)
+    check_cluster_boards(errs, rules, board)
     checked = 0
-    plans = {}
     for rule in rules:
-        for h, w in RESIDENT_BOARDS:
-            p = board(h, w)
-            plans[f"{h}x{w}"] = cb._cluster_plan(h // 32, w, 2)
-            want = plain_turns(
-                lambda x, k: bitlife.step_n_packed_raw(x, k, rule), p,
-                RESIDENT_TURNS)
-            for n in RESIDENT_TURNS:
-                got = cb.step_n_packed_cuda_raw(p, n, rule)
-                torch.cuda.synchronize()
-                err = max_abs_err(got, want[n])
-                errs["bitlife_resident"] = max(errs["bitlife_resident"], err)
-                if err:
-                    raise AssertionError(
-                        f"bitlife_resident {h}x{w} n={n} {rule}: mismatch")
-                checked += 1
         # Kernel B's seams: tile shapes, the deepest halo (768-column
         # tiles, 192 strips x 3 segments) and a ragged board (its last
         # tile 160 of 256 columns), the last two at 4096² only; for
@@ -663,12 +800,37 @@ def check_kernels(errs: dict) -> None:
                     checked += 1
             del p, want
             torch.cuda.empty_cache()
-    if not {1, 3, 8} <= {blocks for blocks, _, _ in plans.values()}:
-        raise AssertionError(f"kernel A's boards miss a cluster seam: {plans}")
-    phase("kernels", f"{checked} kernel runs bit-exact against the plain "
+    phase("kernels", f"{checked} kernel B runs bit-exact against the plain "
                      f"version (rules {[str(r) for r in rules]}, "
-                     f"max_abs_err {max(errs.values())}); kernel A's "
-                     f"(blocks, slab_rows, halo) {plans}")
+                     f"max_abs_err {max(errs.values())}); kernel A's grid "
+                     f"(tile_rows, tile_cols, blocks) {plans}")
+
+
+def plain_graphed(p, n: int, rule, block: int = 512):
+    """`n` turns of the plain packed step on the card, whole blocks of
+    `block` turns replayed as one captured CUDA graph (the host's launch
+    cost off a long reference); the rest turn by turn."""
+    import torch
+
+    from gol_tpu_torch.ops import bitlife
+
+    def steps(x):
+        return bitlife.step_n_packed_raw(x, block, rule)
+
+    static = p.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        steps(static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = steps(static)
+    whole, rest = divmod(n, block)
+    for _ in range(whole):
+        graph.replay()
+        static.copy_(out)
+    return bitlife.step_n_packed_raw(static, rest, rule)
 
 
 def check_gens_kernels(errs: dict) -> None:
@@ -1648,6 +1810,7 @@ def check_batch_kernel(errs: dict) -> dict:
     gen = torch.Generator().manual_seed(11)
     rules = [get_rule("B3/S23"), get_rule("B36/S23")]
     plans, checked = {}, 0
+    plans_before = dict(cb.RESIDENT_PLANS)
     for tile in BATCH_TILES:
         rows, cols = ext_shape(tile)
         if tiled.slab_route(tile) != "resident":
@@ -1676,6 +1839,10 @@ def check_batch_kernel(errs: dict) -> dict:
                     checked += 1
     if [plans[t][0] for t in (32, 64)] != [3, 4] or plans[32][1] != 1:
         raise AssertionError(f"tiles 32 and 64 are not one-row slabs: {plans}")
+    took = {k: v - plans_before[k] for k, v in cb.RESIDENT_PLANS.items()}
+    if took != {"grid": 0, "cluster": checked}:
+        raise AssertionError(f"the batched launches took {took}, not "
+                             f"{checked} cluster launches")
     rows, cols = ext_shape(4096)
     if tiled.slab_route(4096) != "tiled2d":
         raise AssertionError("tile 4096 has a kernel-A plan")
@@ -3698,6 +3865,7 @@ def check_session_kernels(errs: dict) -> None:
     from gol_tpu_torch.parallel.stepper import bucket_route, make_batch_stepper
 
     checked = 0
+    plans_before = dict(cb.RESIDENT_PLANS)
     for s, h, w in BUCKET_STACKS:
         if bucket_route(h, w) != "resident":
             raise AssertionError(f"{h}x{w}: no kernel-A cluster plan")
@@ -3719,6 +3887,10 @@ def check_session_kernels(errs: dict) -> None:
                 raise AssertionError(f"bucket {s} x {h}x{w} n={n}: mismatch "
                                      "or a padding slot woke")
             checked += 1
+    took = {k: v - plans_before[k] for k, v in cb.RESIDENT_PLANS.items()}
+    if took != {"grid": 0, "cluster": checked}:
+        raise AssertionError(f"the bucket launches took {took}, not "
+                             f"{checked} cluster launches")
     for (s, h, w, route, kernel, table, ns) in (
             (2, 4096, 4096, "tiled2d", "bitlife_tiled", cb.LAUNCHES, (1, 64)),
             (4, 100, 100, "dense", "life_dense", cl.LAUNCHES, (1, 16))):
@@ -6193,27 +6365,81 @@ def measure(errs: dict, launches: dict, int_ops_per_s: float,
               q4, 16384, star_wars), 3) / 16384 * 1e3}
     sw["share"] = sw["bound_ms"] / sw["ms"]
     by_name["bitgens_resident"]["B2/S345/C4"] = sw
-    for name, copies, run in (
-            ("bitlife_resident", 2,
+    auto = cb._grid_plan(16, 512)
+    for name, plan, run in (
+            ("bitlife_resident",
+             (auto.tile_rows, auto.tile_cols, auto.blocks, auto.width),
              lambda k: cb.step_n_packed_cuda_raw(p, k)),
-            ("bitgens_resident", brain.states,
+            ("bitgens_resident", cb._cluster_plan(16, 512, brain.states),
              lambda k: cg.step_n_packed_gens_cuda_raw(q, k, brain))):
         row = by_name[name]
-        row["plan"] = cb._cluster_plan(16, 512, copies)
+        row["plan"] = plan
         row["share"] = row["bound_ms"] / row["ms"]
         row["us_per_turn"] = time_ms(lambda: run(16384), 3) / 16384 * 1e3
         row["registers"] = kernel_resources(_build.build_log, name)
-        phase("measure", f"{name} 512² (blocks, slab_rows, halo) "
-                         f"{row['plan']}: {row['ms']:.4f} ms per 64-turn "
+        phase("measure", f"{name} 512² plan {row['plan']}: "
+                         f"{row['ms']:.4f} ms per 64-turn "
                          f"launch, {row['share']:.2%} of its bound; "
                          f"{row['us_per_turn']:.3f} us/turn at 16384-turn "
                          f"launches; {row['registers']}")
+    by_name["bitlife_resident"]["grid"] = grid = grid_measure()
+    phase("measure", f"bitlife_resident 512² at {GRID_LONG}-turn launches, "
+                     f"us a turn by device time (torch.profiler; CUDA "
+                     f"events beside): {grid}")
     phase("measure", f"bitgens_resident 512² B2/S345/C4 (run-time masks, "
                      f"plan {sw['plan']}): {sw['ms']:.4f} ms per 64-turn "
                      f"launch, bound {sw['bound_ms']:.4g} ms, "
                      f"{sw['share']:.2%} of it; {sw['us_per_turn']:.3f} "
                      f"us/turn at 16384-turn launches")
     return rows
+
+
+def grid_measure(reps: int = 3) -> dict:
+    """Kernel A at 512² in the main path's GRID_LONG-turn launches: us a
+    turn by the device's time (torch.profiler; CUDA events beside) of
+    each candidate tile of GRID_CANDIDATES at each strip width, of the
+    automatic plan, and of the cluster (the batched entry on a stack of
+    one board: the single-board plan before the grid); and the automatic
+    plan's round split in us from launches of 0, 32 and 64 turns — a
+    0-turn launch is the launch, the tile's load and its store; 32 turns
+    add one round's turns; 64 a second load and store and one barrier
+    — and the mean round of the long launch."""
+    import torch
+
+    from gol_tpu_torch.ops import bitlife, life
+    from gol_tpu_torch.ops import cuda_bitlife as cb
+
+    p = bitlife.pack(life.to_bits(torch.from_numpy(
+        life.random_world(512, 512, seed=1)).cuda()))
+    n = GRID_LONG
+
+    def per_turn(fn, turns=n, r=reps):
+        dev = device_ms(fn, "bitlife_resident", r)[0]
+        return {"device": None if dev is None else dev * 1e3 / turns,
+                "events": time_ms(fn, r) * 1e3 / turns}
+
+    out = {"by_tile": {}}
+    for tile in GRID_CANDIDATES:
+        for width in cb.GRID_WIDTHS:
+            plan = cb.GridPlan(16, 512, *tile, width)
+            out["by_tile"][f"{tile[0]}x{tile[1]}/{plan.blocks} "
+                           f"w{width}"] = per_turn(
+                lambda: cb._grid_pass(p, n, cb.LIFE, plan))
+    out["cluster"] = per_turn(
+        lambda: cb.step_n_packed_batch_cuda_raw(p[None], n))
+    auto = cb._grid_plan(16, 512)
+    out["plan"] = (auto.tile_rows, auto.tile_cols, auto.blocks, auto.width)
+    out["auto"] = per_turn(lambda: cb.step_n_packed_cuda_raw(p, n))
+    t = {k: (per_turn(lambda: cb.step_n_packed_cuda_raw(p, k), 1, 200)
+             ["device"]) for k in (0, 32, 64)}
+    if None not in t.values():
+        out["split_us"] = {"launch_load_store": t[0],
+                           "turns_32": t[32] - t[0],
+                           "barrier": t[64] - 2 * t[32] + t[0]}
+        if out["auto"]["device"] is not None:
+            out["split_us"]["round_in_long"] = (
+                (out["auto"]["device"] * n - t[0]) / (n // cb.TILE_TURNS))
+    return out
 
 
 def host_ms(fn, reps: int) -> float:

@@ -8,27 +8,37 @@
 //
 // A. bitlife_resident — replaces gol_tpu/ops/pallas_bitlife.py
 //    step_n_packed_pallas_raw (whole packed board resident in VMEM).
-//    One thread-block cluster of up to 8 blocks holds the whole board in
-//    their shared memory, as row slabs of every column with one ghost
-//    word-row a side (walk.cuh, "the resident cluster"); device memory is
-//    read once and written once per launch. Between rounds of 32 turns
-//    the blocks refresh their ghost rows from their neighbours' edge
-//    rows through distributed shared memory (two cluster barriers, and
-//    two ghost word-rows of each of a block's two copies, a round). Each
-//    round steps the slab: B3/S23 by the column walkers of walk.cuh (3
-//    LDS, 1 STS and 20 LOP3/SHF a word-turn, plus the walk's index
-//    steps), every other rule by kernel B's run-time masks (9 LDS and
-//    about 35 operations for the count, then the rule's mask loop). A
-//    board that no split into 2..8 slabs fits (one word-row, say) runs
-//    as one slab, its wrap the torus, with no ghost rows and no
-//    exchange.
+//    One board (bitlife_resident_grid, grid.cuh) is spread over the card
+//    as a persistent grid of small tiles, one block an SM at most, all
+//    resident together (a cooperative launch): each block holds its tile
+//    with one ghost word-row and 32 ghost columns a side in shared
+//    memory, steps it 32 turns (a round) on its own torus, stores the
+//    interior, and the blocks meet at a barrier before the next round
+//    loads the edges its neighbours stored (through L2; the 32-KB board
+//    of the main path never leaves it). B3/S23 steps a strip of 4 words
+//    of the extended tile a thread a turn (three rows of one LDS.128 and
+//    two LDS.32, each column's sum once, 14 LOP3/SHF a word, one
+//    STS.128, one barrier); every other rule the run-time masks below.
+//    A stack of boards (the batched entry: the tiled stepper's slab, the
+//    session buckets) keeps the resident cluster (walk.cuh): one
+//    thread-block cluster of up to 8 row slabs a board, every column,
+//    one ghost word-row a side, ghost rows refreshed from the neighbours
+//    over distributed shared memory every 32 turns (two cluster barriers,
+//    two ghost word-rows of each of a block's two copies, a round); B3/S23
+//    by the column walkers of walk.cuh, every other rule by kernel B's
+//    run-time masks (9 LDS and about 35 operations for the count, then
+//    the rule's mask loop). A board that no split into 2..8 slabs fits
+//    runs as one slab, its wrap the torus, with no exchange.
 //    Bound on the H100: integer operations, 12 LOP3/SHF per word-turn
 //    (chip_smoke.life_fewest_instructions); the bytes are 8 per word per
-//    launch. Still left: a small board fills 8 of the 132 SMs at most
-//    (512^2: 8 blocks of 4 x 512 extended words, 512 threads each), a
-//    slab of 2 interior word-rows carries 2 ghost word-rows (2x the
-//    interior's words), and each walker's two-row prologue is spread
-//    over a 4-row column.
+//    launch. Measured at 512^2 (PERF.md §6; 128 tiles of 1 x 64 words, 3
+//    x 128 extended words a block, 96 threads): ~0.195 us a turn at
+//    65,536-turn launches against the cluster's ~0.765, a round of 32
+//    turns ~6.4 us — the turns ~4.5, the load, store and grid barrier
+//    ~1.9. What bounds it: the turn's latency with one warp a scheduler
+//    (its 56 LOP3/SHF fill ~112 of a turn's ~276 cycles), the frame (a
+//    block steps 6x its interior's words, 384 for 64), then the round's
+//    barrier and L2 round trips.
 //
 // B. bitlife_tiled — replaces step_n_packed_pallas_tiled_raw and
 //    step_n_packed_pallas_tiled2d_raw (strip / 2-D tiles with deep
@@ -83,6 +93,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid.cuh"
 #include "strip.cuh"
 #include "swar.cuh"
 #include "walk.cuh"
@@ -207,6 +218,59 @@ __global__ void __launch_bounds__(kResidentThreads<kForm>, 1)
                  k.ec);
 }
 
+// Kernel A on one board as the persistent grid (grid.cuh): rounds of
+// kRoundTurns turns on the plan's tiles, ping-ponging between `out` and
+// `scratch` so that the last round writes `out` (`in` is only read, in
+// round 1), the blocks meeting at the grid's barrier between rounds.
+// B3/S23 steps a strip of kWidth words a thread (FORM_LIFE, tiles of at
+// most kGridThreads words), which also moves its strip in and out as one
+// access; every other rule, and a larger tile, the masks (kWidth 1),
+// moving the tile a word at a time.
+template <int kForm, int kWidth>
+__global__ void __launch_bounds__(gol::kGridThreads, 1)
+    bitlife_resident_grid(const u32* in, u32* out, u32* scratch, int rows,
+                          int cols, int n, u32 birth, u32 survive,
+                          int combine, const gol::Grid g) {
+  using gol::smem;
+  const int rounds = gol::grid_rounds(n);
+  const gol::GridStrip at = gol::grid_strip<kWidth>(rows, cols, g);
+  const u32* src = in;
+  for (int k = 0, done = 0; k < rounds; ++k) {
+    u32* dst = ((rounds - 1 - k) & 1) ? scratch : out;
+    if constexpr (kForm == FORM_LIFE)
+      gol::grid_load_strip<kWidth>(src, at);
+    else
+      gol::grid_load(src, smem, rows, cols, g);
+    __syncthreads();
+    const int t = min(gol::kRoundTurns, n - done);
+    int cur;
+    if constexpr (kForm == FORM_LIFE) {
+      cur = gol::grid_life_turns<kWidth>(g, t);
+      gol::grid_store_strip<kWidth>(smem + cur, dst, at);
+    } else {
+      cur = (int)(run_turns(smem, smem + g.words, g.er, g.ec, t, birth,
+                            survive, combine) -
+                  smem);
+      gol::grid_store(smem + cur, dst, rows, cols, g);
+    }
+    done += t;
+    if (k + 1 < rounds) cooperative_groups::this_grid().sync();
+    src = dst;
+  }
+}
+
+// The grid's instantiations: B3/S23 at strip widths 1, 2 and 4, and the
+// masks.
+using GridKernel = void (*)(const u32*, u32*, u32*, int, int, int, u32, u32,
+                            int, const gol::Grid);
+
+GridKernel grid_kernel(bool walk, int width) {
+  if (!walk) return bitlife_resident_grid<FORM_MASKS, 1>;
+  if (width == 4) return bitlife_resident_grid<FORM_LIFE, 4>;
+  if (width == 2) return bitlife_resident_grid<FORM_LIFE, 2>;
+  return bitlife_resident_grid<FORM_LIFE, 1>;
+}
+
 }  // namespace
 
 extern "C" {
@@ -246,6 +310,48 @@ int bitlife_resident_launch(const void* in, void* out, int batch, int rows,
                              (const u32*)in, (u32*)out, rows, cols,
                              slab_rows, halo, n, (u32)birth, (u32)survive,
                              combine, k);
+}
+
+// Kernel A on one board as the persistent grid: tiles of `tile_rows` x
+// `tile_cols` words (ceil-divided over the board), one block each,
+// launched cooperatively, the grid's barrier between rounds; B3/S23
+// steps strips of `width` words (1, 2 or 4, dividing the tile's and the
+// board's widths, the buffers aligned to a strip), moved in and out
+// whole. `scratch` (a board of the input's shape) is needed when n takes
+// more than one round, and may be null otherwise. A plan or buffer the
+// kernel does not run is refused (cudaErrorInvalidValue), as is a grid
+// the card cannot hold resident (by the launch).
+int bitlife_resident_grid_launch(const void* in, void* out, void* scratch,
+                                 int rows, int cols, int n, unsigned birth,
+                                 unsigned survive, int combine,
+                                 int tile_rows, int tile_cols, int width,
+                                 void* stream) {
+  const bool life = birth == (1u << 3) && survive == ((1u << 2) | (1u << 3));
+  if (rows < 1 || cols < 1 || n < 0 || tile_rows < 1 || tile_cols < 1 ||
+      tile_rows > rows || tile_cols > cols ||
+      (width != 1 && width != 2 && width != 4))
+    return (int)cudaErrorInvalidValue;
+  const gol::Grid g = gol::make_grid(rows, cols, tile_rows, tile_cols);
+  if (gol::grid_rounds(n) > 1 && scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const bool walk = life && g.words <= gol::kGridThreads;
+  if (!walk) width = 1;
+  const uintptr_t align = 4 * width;
+  if (g.ec % width || cols % width ||
+      ((uintptr_t)in | (uintptr_t)out | (uintptr_t)scratch) % align)
+    return (int)cudaErrorInvalidValue;
+  const int items = (g.words + width - 1) / width;
+  const int threads = items < gol::kGridThreads ? (items + 31) / 32 * 32
+                                                : gol::kGridThreads;
+  const size_t smem =
+      2 * sizeof(u32) * (size_t)(walk ? gol::kGridThreads : g.words);
+  const GridKernel kernel = grid_kernel(walk, width);
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  return gol::launch_grid(kernel, g, threads, smem, stream, (const u32*)in,
+                          (u32*)out, (u32*)scratch, rows, cols, n, (u32)birth,
+                          (u32)survive, combine, g);
 }
 
 // Kernel B picks its instantiation from the rule: B3/S23 (birth {3},

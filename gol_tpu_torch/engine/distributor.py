@@ -319,6 +319,18 @@ class _EngineMetrics:
                            cuda_life.LAUNCHES)
             for name in counts
         ]
+        # Kernel A's launches by plan, read the same way.
+        self.resident_plans = [
+            obs.collected_counter(
+                "gol_tpu_stepper_resident_plan_launches_total",
+                "Launches of kernel A (bitlife_resident) by plan: grid "
+                "(one board over the card) or cluster (a stack, one "
+                "cluster a board); cuda_bitlife.RESIDENT_PLANS, read when "
+                "the registry is read",
+                {"plan": plan},
+                functools.partial(cuda_bitlife.RESIDENT_PLANS.get, plan, 0))
+            for plan in cuda_bitlife.RESIDENT_PLANS
+        ]
 
 
 _METRICS = _EngineMetrics()

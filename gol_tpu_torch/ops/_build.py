@@ -46,6 +46,8 @@ _VP, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _SIGNATURES = {
     "bitlife_resident_launch": [_VP, _VP, _I, _I, _I, _I, _U, _U, _I, _I,
                                 _I, _I, _I, _I, _VP],
+    "bitlife_resident_grid_launch": [_VP, _VP, _VP, _I, _I, _I, _U, _U, _I,
+                                     _I, _I, _I, _VP],
     "bitlife_tiled_launch": [_VP, _VP, _I, _I, _I, _I, _I, _I, _I, _U, _U,
                              _I, _I, _I, _I, _VP],
     "bitgens_resident_launch": [_VP, _VP, _I, _I, _I, _I, _U, _U, _I, _I,

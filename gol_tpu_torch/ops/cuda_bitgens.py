@@ -7,8 +7,9 @@ bit-exact against the plain version `ops.bitgens.step_n_packed_gens_raw`:
 
 - `step_n_packed_gens_cuda_raw`: kernel C (`bitgens_resident` in
   csrc/bitgens.cu), every plane resident for all n turns in one
-  thread-block cluster of row slabs, kernel A's (`cb._cluster_plan`,
-  planned for C copies). Replaces `step_n_packed_gens_pallas_raw`.
+  thread-block cluster of row slabs, the plan of kernel A's batched
+  entry (`cb._cluster_plan`, planned for C copies). Replaces
+  `step_n_packed_gens_pallas_raw`.
 - `step_n_packed_gens_tiled_raw` / `step_n_packed_gens_tiled2d_raw`:
   kernel D (`bitgens_tiled`), kernel B of `ops/cuda_bitlife.py` per
   plane — every plane carries the ghost frame, k <= min(32*halo, ghost)

@@ -5,14 +5,20 @@ computes one function — (packed int32 board, n, rule) -> packed board
 after n toroidal turns — and is held bit-exact against the plain
 version `ops.bitlife.step_n_packed_raw`:
 
-- `step_n_packed_cuda_raw`: kernel A (`bitlife_resident` in
-  csrc/bitlife.cu), the whole board resident for all n turns in the
-  shared memory of one thread-block cluster of row slabs
+- `step_n_packed_cuda_raw`: kernel A (`bitlife_resident_grid` in
+  csrc/bitlife.cu, csrc/grid.cuh) on one board, spread over the card as
+  a persistent grid of small tiles (`_grid_plan`, one block an SM at
+  most), each stepping its tile and a ghost frame in shared memory for
+  rounds of 32 turns; the tiles trade their edges through global memory
+  (L2) behind a barrier between rounds. Replaces
+  `step_n_packed_pallas_raw`.
+- `step_n_packed_batch_cuda_raw`: kernel A (`bitlife_resident`) on a
+  (B, rows, cols) stack of boards of one shape, each board resident in
+  the shared memory of one thread-block cluster of row slabs
   (`_cluster_plan`), whose blocks exchange their ghost rows every 32
-  turns. Replaces `step_n_packed_pallas_raw`.
-- `step_n_packed_batch_cuda_raw`: kernel A on a (B, rows, cols) stack of
-  boards of one shape, one cluster a board, all in one launch (the grid's
-  z index picks the board). Replaces the `jax.vmap` of the plain packed
+  turns, all in one launch (the grid's z index picks the board): a
+  stack fills the card with one cluster a board, and its boards must
+  not wait at one barrier. Replaces the `jax.vmap` of the plain packed
   step with which gol_tpu's activity-tiled stepper steps its slab of
   ghost-extended tiles (gol_tpu/parallel/tiled.py), which is no Pallas
   kernel.
@@ -35,7 +41,8 @@ the kernel (after device, dtype, shape and contiguity checks) or raises
 — there is no fallback. Outputs are allocated with `torch.empty`, the
 launch goes on the current stream, and the launcher's
 `cudaGetLastError()` is checked after every launch. `LAUNCHES` counts
-the launches of each kernel, `TILE_LOADS` kernel B's by tile form.
+the launches of each kernel, `RESIDENT_PLANS` kernel A's by plan,
+`TILE_LOADS` kernel B's by tile form.
 """
 
 from __future__ import annotations
@@ -52,6 +59,14 @@ from gol_tpu_torch.ops.life import from_bits, to_bits
 
 #: Dynamic shared memory one block may use on the H100 (227 KB).
 SMEM_BYTES = 232_448
+#: Streaming multiprocessors of the H100: the most blocks of kernel A's
+#: grid plan, one an SM (chip_smoke.py checks it against the card's
+#: `multi_processor_count`).
+SMS = 132
+#: The most threads of a block of kernel A's grid plan, and the most
+#: words of an extended tile its B3/S23 body steps one a thread
+#: (`kGridThreads` in csrc/grid.cuh).
+GRID_THREADS = 1024
 #: The most column walkers of a block of kernels A, C and E (`kWalkThreads`
 #: in csrc/walk.cuh, whose launchers refuse more; their other rules run a
 #: fixed 512).
@@ -88,6 +103,13 @@ _MAX_GRID_Y = 65_535
 #: more).
 MAX_BATCH = 65_535
 
+#: Ghost columns a side of a tile of kernel A's grid plan: one round's
+#: light cone (`kGridGhost` in csrc/grid.cuh).
+GRID_GHOST = TILE_TURNS
+#: Words of a strip a thread of the grid steps (B3/S23): the widest that
+#: divides the tile's and the board's widths is taken.
+GRID_WIDTHS = (1, 2, 4)
+
 #: The combine forms of `rulecomp.compile_rule`, as kernel arguments.
 COMBINE = {"b_subset": 0, "s_subset": 1, "general": 2}
 
@@ -98,6 +120,10 @@ BULK_WORDS = 4
 #: Launches per kernel. Each wrapper adds one where it launches, and
 #: nowhere else; callers reset the counts by assigning 0.
 LAUNCHES = {"bitlife_resident": 0, "bitlife_tiled": 0}
+#: Kernel A's launches by plan: "grid" (one board, `_grid_plan`) or
+#: "cluster" (a stack, one cluster a board, `_cluster_plan`). One a
+#: launch; callers reset the counts by assigning 0.
+RESIDENT_PLANS = {"grid": 0, "cluster": 0}
 #: Kernel B's launches by how the blocks move their tiles (`_tile_form`):
 #: "bulk" (16-byte row pieces) or "words". One a launch, where the pass
 #: picks the form; callers reset the counts by assigning 0.
@@ -148,6 +174,96 @@ def _cluster_plan(rows: int, cols: int, copies: int) -> tuple:
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class GridPlan:
+    """Kernel A's grid plan of a packed board of `rows` x `cols` words:
+    tiles of `tile_rows` word-rows x `tile_cols` columns, ceil-divided
+    over the board (the last of a column or row ragged where the size
+    does not divide), one block each, every tile with one ghost word-row
+    and GRID_GHOST ghost columns a side; B3/S23 steps strips of `width`
+    words of the extended tile a thread (1, 2 or 4, dividing the tile's
+    and the board's widths), each moved in and out as one access."""
+
+    rows: int
+    cols: int
+    tile_rows: int
+    tile_cols: int
+    width: int = 1
+
+    def __post_init__(self):
+        if not (1 <= self.tile_rows <= self.rows
+                and 1 <= self.tile_cols <= self.cols):
+            raise ValueError(f"a {self.tile_rows}x{self.tile_cols} tile "
+                             f"does not fit a {self.rows}x{self.cols} board")
+        if (self.width not in GRID_WIDTHS
+                or self.tile_cols % self.width or self.cols % self.width):
+            raise ValueError(f"strips of {self.width} words do not divide "
+                             f"{self.tile_cols}-column tiles of a "
+                             f"{self.cols}-column board")
+
+    @property
+    def tiles_y(self) -> int:
+        return -(-self.rows // self.tile_rows)
+
+    @property
+    def tiles_x(self) -> int:
+        return -(-self.cols // self.tile_cols)
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles_y * self.tiles_x
+
+    @property
+    def ext_words(self) -> int:
+        """Words of one extended tile: what a block steps a turn."""
+        return (self.tile_rows + 2) * (self.tile_cols + 2 * GRID_GHOST)
+
+    @property
+    def exact(self) -> bool:
+        """Whether the tiles divide the board (no ragged tile)."""
+        return (self.rows % self.tile_rows == 0
+                and self.cols % self.tile_cols == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_plan(rows: int, cols: int) -> GridPlan:
+    """Kernel A's grid plan of a packed board of `rows` word-rows and
+    `cols` columns, from its shape and the card's SM count alone (no
+    card needed): the tiles of fewest extended words a block — the work
+    a block steps a turn, which bounds the turn — over at most SMS
+    blocks; ties go to tiles that divide the board, then to the fewest
+    word-rows a tile. Widths are whole 16-byte units (multiples of 4
+    words) where the board's width is, and at least GRID_GHOST, so that
+    the ghost columns reach only the next tile a side, unless one tile
+    takes the whole width. A board with too few word-rows or columns for
+    more tiles takes fewer, wider ones; a board of one word-row takes its
+    own row as its ghost rows, through the wrap."""
+    unit = 4 if cols % 4 == 0 else 1
+    widths = {cols} | set(range(-(-min(GRID_GHOST, cols) // unit) * unit,
+                                cols, unit))
+    best = None
+    for tile_rows in range(1, rows + 1):
+        tiles_y = -(-rows // tile_rows)
+        if tiles_y > SMS:
+            continue
+        for tile_cols in widths:
+            plan = GridPlan(rows, cols, tile_rows, tile_cols)
+            if plan.blocks > SMS:
+                continue
+            key = (plan.ext_words, not plan.exact, tile_rows, -tile_cols)
+            if best is None or key < best[0]:
+                best = key, plan
+    return dataclasses.replace(best[1], width=_strip_width(best[1], 0))
+
+
+def _strip_width(plan: GridPlan, ptrs: int) -> int:
+    """The widest strip that divides `plan`'s tile and board widths and
+    to whose bytes the buffers' addresses (OR-ed in `ptrs`) are
+    aligned."""
+    return max(w for w in GRID_WIDTHS
+               if plan.tile_cols % w == plan.cols % w == ptrs % (4 * w) == 0)
+
+
 def _resident_args(rows: int, cols: int, copies: int) -> tuple:
     """The cluster arguments of kernels A and C: (blocks, slab_rows,
     halo, threads, seg_rows), the walk plan of one slab last (the masks
@@ -160,7 +276,8 @@ def _resident_args(rows: int, cols: int, copies: int) -> tuple:
 def fits_cuda_packed(height: int, width: int) -> bool:
     """Kernel A eligibility: whole words, and two copies of the packed
     board within one block's shared memory (512² is 16 x 512 words,
-    64 KiB for both copies)."""
+    64 KiB for both copies) — the cluster's limit, which the grid plan
+    keeps, so that one board and a stack of them route alike."""
     if not bitlife.packable(height, width):
         return False
     return _resident_bytes(height // WORD, width) <= SMEM_BYTES
@@ -190,17 +307,19 @@ def _stream(p: torch.Tensor) -> int:
     return torch.cuda.current_stream(p.device).cuda_stream
 
 
-def _launch(launches: dict, name: str, like: torch.Tensor, *args) -> None:
-    """Launch kernel `name` through its C launcher, `<name>_launch(*args,
-    stream)`, on `like`'s device and current stream; count it in
-    `launches[name]` and raise if the launcher reports a CUDA error."""
+def _launch(launches: dict, name: str, like: torch.Tensor, *args,
+            entry: str | None = None) -> None:
+    """Launch kernel `name` through its C launcher, `<entry>_launch(*args,
+    stream)` (`entry` defaults to `name`), on `like`'s device and current
+    stream; count it in `launches[name]` and raise if the launcher
+    reports a CUDA error."""
     from gol_tpu_torch.ops import _build
 
     lib = _build.load()
     with torch.cuda.device(like.device):
-        code = getattr(lib, f"{name}_launch")(*args, _stream(like))
+        code = getattr(lib, f"{entry or name}_launch")(*args, _stream(like))
         launches[name] += 1
-    _build.check(lib, code, name)
+    _build.check(lib, code, entry or name)
 
 
 def _check_pass(src: torch.Tensor, dst: torch.Tensor, check) -> None:
@@ -216,18 +335,36 @@ def _check_pass(src: torch.Tensor, dst: torch.Tensor, check) -> None:
 def step_n_packed_cuda_raw(p: torch.Tensor, n: int,
                            rule: Rule = LIFE) -> torch.Tensor:
     """`n` turns, packed int32 in / packed int32 out, one launch of
-    kernel A (the whole board resident in one cluster's shared memory,
-    `_cluster_plan`)."""
+    kernel A as the persistent grid of `_grid_plan` (the board spread
+    over the card in small tiles, rounds of 32 turns)."""
     if n < 0:
         raise ValueError("n must be >= 0")
     if p.device.type == "cpu":
         return bitlife.step_n_packed_raw(p, n, rule)
     _check_cuda(p)
+    return _grid_pass(p, n, rule, _grid_plan(*p.shape))
+
+
+def _grid_pass(p: torch.Tensor, n: int, rule: Rule,
+               plan: GridPlan) -> torch.Tensor:
+    """One launch of kernel A's grid on the card's board `p` with
+    `plan`'s tiles, the grid's barrier between rounds: the output and,
+    when n takes more than one round, a scratch board, both allocated
+    here; the kernel allocates nothing."""
     rows, cols = p.shape
-    plan = _resident_args(rows, cols, 2)
     out = torch.empty_like(p)
+    scratch = None
+    ptrs = p.data_ptr() | out.data_ptr()
+    if n > TILE_TURNS:
+        scratch = torch.empty_like(p)
+        ptrs |= scratch.data_ptr()
+    if ptrs % (4 * plan.width):
+        plan = dataclasses.replace(plan, width=_strip_width(plan, ptrs))
     _launch(LAUNCHES, "bitlife_resident", p, p.data_ptr(), out.data_ptr(),
-            1, rows, cols, n, *rule_args(rule), *plan)
+            None if scratch is None else scratch.data_ptr(), rows, cols, n,
+            *rule_args(rule), plan.tile_rows, plan.tile_cols, plan.width,
+            entry="bitlife_resident_grid")
+    RESIDENT_PLANS["grid"] += 1
     return out
 
 
@@ -262,6 +399,7 @@ def step_n_packed_batch_cuda_raw(stack: torch.Tensor, n: int,
     plan = _resident_args(rows, cols, 2)
     _launch(LAUNCHES, "bitlife_resident", stack, stack.data_ptr(),
             out.data_ptr(), batch, rows, cols, n, *rule_args(rule), *plan)
+    RESIDENT_PLANS["cluster"] += 1
     return out
 
 
@@ -513,10 +651,10 @@ def step_n_packed_kernel_raw(p: torch.Tensor, n: int,
 def kernel_plan(rows: int, width: int) -> tuple:
     """(kernel, blocks) of one launch of `step_n_packed_kernel_raw` on a
     packed board of `rows` word-rows and `width` columns, from the plans
-    alone (no card needed): kernel A's cluster (`_cluster_plan`), or
-    kernel B's 2-D grid of tiles (`_tiled2d_geometry`)."""
+    alone (no card needed): kernel A's grid (`_grid_plan`), or kernel
+    B's 2-D grid of tiles (`_tiled2d_geometry`)."""
     if fits_cuda_packed(rows * WORD, width):
-        return "bitlife_resident", _cluster_plan(rows, width, 2)[0]
+        return "bitlife_resident", _grid_plan(rows, width).blocks
     geom = _tiled2d_geometry(rows, width, None)
     return "bitlife_tiled", (-(-rows // geom.tile_rows)
                              * -(-width // geom.tile_cols))

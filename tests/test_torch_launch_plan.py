@@ -2,7 +2,7 @@
 worked out from the plans with no card: the CUDA wrappers' launch counts
 as one registry counter read when the registry is read
 (`gol_tpu_stepper_kernel_launches_total{kernel}`), the blocks one launch
-occupies (`gol_tpu_stepper_launch_blocks{kernel}`: kernel A's cluster at
+occupies (`gol_tpu_stepper_launch_blocks{kernel}`: kernel A's grid at
 512², kernel B's 2-D grid at 5120²), the kernel named on the engine's
 chunk marks, and the engine on the 512² board through the CUDA packed
 backend's route against the benchmark's plain reference."""
@@ -55,13 +55,13 @@ def test_launch_counter_reads_the_wrappers_counts(monkeypatch):
 
 
 @pytest.mark.parametrize("side, kernel, blocks", [
-    (512, "bitlife_resident", 8),
+    (512, "bitlife_resident", 128),
     (5120, "bitlife_tiled", 100),
 ])
 def test_launch_blocks_gauge_is_the_kernels_plan(side, kernel, blocks):
     rows = side // 32
     if kernel == "bitlife_resident":
-        want = cuda_bitlife._cluster_plan(rows, side, 2)[0]
+        want = cuda_bitlife._grid_plan(rows, side).blocks
     else:
         geom = cuda_bitlife._tiled2d_geometry(rows, side, None)
         want = -(-rows // geom.tile_rows) * -(-side // geom.tile_cols)

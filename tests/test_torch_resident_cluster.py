@@ -253,9 +253,11 @@ def test_plan_constants_are_the_kernels():
 
 @pytest.mark.parametrize("notation", RULES + ["B2/S/C7"])
 def test_wrapper_hands_the_plan_to_the_launcher(monkeypatch, notation):
-    """A tensor on the card goes to the resident launcher with the
-    cluster plan and the slab's walk plan last, in the order and number
-    of the C signature (less the stream, which `_launch` adds)."""
+    """A stack on the card (kernel A's batched entry, here of one board;
+    a single board takes the grid, tests/test_torch_resident_grid.py) or
+    a Generations board (kernel C) goes to the resident launcher with
+    the cluster plan and the slab's walk plan last, in the order and
+    number of the C signature (less the stream, which `_launch` adds)."""
     seen = []
     monkeypatch.setattr(cb, "_check_cuda", lambda p, dims=2: None)
     monkeypatch.setattr(cb, "_launch", lambda launches, name, like, *args:
@@ -270,8 +272,8 @@ def test_wrapper_hands_the_plan_to_the_launcher(monkeypatch, notation):
         assert args[2:6] == (rule.states - 1, 16, 512, 100)
         assert args[6:8] == cb.rule_bits(rule)
     else:
-        x = torch.empty((16, 512), dtype=torch.int32, device="meta")
-        cb.step_n_packed_cuda_raw(x, 100, rule)
+        x = torch.empty((1, 16, 512), dtype=torch.int32, device="meta")
+        cb.step_n_packed_batch_cuda_raw(x, 100, rule)
         (name, args), = seen
         assert name == "bitlife_resident"
         assert args[2:6] == (1, 16, 512, 100)  # a batch of one board
